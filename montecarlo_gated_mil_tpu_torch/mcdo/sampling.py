@@ -1,0 +1,149 @@
+"""Monte Carlo dropout inference: T head samples over one feature pass.
+
+Counterpart of ``montecarlo_gated_mil_tpu/mcdo/sampling.py``.  Features are
+computed once; the T stochastic head passes run in the MC-head kernel
+(``ops/gated_attention.py``) on the card, or its plain version on the CPU.
+The uncertainty reductions are plain tensor ops on the device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
+    GatedAttentionParams,
+    mc_gated_attention,
+)
+
+
+@dataclass(frozen=True)
+class MCOutputs:
+    """Raw Monte Carlo outputs for one bag.
+
+    predictions: ``(T, C)`` raw logits.
+    attention: ``(T, C, N)`` post-softmax attention (zero on padded slots).
+    """
+
+    predictions: torch.Tensor
+    attention: torch.Tensor
+
+
+def mc_head(
+    model,
+    H: torch.Tensor,
+    mask: torch.Tensor | None,
+    num_samples: int,
+    seed: int,
+    params: GatedAttentionParams | None = None,
+) -> MCOutputs:
+    """T stochastic head passes over precomputed features ``H (N, L)``;
+    sample t is seeded with ``seed + t``.  ``params`` may carry the head's
+    weights already in kernel layout (a predictor converts them once)."""
+    if mask is None:
+        mask = torch.ones(H.shape[0], dtype=torch.bool, device=H.device)
+    if params is None:
+        params = GatedAttentionParams.from_module(model)
+    Y, A = mc_gated_attention(
+        H, mask, params, num_samples, seed,
+        model.feature_dropout, model.attention_dropout,
+    )
+    return MCOutputs(predictions=Y, attention=A)
+
+
+def mc_inference(
+    model,
+    patches,
+    mask,
+    num_samples: int,
+    seed: int,
+    *,
+    device: str | torch.device = "cuda",
+) -> MCOutputs:
+    """Features once, then T head samples.  ``patches``: one bag
+    ``(N, h, w, 3)``; ``model`` must already live on ``device``."""
+    device = torch.device(device)
+    model_device = next(model.parameters()).device
+    if model_device.type != device.type:
+        raise ValueError(f"model is on {model_device}, inference asked for {device}")
+    patches = torch.as_tensor(patches, device=device)
+    mask = None if mask is None else torch.as_tensor(mask, device=device)
+    with torch.inference_mode():
+        H = model.embed(patches, mask)
+        return mc_head(model, H, mask, num_samples, seed)
+
+
+@dataclass(frozen=True)
+class PredictiveStats:
+    """Per-bag predictive-uncertainty summary over T MC samples (std is
+    ddof=0, entropy has a 1e-10 floor, prediction = argmax of the MC-mean
+    probabilities)."""
+
+    mean_probs: torch.Tensor  # (C,)
+    prediction: torch.Tensor  # ()
+    mean: torch.Tensor  # () mean P(positive)
+    std: torch.Tensor  # () std (ddof=0) of P(positive)
+    median: torch.Tensor  # ()
+    iqr: torch.Tensor  # () 75th - 25th percentile
+    low: torch.Tensor  # () min
+    high: torch.Tensor  # () max
+    mean_entropy: torch.Tensor  # () mean over T of -sum_c p_c log p_c
+
+
+def predictive_stats(predictions: torch.Tensor, positive_class: int = 1) -> PredictiveStats:
+    """Reduce ``(T, C)`` MC logits to uncertainty stats.
+
+    ``torch.quantile`` interpolates linearly like ``jnp.percentile`` and,
+    at q=0.5, averages the two middle values at even T like ``jnp.median``
+    (``torch.median`` would return the lower one).
+    """
+    probs = torch.softmax(predictions, dim=-1)
+    p = probs[..., positive_class]
+    q = torch.quantile(p, torch.tensor([0.25, 0.5, 0.75], dtype=p.dtype, device=p.device))
+    entropy = -(probs * torch.log(probs + 1e-10)).sum(-1)
+    mean_probs = probs.mean(0)
+    return PredictiveStats(
+        mean_probs=mean_probs,
+        prediction=torch.argmax(mean_probs, dim=-1),
+        mean=p.mean(),
+        std=p.std(correction=0),
+        median=q[1],
+        iqr=q[2] - q[0],
+        low=p.min(),
+        high=p.max(),
+        mean_entropy=entropy.mean(),
+    )
+
+
+def interpret_entropy(mean_entropy: float) -> str:
+    """Verbal uncertainty bucket (reference ``infer.py:58-66``)."""
+    h = float(mean_entropy)
+    if h < 0.2:
+        return "very low"
+    if h < 0.4:
+        return "low"
+    if h < 0.6:
+        return "moderate"
+    return "high"
+
+
+@dataclass(frozen=True)
+class AttentionStats:
+    """Mean and spread of attention over T samples (``std`` is ddof=1)."""
+
+    mean: torch.Tensor  # (C, N)
+    std: torch.Tensor  # (C, N)
+    var: torch.Tensor  # (C, N)
+
+
+def attention_stats(attention: torch.Tensor, mask: torch.Tensor | None = None) -> AttentionStats:
+    """Reduce ``(T, C, N)`` attention over the sample axis; padded slots
+    are re-zeroed through ``mask``."""
+    mean = attention.mean(0)
+    var = attention.var(0, correction=1) if attention.shape[0] > 1 else torch.zeros_like(mean)
+    if mask is not None:
+        zero = torch.zeros((), dtype=mean.dtype, device=mean.device)
+        mean = torch.where(mask, mean, zero)
+        var = torch.where(mask, var, zero)
+    return AttentionStats(mean=mean, std=var.sqrt(), var=var)

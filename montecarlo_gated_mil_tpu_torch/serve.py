@@ -1,0 +1,293 @@
+"""Serving: raw mammogram in, uncertainty-aware prediction out.
+
+Counterpart of ``montecarlo_gated_mil_tpu/serve.py::MCDOPredictor``: on-device
+preprocessing (``data/pipeline.py``, tile gather kernel), one feature pass,
+T Monte Carlo head samples in one kernel launch, and the uncertainty
+reductions on the device, behind one warm predictor.
+
+    predictor = MCDOPredictor.from_config(cfg, state_dict)
+    result = predictor.predict(image, laterality="R", seed=7)
+    result.prediction, result.stats.mean, result.attention.mean
+"""
+
+from __future__ import annotations
+
+import threading
+import warnings
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from montecarlo_gated_mil_tpu_torch.core.bag import BucketSpec
+from montecarlo_gated_mil_tpu_torch.core.config import Config
+from montecarlo_gated_mil_tpu_torch.data.pipeline import (
+    ESTIMATE_MARGIN_HI,
+    PipelineConfig,
+    estimate_valid_tiles,
+    image_to_bag,
+)
+from montecarlo_gated_mil_tpu_torch.mcdo.sampling import (
+    AttentionStats,
+    PredictiveStats,
+    attention_stats,
+    mc_head,
+    predictive_stats,
+)
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
+from montecarlo_gated_mil_tpu_torch.ops.patching import compute_tile_grid
+
+
+def _prepare_image(image, pixel_max: float | None) -> tuple[np.ndarray, float]:
+    """(host array to ship, device-side 1/max scale).
+
+    Integer arrays ship as they are (1-2 bytes/px) and are normalized on the
+    device by ``pixel_max`` (default: the dtype's max; pass
+    ``2**bits_stored - 1`` for raw DICOM pixels).  Float arrays are taken to
+    be in [0, 1] unless ``pixel_max`` says otherwise.
+    """
+    arr = np.asarray(image)
+    if arr.dtype.kind in "ui":
+        mx = float(np.iinfo(arr.dtype).max) if pixel_max is None else float(pixel_max)
+        return arr, float(np.float32(1.0 / mx))
+    arr = np.asarray(arr, np.float32)
+    return arr, float(np.float32(1.0 if pixel_max is None else 1.0 / float(pixel_max)))
+
+
+@dataclass(frozen=True)
+class PredictionResult:
+    """One bag's uncertainty-aware prediction (tensors on the CPU)."""
+
+    prediction: int  # argmax of MC-mean class probabilities
+    stats: PredictiveStats
+    attention: AttentionStats  # per instance, over T samples
+    num_instances: int
+    bucket: int
+
+
+def _host(x):
+    """Dataclass of device tensors -> the same dataclass on the CPU."""
+    return type(x)(**{k: v.cpu() for k, v in vars(x).items()})
+
+
+class MCDOPredictor:
+    """Warm end-to-end MCDO inference for one pipeline configuration.
+
+    Thread-safe.  Host-side prep (pixel normalization, the subsampled bucket
+    estimate) and the image upload run concurrently across caller threads;
+    device execution goes through a bounded gate (``max_inflight``, default
+    1), so at most that many requests hold device memory at once.
+
+    With a ``bucket_spec`` each request embeds at the smallest sufficient
+    bucket; an oversized request (more valid tiles than the cap bucket)
+    extends past the cap under ``oversized='extend'`` and keeps every tile.
+    """
+
+    def __init__(
+        self,
+        model,
+        pipeline: PipelineConfig,
+        *,
+        num_samples: int = 30,
+        quantized: bool = False,
+        bucket_spec: BucketSpec | None = None,
+        oversized: str = "extend",
+        max_inflight: int = 1,
+        device: str | torch.device = "cuda",
+    ):
+        if quantized:
+            raise NotImplementedError(
+                "quantized inference is not ported yet (ROADMAP.md queue 1, "
+                "item 10: ops/quantized.py)"
+            )
+        if oversized not in ("extend", "truncate"):
+            raise ValueError(f"oversized must be 'extend' or 'truncate', got {oversized!r}")
+        if max_inflight < 1:
+            raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.pipeline = pipeline
+        self.num_samples = num_samples
+        self.bucket_spec = bucket_spec
+        self.oversized = oversized
+        self.truncated_requests = 0
+        self._warned_truncation = False
+        self._lock = threading.Lock()  # truncation counter
+        self._execute_gate = threading.BoundedSemaphore(max_inflight)
+        self._grid = pipeline.grid()
+        self._starts_np = self._grid.tiles_array()[:, :2]
+        self._starts = torch.as_tensor(self._starts_np, dtype=torch.int64, device=self.device)
+        # Head weights in kernel layout, converted once.
+        self._head_params = GatedAttentionParams.from_module(self.model).to(self.device)
+
+    @classmethod
+    def from_config(
+        cls,
+        cfg: Config,
+        weights,
+        *,
+        train_overlap: bool = False,
+        **kw,
+    ) -> "MCDOPredictor":
+        """Predictor for ``cfg`` with ``weights``, a state_dict in the
+        port's (reference) schema, e.g. from ``weights.from_jax_params``."""
+        from montecarlo_gated_mil_tpu_torch.experiment import build_model
+
+        d = cfg.data
+        overlap = d.overlap_train if train_overlap else d.overlap_val_test
+        grid = compute_tile_grid(d.H, d.W, d.patch_size, overlap)
+        pipeline = PipelineConfig(
+            height=d.H,
+            width=d.W,
+            patch_size=d.patch_size,
+            overlap=overlap,
+            empty_threshold=d.empty_threshold,
+            bag_size=d.bag_size_val_test,
+            bucket=BucketSpec(cfg.tpu.buckets).bucket_for(grid.num_tiles),
+            augment=False,
+            dtype=cfg.tpu.compute_dtype,
+        )
+        kw.setdefault("num_samples", cfg.N)
+        kw.setdefault("quantized", cfg.tpu.quantized_inference)
+        kw.setdefault("oversized", cfg.tpu.oversized_bags)
+        if len(cfg.tpu.buckets) > 1:
+            kw.setdefault("bucket_spec", BucketSpec(cfg.tpu.buckets))
+        model = build_model(cfg)
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()})
+        return cls(model, pipeline, **kw)
+
+    def _pick_bucket(self, arr: np.ndarray, laterality: str) -> int:
+        """Smallest sufficient bucket for a request, from the host-side
+        subsampled fill estimate (no device work).  When the decision flips
+        inside the estimator's uncertainty band the request takes the larger
+        bucket: rounding up costs padding, never tiles."""
+        cap = self.pipeline.bucket
+        may_overflow = self._grid.num_tiles > cap and (
+            self.pipeline.bag_size <= 0 or self.pipeline.bag_size > cap
+        )
+        if self.bucket_spec is None and not may_overflow:
+            return cap
+        est = estimate_valid_tiles(
+            arr, laterality == "R", self._starts_np, self.pipeline,
+            margin_hi=ESTIMATE_MARGIN_HI,
+        )
+        if est is None:
+            return cap
+        n, n_hi = est
+        bucket_lo, over_lo = self._decide_bucket(n, may_overflow)
+        bucket_hi, _ = self._decide_bucket(n_hi, may_overflow)
+        if over_lo and self.oversized != "extend":
+            with self._lock:
+                self.truncated_requests += 1
+                warn_now = not self._warned_truncation
+                self._warned_truncation = True
+            if warn_now:
+                warnings.warn(
+                    f"request with ~{n} valid tiles truncated to bucket {cap} "
+                    "(lowest-fill tiles dropped; oversized='truncate'); use "
+                    "oversized='extend' to keep every tile",
+                    stacklevel=3,
+                )
+        return max(bucket_lo, bucket_hi)
+
+    def _decide_bucket(self, n: int, may_overflow: bool) -> tuple[int, bool]:
+        """Map a valid-tile count to ``(bucket, overflowed)``.  On one card an
+        extended bucket is a multiple of the cap bucket alone."""
+        cap = self.pipeline.bucket
+        if may_overflow and n > cap:
+            if self.oversized == "extend":
+                spec = self.bucket_spec or BucketSpec((cap,))
+                return spec.extended_bucket(n, multiple_of=1), True
+            return cap, True
+        if self.bucket_spec is None:
+            return cap, False
+        return min(self.bucket_spec.bucket_for(n), cap), False
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=True)
+
+    def _infer(self, image: torch.Tensor, flip: bool, seed: int, inv_max: float, bucket: int):
+        """The request on the device: bag, features, T head samples, stats."""
+        image = image.to(torch.float32) * inv_max
+        bag = image_to_bag(
+            image, flip, 0, self._starts, replace(self.pipeline, bucket=bucket),
+            device=self.device,
+        )
+        H = self.model.embed(bag.patches, bag.mask)
+        out = mc_head(self.model, H, bag.mask, self.num_samples, seed, self._head_params)
+        y, a = out.predictions, out.attention
+        return bag, y, a, predictive_stats(y), attention_stats(a, bag.mask)
+
+    def warmup(self, dtypes=(np.float32, np.uint16)) -> None:
+        """Run one dummy request per registry bucket and input dtype, so the
+        first real request pays no kernel build or library setup."""
+        hw = (self.pipeline.height, self.pipeline.width)
+        buckets = [self.pipeline.bucket]
+        if self.bucket_spec is not None:
+            buckets += [b for b in self.bucket_spec.sizes if b <= self.pipeline.bucket]
+        for dtype in dtypes:
+            zero, inv_max = _prepare_image(np.zeros(hw, dtype), None)
+            for b in dict.fromkeys(buckets):
+                with self._execute_gate, torch.inference_mode():
+                    self._infer(self._upload(zero), False, 0, inv_max, b)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def predict(
+        self,
+        image: np.ndarray,
+        laterality: str = "L",
+        *,
+        seed: int = 0,
+        return_maps: bool = False,
+        pixel_max: float | None = None,
+    ) -> PredictionResult:
+        """Classify one grayscale mammogram.
+
+        ``image`` is float in [0, 1], or raw integer pixels (uint8/uint16)
+        normalized on the device by ``pixel_max`` (default: the dtype's max),
+        which halves the upload.  ``return_maps`` is not ported yet.
+        """
+        if return_maps:
+            raise NotImplementedError(
+                "return_maps needs viz/attention.py, which is not ported yet "
+                "(ROADMAP.md queue 1, item 13: viz)"
+            )
+        arr, inv_max = _prepare_image(image, pixel_max)
+        bucket = self._pick_bucket(arr, laterality)
+        dev = self._upload(arr)
+        with self._execute_gate, torch.inference_mode():
+            bag, _, _, stats, att = self._infer(dev, laterality == "R", seed, inv_max, bucket)
+            n_inst = int(bag.num_instances)
+            stats, att = _host(stats), _host(att)
+        return PredictionResult(
+            prediction=int(stats.prediction),
+            stats=stats,
+            attention=att,
+            num_instances=n_inst,
+            bucket=bucket,
+        )
+
+    def predict_many(
+        self,
+        images,
+        lateralities=None,
+        *,
+        seed: int = 0,
+        seeds: list[int] | None = None,
+        pixel_maxes: list[float | None] | None = None,
+    ) -> list[PredictionResult]:
+        """Sequential batch prediction; request i is seeded ``seed + i``
+        unless ``seeds`` gives each its own."""
+        lateralities = lateralities or ["L"] * len(images)
+        if seeds is None:
+            seeds = [seed + i for i in range(len(images))]
+        if len(seeds) != len(images):
+            raise ValueError(f"{len(seeds)} seeds for {len(images)} images")
+        pixel_maxes = pixel_maxes or [None] * len(images)
+        if len(pixel_maxes) != len(images):
+            raise ValueError(f"{len(pixel_maxes)} pixel_maxes for {len(images)} images")
+        return [
+            self.predict(img, lat, seed=s, pixel_max=pm)
+            for img, lat, s, pm in zip(images, lateralities, seeds, pixel_maxes)
+        ]
