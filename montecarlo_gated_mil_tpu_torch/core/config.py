@@ -5,7 +5,13 @@ Same dataclasses, defaults and validation as
 both packages.  The ``tpu:`` section keeps its name for that reason.  The
 port's predictor reads ``buckets``, ``compute_dtype``, ``oversized_bags``
 and ``quantized_inference`` (which it refuses until the quantized embed is
-ported); the other knobs are parsed and validated only.
+ported); training reads ``buckets``, ``adaptive_buckets``,
+``compute_dtype``, ``oversized_bags`` and ``checkpoint_every``.  The other
+knobs are parsed and validated only.  ``use_pallas_train`` in particular has
+no effect in the port: on the card a training step's head always runs the
+forward kernel and its backward kernel (K1/K5, or K2/K4 for a shared gate),
+and on the CPU their plain version; both compute the same function on the
+same Philox bits, so there is nothing to choose.
 """
 
 from __future__ import annotations
@@ -158,9 +164,9 @@ class TpuConfig:
     param_dtype: str = "float32"
     donate_buffers: bool = True
     use_pallas_attention: bool = True
-    # Run the TRAINING step's gated-attention head through the fused
-    # kernel (forward + backward) instead of the plain head.  Off by
-    # default; the port has no training path yet.
+    # The JAX package's choice of the fused kernel for the training step's
+    # head.  Parsed only: the port's head runs its kernels on the card
+    # and their plain version on the CPU (module docstring).
     use_pallas_train: bool = False
     # Opt-in quantized embedding (post-training quantization with static
     # k-sigma activation scales).  Parsed for config compatibility; the

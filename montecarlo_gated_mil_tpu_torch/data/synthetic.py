@@ -1,4 +1,4 @@
-"""Synthetic mammogram generator (the port's own copy of the numpy-only
+"""Synthetic mammograms and records (the port's own copy of the numpy-only
 generator in ``montecarlo_gated_mil_tpu/data/synthetic.py``).
 
 The reference repo assumes private DICOM data on disk; this environment has
@@ -12,6 +12,8 @@ scoring, model, CV) runs identically.
 from __future__ import annotations
 
 import numpy as np
+
+from montecarlo_gated_mil_tpu_torch.data.records import BagRecord
 
 
 def synthetic_image(
@@ -41,3 +43,35 @@ def synthetic_image(
         mass = np.exp(-(((y - my) ** 2 + (x - mx) ** 2) / (2 * mr**2)))
         img = np.clip(img + 0.5 * mass.astype(np.float32) * lobe, 0.0, 1.0)
     return img
+
+
+def synthetic_records(
+    n: int, *, positive_fraction: float = 0.4, seed: int = 0
+) -> list[BagRecord]:
+    """Records whose paths encode the generator seed (``synthetic://i``)."""
+    rng = np.random.default_rng(seed)
+    classes = ("Normal", "Benign", "Malignant", "Lymph_nodes")
+    recs = []
+    for i in range(n):
+        positive = rng.random() < positive_fraction
+        cls = classes[2 + rng.integers(2)] if positive else classes[rng.integers(2)]
+        recs.append(
+            BagRecord(
+                paths=(f"synthetic://{i}",),
+                class_name=cls,
+                view="LCC" if rng.random() < 0.5 else "RCC",
+                laterality="L" if rng.random() < 0.5 else "R",
+            )
+        )
+    return recs
+
+
+def make_synthetic_reader(height: int, width: int):
+    """Reader for :class:`~montecarlo_gated_mil_tpu_torch.data.pipeline.BagLoader`
+    over synthetic records."""
+
+    def read(rec: BagRecord) -> np.ndarray:
+        idx = int(rec.paths[0].rsplit("//", 1)[1])
+        return synthetic_image(height, width, positive=rec.label == 1, seed=idx)
+
+    return read

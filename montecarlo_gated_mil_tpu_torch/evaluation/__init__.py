@@ -1,0 +1,1 @@
+"""Port of ``montecarlo_gated_mil_tpu.evaluation``."""

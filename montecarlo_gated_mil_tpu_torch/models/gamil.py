@@ -21,6 +21,47 @@ import torch.nn as nn
 from montecarlo_gated_mil_tpu_torch.models.resnet import feature_dim, make_backbone
 
 
+def pairwise_distance(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Euclidean distance over the last axis with ``F.pairwise_distance``'s
+    epsilon (added to the difference before the norm), written out as the
+    JAX package's ``gamil.pairwise_distance``."""
+    return torch.sqrt(torch.sum(torch.square(x - y + eps), dim=-1))
+
+
+def cosine_similarity(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Cosine similarity over the last axis, each norm clamped at ``eps``."""
+    nx = torch.clamp(torch.linalg.vector_norm(x, dim=-1), min=eps)
+    ny = torch.clamp(torch.linalg.vector_norm(y, dim=-1), min=eps)
+    return torch.sum(x * y, dim=-1) / (nx * ny)
+
+
+def auxiliary_loss(
+    pos_attention: torch.Tensor,
+    neg_attention: torch.Tensor,
+    is_positive: torch.Tensor,
+    *,
+    loss_type: str = "pairwise",
+    margin: float = 1.0,
+) -> torch.Tensor:
+    """Attention-separation loss (JAX ``gamil.auxiliary_loss``).
+
+    Pushes the positive and negative heads' attention ``(..., N)`` apart on
+    positive bags and together on negative bags; ``is_positive (...)`` bool.
+    Returns the unscaled per-bag loss; the caller applies ``aux_scale``.
+    """
+    if loss_type == "pairwise":
+        d = pairwise_distance(pos_attention, neg_attention)
+        pos_branch = torch.clamp(margin - d, min=0.0)
+        neg_branch = d
+    elif loss_type == "cosine":
+        c = cosine_similarity(pos_attention, neg_attention)
+        pos_branch = c
+        neg_branch = 1.0 - c
+    else:
+        raise ValueError(f"Unknown auxiliary loss type: {loss_type!r}")
+    return torch.where(is_positive, pos_branch, neg_branch)
+
+
 class MultiHeadGatedAttentionMIL(nn.Module):
     """Per-class gated-attention MIL with MC-dropout support.
 
@@ -38,6 +79,9 @@ class MultiHeadGatedAttentionMIL(nn.Module):
         attention_dropout: float = 0.1,
         shared_attention: bool = True,
         dtype: torch.dtype = torch.float32,
+        aux_loss_type: str = "pairwise",
+        aux_margin: float = 1.0,
+        aux_scale: float = 0.5,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -47,6 +91,9 @@ class MultiHeadGatedAttentionMIL(nn.Module):
         self.attention_dropout = attention_dropout
         self.shared_attention = shared_attention
         self.dtype = dtype
+        self.aux_loss_type = aux_loss_type
+        self.aux_margin = aux_margin
+        self.aux_scale = aux_scale
         L = feature_dim(backbone)
         self.L = L
         self.feature_extractor = make_backbone(backbone, dtype=dtype)
@@ -70,23 +117,55 @@ class MultiHeadGatedAttentionMIL(nn.Module):
         return self.feature_extractor(patches, mask)
 
     def head(
-        self, H: torch.Tensor, mask: torch.Tensor | None = None
+        self,
+        H: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        *,
+        train: bool = False,
+        mc_dropout: bool = False,
+        seed: int = 0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Deterministic head: features ``(N, L)`` -> logits ``(C,)`` and
-        attention ``(C, N)``.  Monte Carlo samples go through
-        ``mcdo/sampling.py::mc_head``."""
+        """Features ``(N, L)`` -> logits ``(C,)`` and attention ``(C, N)``.
+
+        One sample of the MC head (``ops/gated_attention.py``): the kernel
+        on a CUDA tensor, its plain version on the CPU.  ``train`` or
+        ``mc_dropout`` turns dropout on, drawn from ``seed``; gradients flow
+        to ``H`` and the head weights whenever autograd records.
+        """
         from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
             GatedAttentionParams,
-            mc_head_reference,
+            mc_gated_attention,
         )
 
         if mask is None:
             mask = torch.ones(H.shape[0], dtype=torch.bool, device=H.device)
-        y, a = mc_head_reference(H, mask, GatedAttentionParams.from_module(self), 1, 0, 0.0, 0.0)
+        stochastic = train or mc_dropout
+        y, a = mc_gated_attention(
+            H, mask, GatedAttentionParams.from_module(self, detach=False), 1, seed,
+            self.feature_dropout if stochastic else 0.0,
+            self.attention_dropout if stochastic else 0.0,
+        )
         return y[0], a[0]
 
     def forward(
-        self, patches: torch.Tensor, mask: torch.Tensor | None = None
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Deterministic forward of one bag: ``(Y (C,), A (C, N))``."""
-        return self.head(self.embed(patches, mask), mask)
+        self,
+        patches: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        targets: torch.Tensor | None = None,
+        *,
+        train: bool = False,
+        seed: int = 0,
+    ):
+        """Full forward of one bag.
+
+        Returns ``(Y (C,), A (C, N))``, and with ``targets`` the auxiliary
+        loss as a third element, already scaled by ``aux_scale`` as the JAX
+        model's ``__call__`` returns it.
+        """
+        Y, A = self.head(self.embed(patches, mask), mask, train=train, seed=seed)
+        if targets is None:
+            return Y, A
+        aux = self.aux_scale * auxiliary_loss(
+            A[1], A[0], targets == 1, loss_type=self.aux_loss_type, margin=self.aux_margin
+        )
+        return Y, A, aux

@@ -32,23 +32,18 @@ def _stats_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-class MaskedBatchStatsNorm(nn.Module):
-    """BatchNorm that always uses the current (masked) batch statistics.
+class _MaskedBatchNorm(torch.autograd.Function):
+    """Masked batch-statistics BN with a hand-written backward.
 
-    No running statistics, learned affine, eps 1e-5, biased variance taken as
-    ``E[x^2] - mean^2`` over ``n_valid * h * w`` values.  ``mask`` (N,) over
-    the leading instance axis excludes padded instances.  An all-masked bag
-    multiplies the input by ``min(n_valid, 1) = 0`` first, so every layer
-    stays finite instead of amplifying by ``rsqrt(eps)``.
+    Saves the input, the per-channel mean and ``rsqrt(var + eps)`` only, so a
+    training step keeps one tensor per BN instead of the three an autograd
+    of the plain ops keeps (normalized input, centred input, and the input
+    of the square).  The forward runs the same operations in the same order
+    as ever, in place on a fresh tensor, so its numbers are unchanged.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    @staticmethod
+    def forward(ctx, x, weight, bias, mask, eps):
         # x: (N, C, h, w) in any memory format.
         sd = _stats_dtype(x.dtype)
         xf = x.to(sd)
@@ -59,9 +54,11 @@ class MaskedBatchStatsNorm(nn.Module):
         s1 = xf.sum(dim=(2, 3))
         s2 = xf.square().sum(dim=(2, 3))
         if mask is None:
+            m = None
             count = x.shape[0] * hw
             mean = s1.sum(0) / count
             var = s2.sum(0) / count - mean.square()
+            scale = None
             y = xf.clone() if xf is x else xf
         else:
             m = mask.to(sd)
@@ -69,12 +66,61 @@ class MaskedBatchStatsNorm(nn.Module):
             count = torch.clamp(n_valid * hw, min=1.0)
             mean = (s1 * m[:, None]).sum(0) / count
             var = (s2 * m[:, None]).sum(0) / count - mean.square()
-            y = xf * torch.clamp(n_valid, max=1.0)
-        inv = torch.rsqrt(var + self.eps)
+            scale = torch.clamp(n_valid, max=1.0)
+            y = xf * scale
+        inv = torch.rsqrt(var + eps)
         y.sub_(mean[None, :, None, None]).mul_(inv[None, :, None, None])
-        y.mul_(self.weight.to(sd)[None, :, None, None])
-        y.add_(self.bias.to(sd)[None, :, None, None])
+        y.mul_(weight.to(sd)[None, :, None, None])
+        y.add_(bias.to(sd)[None, :, None, None])
+        ctx.save_for_backward(x, weight, mean, inv)
+        ctx.stats = (m, count, scale)
         return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight, mean, inv = ctx.saved_tensors
+        m, count, scale = ctx.stats
+        sd = _stats_dtype(x.dtype)
+        dims = (0, 2, 3)
+
+        def ch(v):
+            return v[None, :, None, None]
+
+        xf, g = x.to(sd), gy.to(sd)
+        xc = xf if scale is None else xf * scale  # the input the forward normalized
+        xhat = (xc - ch(mean)) * ch(inv)
+        d_bias = g.sum(dims)
+        d_weight = (g * xhat).sum(dims)
+        dxhat = g * ch(weight.to(sd))
+        # xhat = (xc - mean) * inv, inv = rsqrt(var + eps), var = E_m[x^2] - mean^2,
+        # mean = E_m[x]: the batch statistics pass the gradient to every valid x.
+        d_var = -0.5 * (dxhat * xhat).sum(dims) * inv.square()
+        d_mean = -(dxhat.sum(dims) * inv) - 2.0 * mean * d_var
+        dx = dxhat * ch(inv if scale is None else inv * scale)
+        w = 1.0 / count if m is None else m[:, None, None, None] / count
+        dx = dx + w * (ch(d_mean) + 2.0 * ch(d_var) * xf)
+        return dx.to(x.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None
+
+
+class MaskedBatchStatsNorm(nn.Module):
+    """BatchNorm that always uses the current (masked) batch statistics.
+
+    No running statistics, learned affine, eps 1e-5, biased variance taken as
+    ``E[x^2] - mean^2`` over ``n_valid * h * w`` values.  ``mask`` (N,) over
+    the leading instance axis excludes padded instances.  An all-masked bag
+    multiplies the input by ``min(n_valid, 1) = 0`` first, so every layer
+    stays finite instead of amplifying by ``rsqrt(eps)``.  Differentiable
+    through :class:`_MaskedBatchNorm`.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        return _MaskedBatchNorm.apply(x, self.weight, self.bias, mask, self.eps)
 
 
 def _make_conv(cin: int, cout: int, kernel: int, stride: int, pad: int) -> nn.Conv2d:
@@ -105,12 +151,12 @@ class BasicBlock(nn.Module):
             )
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        y = F.relu_(self.bn1(_conv(self.conv1, x), mask))
+        y = F.relu(self.bn1(_conv(self.conv1, x), mask))
         y = self.bn2(_conv(self.conv2, y), mask)
         residual = x
         if self.downsample is not None:
             residual = self.downsample[1](_conv(self.downsample[0], x), mask)
-        return F.relu_(y + residual)
+        return F.relu(y + residual)
 
 
 class Bottleneck(nn.Module):
@@ -134,13 +180,13 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        y = F.relu_(self.bn1(_conv(self.conv1, x), mask))
-        y = F.relu_(self.bn2(_conv(self.conv2, y), mask))
+        y = F.relu(self.bn1(_conv(self.conv1, x), mask))
+        y = F.relu(self.bn2(_conv(self.conv2, y), mask))
         y = self.bn3(_conv(self.conv3, y), mask)
         residual = x
         if self.downsample is not None:
             residual = self.downsample[1](_conv(self.downsample[0], x), mask)
-        return F.relu_(y + residual)
+        return F.relu(y + residual)
 
 
 @contextlib.contextmanager
@@ -191,7 +237,7 @@ class ResNetFeatures(nn.Module):
         # NHWC storage viewed as NCHW: a channels_last tensor, no copy.
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         with _exact_float_convs(self.dtype):
-            x = F.relu_(self.bn1(_conv(self.conv1, x), mask))
+            x = F.relu(self.bn1(_conv(self.conv1, x), mask))
             x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
             for i in range(1, self.num_stages + 1):
                 for block in getattr(self, f"layer{i}"):

@@ -61,6 +61,14 @@ KERNELS: dict[str, Kernel] = {
             "gather_tiles", "gather.cu",
             "montecarlo_gated_mil_tpu/ops/patching.py:138",
         ),
+        Kernel(
+            "mc_head_bwd_sep", "mc_head_bwd.cu",
+            "montecarlo_gated_mil_tpu/ops/gated_attention.py:538",
+        ),
+        Kernel(
+            "mc_head_bwd_shared", "mc_head_bwd.cu",
+            "montecarlo_gated_mil_tpu/ops/gated_attention.py:356",
+        ),
     )
 }
 

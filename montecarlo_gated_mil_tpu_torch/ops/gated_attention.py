@@ -11,11 +11,14 @@ MCDO stage is T independent passes of
     Y    = sum(M * Wcls, axis=-1)                   # (C,)
 
 On a CUDA tensor :func:`mc_gated_attention` runs ``csrc/mc_head.cu`` (see
-its header for the design); on a CPU tensor it runs
-:func:`mc_head_reference`, the plain PyTorch version of the same function.
-Both draw dropout from one counter-based stream, Philox4x32-10 keyed on
-``(seed + t, draw)`` and counted by the element index, so kernel and plain
-version agree with dropout on as well as off.
+its header for the design) and, where a gradient is asked for, differentiates
+it with ``csrc/mc_head_bwd.cu`` through :class:`_MCHead`; on a CPU tensor it
+runs :func:`mc_head_reference`, the plain PyTorch version of the same
+function, under ordinary autograd.  :func:`mc_head_backward_reference` is the
+plain version of the backward kernels.  All draw dropout from one
+counter-based stream, Philox4x32-10 keyed on ``(seed + t, draw)`` and
+counted by the element index, so kernels and plain versions agree with
+dropout on as well as off.
 """
 
 from __future__ import annotations
@@ -74,11 +77,18 @@ def dropout_uniform(key: int, draw: int, n: int, device) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * _INV_2_24
 
 
+def _keep(shape, p: float, key: int, draw: int, device, dtype) -> torch.Tensor:
+    """The 0/1 dropout mask ``u >= p`` of one draw, as the kernels draw it."""
+    n = 1
+    for s in shape:
+        n *= s
+    u = dropout_uniform(key, draw, n, device).view(shape)
+    return (u >= torch.tensor(p, dtype=torch.float32)).to(dtype)
+
+
 def _dropout(x: torch.Tensor, p: float, key: int, draw: int) -> torch.Tensor:
     """``x * keep * (1/(1-p))`` with ``keep = u >= p``, as the kernels do."""
-    u = dropout_uniform(key, draw, x.numel(), x.device).view(x.shape)
-    keep = (u >= torch.tensor(p, dtype=torch.float32)).to(x.dtype)
-    return x * keep * (1.0 / (1.0 - p))
+    return x * _keep(x.shape, p, key, draw, x.device, x.dtype) * (1.0 / (1.0 - p))
 
 
 @dataclass(frozen=True)
@@ -117,9 +127,11 @@ class GatedAttentionParams:
         )
 
     @staticmethod
-    def from_module(model) -> "GatedAttentionParams":
+    def from_module(model, *, detach: bool = True) -> "GatedAttentionParams":
         """From the port's ``MultiHeadGatedAttentionMIL`` (reference schema:
-        Linear weights are (out, in))."""
+        Linear weights are (out, in)).  ``detach=True`` gives a copy for
+        inference, converted once; ``detach=False`` keeps the autograd graph
+        to the module's parameters, so a loss on the head trains them."""
         C = model.num_classes
         if model.shared_attention:
             wv, bv = model.attention_V[0].weight.T, model.attention_V[0].bias
@@ -131,19 +143,25 @@ class GatedAttentionParams:
             wu = torch.stack([model.attention_U[c][0].weight.T for c in range(C)])
             bu = torch.stack([model.attention_U[c][0].bias for c in range(C)])
             w_att = torch.cat([model.attention_weights[c].weight for c in range(C)])
-        return GatedAttentionParams(
-            w_V=wv.detach().contiguous(), b_V=bv.detach(),
-            w_U=wu.detach().contiguous(), b_U=bu.detach(),
-            w_att=w_att.detach().contiguous(),
-            b_att=torch.cat([model.attention_weights[c].bias for c in range(C)]).detach(),
-            w_cls=torch.cat([model.classifiers[c].weight for c in range(C)]).detach(),
+        p = GatedAttentionParams(
+            w_V=wv.contiguous(), b_V=bv,
+            w_U=wu.contiguous(), b_U=bu,
+            w_att=w_att.contiguous(),
+            b_att=torch.cat([model.attention_weights[c].bias for c in range(C)]),
+            w_cls=torch.cat([model.classifiers[c].weight for c in range(C)]),
         )
+        if detach:
+            p = GatedAttentionParams(*(getattr(p, f).detach() for f in _FIELDS))
+        return p
 
     def to(self, device=None, dtype=None) -> "GatedAttentionParams":
         return GatedAttentionParams(
-            *(getattr(self, f).to(device=device, dtype=dtype) for f in
-              ("w_V", "b_V", "w_U", "b_U", "w_att", "b_att", "w_cls"))
+            *(getattr(self, f).to(device=device, dtype=dtype) for f in _FIELDS)
         )
+
+
+_HEAD_FIELDS = ("w_V", "b_V", "w_U", "b_U", "w_att", "b_att")  # what the kernels take
+_FIELDS = _HEAD_FIELDS + ("w_cls",)
 
 
 def mc_head_reference(
@@ -183,18 +201,110 @@ def mc_head_reference(
     return torch.stack(ys), torch.stack(attns)
 
 
+def mc_head_backward_reference(
+    H: torch.Tensor,
+    mask: torch.Tensor,
+    params: GatedAttentionParams,
+    num_samples: int,
+    seed: int,
+    feature_dropout: float,
+    attention_dropout: float,
+    dM: torch.Tensor,
+    dA: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward kernels (K4/K5): the gradients
+    of ``M (T, C, L)`` and ``A (T, C, N)`` of the T-sample head, given their
+    cotangents ``dM`` and ``dA``, with respect to ``H`` and the head weights,
+    summed over the samples.  Per sample it replays both dropout masks,
+    recomputes gate, logits and softmax, and follows the JAX package's
+    ``_mc_bwd_kernel(_sep)`` math.  Returns ``(dH, dw_V, db_V, dw_U, db_U,
+    dw_att, db_att)`` in :class:`GatedAttentionParams` layout."""
+    dt = torch.promote_types(H.dtype, torch.float32)
+    p = params.to(H.device, dt)
+    Hf = H.to(dt)
+    N = Hf.shape[0]
+    C = p.b_att.shape[0]
+    mask = mask.to(H.device).bool()
+    dM, dA = dM.to(dt), dA.to(dt)
+    grads = [torch.zeros_like(getattr(p, f)) for f in _HEAD_FIELDS]
+    dw_V, db_V, dw_U, db_U, dw_att, db_att = grads
+    dH = torch.zeros_like(Hf)
+    for t in range(num_samples):
+        key = (seed + t) & _MASK32
+        kf = ka = None
+        Hd = Hf
+        if feature_dropout > 0:
+            kf = _keep(Hf.shape, feature_dropout, key, FEATURE_DRAW, H.device, dt)
+            Hd = Hf * kf * (1.0 / (1.0 - feature_dropout))
+        if p.separate:
+            V = torch.tanh(torch.einsum("nl,cld->cnd", Hd, p.w_V) + p.b_V[:, None, :])
+            U = torch.sigmoid(torch.einsum("nl,cld->cnd", Hd, p.w_U) + p.b_U[:, None, :])
+            G = V * U  # (C, N, D)
+            logits = torch.einsum("cnd,cd->cn", G, p.w_att) + p.b_att[:, None]
+        else:
+            V = torch.tanh(Hd @ p.w_V + p.b_V)
+            U = torch.sigmoid(Hd @ p.w_U + p.b_U)
+            G = V * U  # (N, D)
+            logits = (G @ p.w_att + p.b_att).T
+        if attention_dropout > 0:
+            ka = _keep((N, C), attention_dropout, key, ATTENTION_DRAW, H.device, dt).T
+            logits = logits * ka * (1.0 / (1.0 - attention_dropout))
+        A = masked_softmax(logits, mask[None, :])  # (C, N)
+        dAt = dA[t] + dM[t] @ Hd.T  # A feeds the output and M = A Hd
+        dHd = A.T @ dM[t]
+        # masked-softmax backward (padded rows have A == 0: zero gradient)
+        dlg = A * (dAt - (dAt * A).sum(-1, keepdim=True))
+        if ka is not None:
+            dlg = dlg * ka * (1.0 / (1.0 - attention_dropout))
+        db_att += dlg.sum(-1)
+        if p.separate:
+            dG = dlg[:, :, None] * p.w_att[:, None, :]
+            dw_att += torch.einsum("cnd,cn->cd", G, dlg)
+            dzv, dzu = dG * U * (1.0 - V * V), dG * V * U * (1.0 - U)
+            dHd = dHd + torch.einsum("cnd,cld->nl", dzv, p.w_V) + torch.einsum(
+                "cnd,cld->nl", dzu, p.w_U
+            )
+            dw_V += torch.einsum("nl,cnd->cld", Hd, dzv)
+            dw_U += torch.einsum("nl,cnd->cld", Hd, dzu)
+            db_V += dzv.sum(1)
+            db_U += dzu.sum(1)
+        else:
+            dG = dlg.T @ p.w_att.T  # (N, D)
+            dw_att += G.T @ dlg.T
+            dzv, dzu = dG * U * (1.0 - V * V), dG * V * U * (1.0 - U)
+            dHd = dHd + dzv @ p.w_V.T + dzu @ p.w_U.T
+            dw_V += Hd.T @ dzv
+            dw_U += Hd.T @ dzu
+            db_V += dzv.sum(0)
+            db_U += dzu.sum(0)
+        dH += dHd * kf * (1.0 / (1.0 - feature_dropout)) if kf is not None else dHd
+    return (dH, *grads)
+
+
 def _kernel_operands(params: GatedAttentionParams, device) -> tuple[torch.Tensor, ...]:
     """``(wv, bv, wu, bu, wa_full, ba)`` in the kernel's layout: gates as
     (G, L, D) / (G, D), and the attention vectors as ``wa_full (C, G, D)``,
-    zero off each class's own gate when the gates are separate."""
-    p = params.to(device, torch.float32)
-    if p.separate:
-        wv, bv, wu, bu = p.w_V, p.b_V, p.w_U, p.b_U
-        wa_full = torch.diag_embed(p.w_att.T).permute(1, 2, 0)  # (C, C, D)
+    zero off each class's own gate when the gates are separate.  Reads the
+    six head fields only (``w_cls`` may be None)."""
+    w_V, b_V, w_U, b_U, w_att, b_att = (
+        getattr(params, f).to(device=device, dtype=torch.float32) for f in _HEAD_FIELDS
+    )
+    if params.separate:
+        wv, bv, wu, bu = w_V, b_V, w_U, b_U
+        wa_full = torch.diag_embed(w_att.T).permute(1, 2, 0)  # (C, C, D)
     else:
-        wv, bv, wu, bu = p.w_V[None], p.b_V[None], p.w_U[None], p.b_U[None]
-        wa_full = p.w_att.T[:, None, :]  # (C, 1, D)
-    return tuple(x.contiguous() for x in (wv, bv, wu, bu, wa_full, p.b_att))
+        wv, bv, wu, bu = w_V[None], b_V[None], w_U[None], b_U[None]
+        wa_full = w_att.T[:, None, :]  # (C, 1, D)
+    return tuple(x.contiguous() for x in (wv, bv, wu, bu, wa_full, b_att))
+
+
+def _check_shapes(name: str, N: int, L: int, wv: torch.Tensor, C: int) -> None:
+    G, L_w, D = wv.shape
+    if L_w != L or D % 4 or (G * D) % 32 or G * D > 1024 or not 1 <= C <= 8:
+        raise ValueError(
+            f"{name}: unsupported shapes N={N} L={L} D={D} C={C} G={G} "
+            "(needs D % 4 == 0, G*D a multiple of 32 up to 1024, 1 <= C <= 8)"
+        )
 
 
 def _mc_head_cuda(
@@ -217,11 +327,7 @@ def _mc_head_cuda(
     C = ba.shape[0]
     T = num_samples
     cuda_build.require_cuda_f32(kernel.name, Hc, maskf, wv, bv, wu, bu, wa_full, ba)
-    if wv.shape[1] != L or D % 4 or (G * D) % 32 or G * D > 1024 or not 1 <= C <= 8:
-        raise ValueError(
-            f"{kernel.name}: unsupported shapes N={N} L={L} D={D} C={C} G={G} "
-            "(needs D % 4 == 0, G*D a multiple of 32 up to 1024, 1 <= C <= 8)"
-        )
+    _check_shapes(kernel.name, N, L, wv, C)
     logits = torch.empty((T, C, N), dtype=torch.float32, device=dev)
     A = torch.empty((T, C, N), dtype=torch.float32, device=dev)
     M = torch.empty((T, C, L), dtype=torch.float32, device=dev)
@@ -242,6 +348,99 @@ def _mc_head_cuda(
     return M, A
 
 
+def _mc_head_bwd_cuda(
+    H: torch.Tensor,
+    params: GatedAttentionParams,
+    num_samples: int,
+    seed: int,
+    p_feat: float,
+    p_att: float,
+    A: torch.Tensor,
+    dM: torch.Tensor,
+    dA: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Launch ``csrc/mc_head_bwd.cu`` on the forward's inputs and saved
+    ``A (T, C, N)``, with cotangents ``dM (T, C, L)``, ``dA (T, C, N)``.
+    Returns ``(dH (N, L), dwv, dbv, dwu, dbu (kernel layout), dwa (C, D),
+    dba (C,))``."""
+    kernel = cuda_build.KERNELS["mc_head_bwd_sep" if params.separate else "mc_head_bwd_shared"]
+    dev = H.device
+    Hc = H.to(torch.float32).contiguous()
+    wv, bv, wu, bu, wa_full, _ = _kernel_operands(params, dev)
+    A, dM, dA = (x.to(device=dev, dtype=torch.float32).contiguous() for x in (A, dM, dA))
+    N, L = Hc.shape
+    G, _, D = wv.shape
+    T, C = A.shape[0], A.shape[1]
+    cuda_build.require_cuda_f32(kernel.name, Hc, wv, bv, wu, bu, wa_full, A, dM, dA)
+    _check_shapes(kernel.name, N, L, wv, C)
+    if A.shape != (T, C, N) or dA.shape != (T, C, N) or dM.shape != (T, C, L) or T != num_samples:
+        raise ValueError(
+            f"{kernel.name}: A {tuple(A.shape)}, dA {tuple(dA.shape)}, dM {tuple(dM.shape)} "
+            f"do not fit T={num_samples} C={C} N={N} L={L}"
+        )
+    # Split-K slices of the weight gradient: about 128 rows of T*N each.
+    slices = max(1, min(16, -(-T * N // 128)))
+    lib = cuda_build.load(kernel.source)
+    i32, f32, ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    ws = lib.mc_head_backward_workspace
+    ws.restype = ctypes.c_long
+    ws.argtypes = [i32] * 7
+    work = torch.empty(ws(N, L, D, C, G, T, slices), dtype=torch.float32, device=dev)
+    dH = torch.empty((N, L), dtype=torch.float32, device=dev)
+    dwv, dwu = (torch.empty((G, L, D), dtype=torch.float32, device=dev) for _ in range(2))
+    dbv, dbu = (torch.empty((G, D), dtype=torch.float32, device=dev) for _ in range(2))
+    dwa = torch.empty((C, D), dtype=torch.float32, device=dev)
+    dba = torch.empty((C,), dtype=torch.float32, device=dev)
+    fn = lib.mc_head_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                   ctypes.c_uint, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                   ptr, ptr]
+    err = fn(
+        Hc.data_ptr(), N, L, D, C, G, T, wv.data_ptr(), bv.data_ptr(), wu.data_ptr(),
+        bu.data_ptr(), wa_full.data_ptr(), A.data_ptr(), dM.data_ptr(), dA.data_ptr(),
+        seed & _MASK32, p_feat, 1.0 / (1.0 - p_feat), p_att, 1.0 / (1.0 - p_att), slices,
+        work.data_ptr(), dH.data_ptr(), dwv.data_ptr(), dbv.data_ptr(), dwu.data_ptr(),
+        dbu.data_ptr(), dwa.data_ptr(), dba.data_ptr(), cuda_build.stream_handle(dev),
+    )
+    cuda_build.check(err, kernel.name)
+    kernel.launches += 1
+    return dH, dwv, dbv, dwu, dbu, dwa, dba
+
+
+def param_layout_grads(separate: bool, dwv, dbv, dwu, dbu, dwa, dba) -> tuple[torch.Tensor, ...]:
+    """The backward kernel's weight gradients in :class:`GatedAttentionParams`
+    layout: ``(dw_V, db_V, dw_U, db_U, dw_att, db_att)``."""
+    if separate:
+        return dwv, dbv, dwu, dbu, dwa, dba
+    return dwv[0], dbv[0], dwu[0], dbu[0], dwa.T, dba
+
+
+class _MCHead(torch.autograd.Function):
+    """The MC head on the card with a gradient: forward K1/K2, backward
+    K4/K5.  Saves the forward's inputs and its output ``A``; the backward
+    kernels replay the dropout masks from the seed and recompute the rest."""
+
+    @staticmethod
+    def forward(ctx, H, mask, w_V, b_V, w_U, b_U, w_att, b_att, num_samples, seed, p_feat, p_att):
+        params = GatedAttentionParams(w_V, b_V, w_U, b_U, w_att, b_att, None)
+        M, A = _mc_head_cuda(H, mask, params, num_samples, seed, p_feat, p_att)
+        ctx.save_for_backward(H, w_V, b_V, w_U, b_U, w_att, b_att, A)
+        ctx.args = (num_samples, seed, p_feat, p_att)
+        return M, A
+
+    @staticmethod
+    def backward(ctx, dM, dA):
+        H, *weights, A = ctx.saved_tensors
+        params = GatedAttentionParams(*weights, None)
+        dM = torch.zeros((A.shape[0], A.shape[1], H.shape[1]), device=H.device) if dM is None else dM
+        dA = torch.zeros_like(A) if dA is None else dA
+        dH, *grads = _mc_head_bwd_cuda(H, params, *ctx.args, A, dM, dA)
+        grads = param_layout_grads(params.separate, *grads)
+        grads = tuple(g.to(w.dtype) for g, w in zip(grads, weights))
+        return (dH.to(H.dtype), None, *grads, None, None, None, None)
+
+
 def mc_gated_attention(
     H: torch.Tensor,
     mask: torch.Tensor,
@@ -256,15 +455,19 @@ def mc_gated_attention(
     Counterpart of ``mc_gated_attention_fused``.  ``H (N, L)`` features,
     ``mask (N,)`` bool validity, sample t seeded with ``seed + t``.  Returns
     ``(Y (T, C) f32, A (T, C, N) f32)``.  A CUDA ``H`` launches the kernel
-    (separate or shared gates, by ``params.w_V.ndim``); a CPU ``H`` runs the
-    plain version.  ``Y = M w_cls`` stays a plain tensor op, as in JAX.
+    (separate or shared gates, by ``params.w_V.ndim``) through
+    :class:`_MCHead`, whose backward is the K4/K5 kernel; where autograd
+    does not record, that is the forward kernel alone.  A CPU ``H`` runs
+    the plain version under ordinary autograd.  ``Y = M w_cls`` stays a
+    plain tensor op, as in JAX.
     """
     if not H.is_cuda:
         return mc_head_reference(
             H, mask, params, num_samples, seed, feature_dropout, attention_dropout
         )
-    M, A = _mc_head_cuda(
-        H, mask, params, num_samples, seed, float(feature_dropout), float(attention_dropout)
+    weights = [getattr(params, f) for f in _HEAD_FIELDS]
+    M, A = _MCHead.apply(
+        H, mask, *weights, num_samples, seed, float(feature_dropout), float(attention_dropout)
     )
     Y = torch.einsum("tcl,cl->tc", M, params.w_cls.to(device=H.device, dtype=torch.float32))
     return Y, A

@@ -1,0 +1,207 @@
+"""Training, validation and test loops.
+
+Counterpart of ``montecarlo_gated_mil_tpu/train/loops.py`` (reference
+``net_utils.py``) on one device:
+
+- ``train_epoch`` (``train_gacc``, ``net_utils.py:33-78``): CE(+scaled aux),
+  an optimizer step every k bags and at epoch end, epoch metrics
+  ``train/epoch_loss|epoch_acc|aux_loss``, and per step ``train/step`` =
+  ``{"ms", "bucket", "instances"}`` (time by CUDA events on the card, the
+  host clock on the CPU; the padded and the valid bag size);
+- ``validate`` (``net_utils.py:82-114``): deterministic forward, CE loss,
+  argmax accuracy; returns the epoch loss for early stopping;
+- ``mc_validate`` (``net_utils.py:116-158``): T MC samples; loss = mean over
+  T of (CE + aux) per sample; prediction = argmax of the mean **raw
+  logits** over T;
+- ``test`` (``net_utils.py:160-192``): accuracy and the classification
+  report.
+
+A loader is anything with ``epoch(e)`` yielding ``(Bag, record)``, or a
+plain iterable of such pairs.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from montecarlo_gated_mil_tpu_torch.core import rng
+from montecarlo_gated_mil_tpu_torch.mcdo.sampling import mc_head
+from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
+from montecarlo_gated_mil_tpu_torch.train.state import TrainState
+from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics
+
+
+def _items(loader, epoch: int):
+    return loader.epoch(epoch) if hasattr(loader, "epoch") else iter(loader)
+
+
+def _with_last_flag(items):
+    """Yield ``(item, is_last)`` with one item of lookahead, so the epoch-end
+    optimizer flush (``net_utils.py:55-57``) fires for any iterable."""
+    it = iter(items)
+    try:
+        prev = next(it)
+    except StopIteration:
+        return
+    for item in it:
+        yield prev, False
+        prev = item
+    yield prev, True
+
+
+class _StepTimer:
+    """Wall time of one step: CUDA events on a card, the host clock on the
+    CPU.  ``stop`` waits for the step's device work to end."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        if not self.cuda:
+            return (time.perf_counter() - self._t0) * 1e3
+        self._end.record()
+        self._end.synchronize()
+        return self._start.elapsed_time(self._end)
+
+
+def train_epoch(
+    step_fn,
+    state: TrainState,
+    loader: Iterable,
+    *,
+    epoch: int,
+    accumulation_steps: int,
+    key: int,
+    metrics: Metrics | None = None,
+) -> TrainState:
+    """One epoch of gradient-accumulated training.  Bag ``i`` of epoch ``e``
+    draws its dropout from ``fold_in(fold_in(key, e), i)`` (``core/rng.py``)."""
+    m = metrics or Metrics([])
+    running_loss = running_aux = correct = total = 0.0
+    for batch_idx, ((bag, _rec), is_last) in enumerate(_with_last_flag(_items(loader, epoch))):
+        seed = rng.fold_in(rng.fold_in(key, epoch), batch_idx)
+        do_update = ((batch_idx + 1) % accumulation_steps == 0) or is_last
+        timer = _StepTimer(bag.patches.device)
+        state, out = step_fn(state, bag, seed, do_update)
+        ms = timer.stop()
+        m.log("train/step", {"ms": ms, "bucket": int(bag.mask.shape[0]),
+                             "instances": int(bag.mask.sum())}, step=batch_idx)
+        running_loss += float(out["loss"])
+        running_aux += float(out["aux_loss"])
+        correct += float(out["correct"])
+        total += 1
+    if total == 0:
+        raise ValueError("empty training loader")
+    m.log("train/epoch_loss", running_loss / total, step=epoch)
+    m.log("train/epoch_acc", correct / total, step=epoch)
+    m.log("train/aux_loss", running_aux / total, step=epoch)
+    print(f"Epoch {epoch} - Train Loss: {running_loss / total:.4f}, "
+          f"Accuracy: {correct / total:.4f}")
+    return state
+
+
+def validate(
+    model,
+    loader: Iterable,
+    criterion,
+    *,
+    epoch: int,
+    metrics: Metrics | None = None,
+) -> float:
+    running_loss = correct = total = 0.0
+    with torch.no_grad():
+        for bag, _rec in _items(loader, epoch):
+            y, _ = model(bag.patches, bag.mask)
+            running_loss += float(criterion(y[None, :], bag.label[None]))
+            correct += float(torch.argmax(y) == bag.label)
+            total += 1
+    epoch_loss = running_loss / max(total, 1)
+    m = metrics or Metrics([])
+    m.log("val/epoch_loss", epoch_loss, step=epoch)
+    m.log("val/epoch_acc", correct / max(total, 1), step=epoch)
+    print(f"Epoch {epoch} - Val Loss: {epoch_loss:.4f}, Accuracy: {correct / max(total, 1):.4f}")
+    return epoch_loss
+
+
+def _mc_val_finish(model, criterion, preds, attn, label):
+    """mc-validate reduction: mean over T of (CE + aux), prediction = argmax
+    of the mean RAW logits (``net_utils.py:139``)."""
+    aux_losses = model.aux_scale * auxiliary_loss(
+        attn[:, 1, :], attn[:, 0, :], label == 1,
+        loss_type=model.aux_loss_type, margin=model.aux_margin,
+    )
+    ce = torch.stack([criterion(y[None, :], label[None]) for y in preds])
+    return (ce + aux_losses).mean(), aux_losses.mean(), torch.argmax(preds.mean(0))
+
+
+def mc_validate(
+    model,
+    loader: Iterable,
+    criterion,
+    *,
+    epoch: int,
+    num_samples: int = 50,
+    key: int,
+    metrics: Metrics | None = None,
+) -> float:
+    """MC validation; bag ``i`` of epoch ``e`` samples with seed
+    ``fold_in(fold_in(key, e), i)``."""
+    running_loss = running_aux = correct = total = 0.0
+    with torch.no_grad():
+        for i, (bag, _rec) in enumerate(_items(loader, epoch)):
+            seed = rng.fold_in(rng.fold_in(key, epoch), i)
+            H = model.embed(bag.patches, bag.mask)
+            out = mc_head(model, H, bag.mask, num_samples, seed)
+            loss, aux, pred = _mc_val_finish(
+                model, criterion, out.predictions, out.attention, bag.label
+            )
+            running_loss += float(loss)
+            running_aux += float(aux)
+            correct += float(pred == bag.label)
+            total += 1
+    epoch_loss = running_loss / max(total, 1)
+    m = metrics or Metrics([])
+    m.log("val/epoch_loss", epoch_loss, step=epoch)
+    m.log("val/epoch_acc", correct / max(total, 1), step=epoch)
+    m.log("val/aux_loss", running_aux / max(total, 1), step=epoch)
+    print(f"Epoch {epoch} - Val Loss: {epoch_loss:.4f}, Accuracy: {correct / max(total, 1):.4f}")
+    return epoch_loss
+
+
+def _finish_test(all_targets, all_preds, metrics):
+    from montecarlo_gated_mil_tpu_torch.evaluation.report import classification_report
+
+    acc = float(np.mean(np.asarray(all_preds) == np.asarray(all_targets)))
+    report = classification_report(all_targets, all_preds)
+    m = metrics or Metrics([])
+    m.log("test/accuracy", acc)
+    m.log("test/classification_report", report)
+    print(f"Test Accuracy: {acc:.4f}")
+    print("Classification Report:\n", report)
+    return acc, report
+
+
+def test(
+    model,
+    loader: Iterable,
+    *,
+    metrics: Metrics | None = None,
+):
+    """Deterministic test pass: ``(accuracy, Report)``."""
+    preds, targets = [], []
+    with torch.no_grad():
+        for bag, _rec in _items(loader, 0):
+            y, _ = model(bag.patches, bag.mask)
+            preds.append(int(torch.argmax(y)))
+            targets.append(int(bag.label))
+    return _finish_test(targets, preds, metrics)
