@@ -10,6 +10,12 @@ Phases, each of which raises on failure:
    all at once) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes, dropout off and on, and times both with CUDA events;
+   K1 at three shapes: (a) N=3072, 2400 valid at random positions, T=50,
+   beside a ``torch.matmul`` of its dense gate product as a yardstick;
+   (b) the same with the valid rows first, as serving lays a bag out;
+   (c) training's N=1024, 650 valid first, T=1.  Each prints the kernel
+   time, its tensor-core (3xTF32) bound, its FP32-core bound and both
+   shares, and holds the forward's logits against an f64 product;
 4. serves: ``MCDOPredictor.from_config(Config(), seeded weights)``,
    ``warmup()``, then requests on full-size 7036x2800 synthetic mammograms
    (float and uint16, both lateralities, a repeated seed that must reproduce
@@ -19,7 +25,8 @@ Phases, each of which raises on failure:
    224x224 bag, r18, T=30) through ``mc_inference``;
 6. holds the backward kernels (K5 separate gates, K4 shared) against their
    plain version and against autograd of the plain forward, dropout off and
-   on, and times all three;
+   on, and their products against the f64 plain version, and times all
+   three;
 7. trains: ``run_training`` on the shipped configuration with 8 full-size
    synthetic mammograms and 2 epochs (train bags at bucket 1024, val/test
    at about 3072), and checks that every train step went through K1 and K5,
@@ -29,25 +36,56 @@ Phases, each of which raises on failure:
    and a small training step on the card against the CPU plain path;
 9. prints the ``kernels`` JSON line, then the result line.
 
+Every timed call prints three numbers (``Timing``): its device time, the
+back-to-back time of the timer of earlier versions of this script, and the
+host's time to queue it.  ``python3 chip_smoke.py --heads-from DIR`` only
+times the MC head kernels (K1, K2, K4, K5) of the port found under DIR,
+another checkout such as the parent commit or ``.``, at phases 3 and 6's
+shapes and inputs with this script's timer, and prints them as one JSON
+line: run it for both trees on one card, one after the other, to compare
+them.
+
 Imports nothing of JAX.  TF32 is off throughout: the shipped configuration
 computes in float32.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import tempfile
 import time
-from dataclasses import replace
+from dataclasses import asdict, dataclass, replace
+from pathlib import Path
 
 import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks used for the bounds.
-PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_FLOPS = 67e12  # FP32 cores, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # tensor cores, dense TF32
 PEAK_BYTES = 3.35e12
+# Limits against f64 (tests/test_torch_tf32_split.py shows on the CPU that
+# 3xTF32 meets them and plain TF32 fails them; A and Y alone cannot tell).
+LOGITS_VS_F64 = 5e-6  # max |logit - exact logit| on the valid rows
+PRODUCTS_VS_F64 = 1e-5  # max |d - exact| / max |exact| of dH, dw_V, dw_U
+
+# The MC head shapes of phase 3 (forward) and phase 6 (backward): label,
+# kernel, shared gate, N, valid rows, where they lie, T, seed.  The first
+# of each kernel gives its row of the ``kernels`` line.
+HEAD_SHAPES = (
+    ("K1 (a)", "mc_head_sep", False, 3072, 2400, "random", 50, 1),
+    ("K1 (b)", "mc_head_sep", False, 3072, 2400, "first", 50, 1),
+    ("K1 (c)", "mc_head_sep", False, 1024, 650, "first", 1, 1),
+    ("K2", "mc_head_shared", True, 256, 256, "random", 30, 2),
+)
+BWD_SHAPES = (
+    ("K5 T=1", "mc_head_bwd_sep", False, 1024, 650, "random", 1, 5),
+    ("K5 T=4", "mc_head_bwd_sep", False, 1024, 650, "random", 4, 6),
+    ("K4", "mc_head_bwd_shared", True, 256, 200, "random", 1, 7),
+)
 
 
 def _gpu_line() -> str:
@@ -58,42 +96,146 @@ def _gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters: int = 5, warm: int = 1) -> float:
+@dataclass
+class Timing:
+    """One timed call, in ms.  ``ms``: device time, with the calls queued
+    before the device reached the first.  ``b2b_ms``: CUDA events around
+    back-to-back calls on an idle device, the timer of earlier versions
+    of this script, which includes any gap while the host queues a call.
+    ``host_ms``: the host's time to queue one call."""
+
+    ms: float
+    b2b_ms: float
+    host_ms: float
+
+    def __str__(self) -> str:
+        return (f"{self.ms:.4f} ms (back to back {self.b2b_ms:.4f} ms, host "
+                f"{self.host_ms:.4f} ms per call)")
+
+
+def _time_ms(fn, iters: int = 5, warm: int = 1, what: str = "") -> Timing:
+    """Times ``fn`` twice by CUDA events.  First back to back on an idle
+    device, the host's queueing time taken meanwhile.  Then behind a sleep
+    kernel that holds the stream for three times that long, so that the
+    events see device time, not the wrappers' Python; when the device still
+    catches up with the host (as it does for the plain versions, whose many
+    small ops the host cannot queue ahead), a line names ``what`` was
+    timed."""
     for _ in range(warm):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_s = (time.perf_counter() - t0) / iters
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    b2b_ms = start.elapsed_time(end) / iters
+    # Cycles at 2 GHz, above the H100's highest SM clock: the sleep is no shorter.
+    torch.cuda._sleep(int(2e9 * min(1.0, 3 * iters * host_s + 1e-3)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ahead = not start.query()
+    torch.cuda.synchronize()
+    if not host_ahead:
+        print(f"    ({what or 'timed call'}: the device caught up with the host, so its time "
+              "includes host gaps)")
+    return Timing(start.elapsed_time(end) / iters, b2b_ms, host_s * 1e3)
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _function_ms(fn, source: str, iters: int = 5) -> str:
+    """Device time per call of each ``__global__`` function of one kernel
+    source (``cuda_build.DEVICE_FUNCTIONS``), by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = dict.fromkeys(cuda_build.DEVICE_FUNCTIONS[source], 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in times:
+            if name in e.key:
+                ms = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                times[name] += ms / 1e3 / iters
+    return ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
+
+
+def _bound(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
+    """The least time (ms) for moving ``nbytes`` and doing ``work``, given as
+    (FLOP, peak FLOP/s) pairs whose times add: the larger of the two."""
+    t_ops = sum(flops / peak for flops, peak in work) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_mc_head(name, cfg, n, n_valid, T, seed):
-    """One MC-head kernel against its plain version at dropout 0 and 0.1."""
+def _bounds(products: float, rest: float, nbytes: float) -> dict:
+    """The tensor-core bound (3xTF32: three TF32 products, the rest on the
+    FP32 cores) and, for continuity with the FP32 kernels, the FP32-core
+    bound of the same work."""
+    bound_ms, bound_by = _bound(nbytes, (3 * products, PEAK_TF32_FLOPS), (rest, PEAK_FP32_FLOPS))
+    fp32_ms, _ = _bound(nbytes, (products + rest, PEAK_FP32_FLOPS))
+    return dict(bound_ms=bound_ms, bound_by=bound_by, fp32_bound_ms=fp32_ms)
+
+
+def _bag_mask(n: int, n_valid: int, layout: str, g: torch.Generator) -> torch.Tensor:
+    """Valid rows at random positions, or first (as serving lays a bag out)."""
+    mask = torch.zeros(n, dtype=torch.bool)
+    if layout == "first":
+        mask[:n_valid] = True
+    else:
+        mask[torch.randperm(n, generator=g)[:n_valid]] = True
+    return mask
+
+
+def _head_inputs(shared: bool, n: int, n_valid: int, layout: str, seed: int):
+    """Seeded head weights at the shipped widths, ``H (n, L)`` in [0, 2) (as
+    post-ReLU pooled features are) and the mask; the generator goes on to
+    draw the backward's cotangents."""
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
     from montecarlo_gated_mil_tpu_torch.experiment import build_model
+    from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
+
+    g = torch.Generator().manual_seed(seed)
+    model = build_model(Config(shared_att=shared), seed=seed)
+    params = GatedAttentionParams.from_module(model).to("cuda")
+    H = (torch.rand(n, model.L, generator=g) * 2.0).cuda()
+    mask = _bag_mask(n, n_valid, layout, g).cuda()
+    return model, params, H, mask, g
+
+
+def _cotangents(model, params, n: int, T: int, g: torch.Generator):
+    """``dY (T, C)``, ``dA (T, C, n)`` and the cotangent of M, ``dY w_cls``."""
+    C = model.num_classes
+    dY = torch.randn(T, C, generator=g).cuda()
+    dA = (torch.randn(T, C, n, generator=g) * 0.1).cuda()
+    return dY, dA, dY[:, :, None] * params.w_cls[None]
+
+
+def check_mc_head(name, shared, n, n_valid, layout, T, seed):
+    """One MC-head kernel against its plain version at dropout 0 and 0.1,
+    and its logits against the f64 plain version."""
     from montecarlo_gated_mil_tpu_torch.ops import cuda_build
     from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
-        GatedAttentionParams,
+        _mc_head_cuda,
         mc_gated_attention,
+        mc_head_logits_reference,
         mc_head_reference,
     )
 
-    g = torch.Generator().manual_seed(seed)
-    model = build_model(cfg, seed=seed)
-    params = GatedAttentionParams.from_module(model).to("cuda")
+    model, params, H, mask, _ = _head_inputs(shared, n, n_valid, layout, seed)
     L, D, C = model.L, model.D, model.num_classes
-    H = (torch.rand(n, L, generator=g) * 2.0).cuda()  # post-ReLU pooled features are >= 0
-    mask = torch.zeros(n, dtype=torch.bool)
-    mask[torch.randperm(n, generator=g)[:n_valid]] = True
-    mask = mask.cuda()
     tol_y, tol_a = 1e-4, 1e-5
     errs = []
     for p in (0.0, 0.1):
@@ -112,26 +254,53 @@ def check_mc_head(name, cfg, n, n_valid, T, seed):
         if not (ey <= tol_y and ea <= tol_a and pad == 0.0 and sums <= 1e-4):
             raise RuntimeError(f"{name} disagrees with its plain version at p={p}")
         errs.append(max(ey, ea))
-    ms = _time_ms(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1), iters=10)
-    plain_ms = _time_ms(lambda: mc_head_reference(H, mask, params, T, 17, 0.1, 0.1), iters=2)
+    _, _, logits = _mc_head_cuda(H, mask, params, T, 17, 0.1, 0.1, keep_logits=True)
+    exact = mc_head_logits_reference(H.double(), params.to(dtype=torch.float64), T, 17, 0.1, 0.1)
+    e64 = float((logits.double() - exact)[:, :, mask].abs().max())
+    print(f"  {name} p=0.1: logits against f64 on the valid rows max|d|={e64:.3e} (limit "
+          f"{LOGITS_VS_F64:g}; plain TF32 products would give about 2e-4)", flush=True)
+    if e64 > LOGITS_VS_F64:
+        raise RuntimeError(f"{name}: logits {e64:.3e} from f64, over {LOGITS_VS_F64:g}")
+    ms = _time_ms(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1), iters=10,
+                  what=name)
+    plain_ms = _time_ms(lambda: mc_head_reference(H, mask, params, T, 17, 0.1, 0.1), iters=2,
+                        what="plain version").ms
     G = C if params.separate else 1
-    # Work this data needs: the gate product and pooling over valid rows.
-    flops = T * (2 * n_valid * L * 2 * G * D + 2 * n_valid * D * C + 2 * C * n_valid * L)
+    # Work this data needs: the gate product (the tensor-core part) over the
+    # valid rows; the wa dot and pooling.
+    products = T * 2 * n_valid * L * 2 * G * D
+    rest = T * (2 * n_valid * D * C + 2 * C * n_valid * L)
     nbytes = 4 * (n * L + n + params.w_V.numel() * 2 + T * C * (n + L))
-    bound_ms, bound_by = _bound(flops, nbytes)
-    print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}; {flops / 1e9:.2f} GFLOP) at N={n} ({n_valid} valid) L={L} D={D} "
-          f"C={C} T={T}")
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    b = _bounds(products, rest, nbytes)
+    print(f"  {name}: kernel {ms}; plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
+          f"on the tensor cores ({b['bound_by']}; share {b['bound_ms'] / ms.ms:.1%}), "
+          f"{b['fp32_bound_ms']:.4f} ms on the FP32 cores (share "
+          f"{b['fp32_bound_ms'] / ms.ms:.1%}); {(products + rest) / 1e9:.2f} GFLOP at N={n} "
+          f"({n_valid} valid, {layout}) L={L} D={D} C={C} T={T}", flush=True)
+    print("    by device function (ms per call, profiler): " + _function_ms(
+        lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1), "mc_head.cu"), flush=True)
+    return dict(max_abs_err=max(errs), ms=ms.ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def check_mc_head_bwd(name, cfg, n, n_valid, T, seed):
+def matmul_yardstick(m: int, k: int, n: int) -> None:
+    """The dense gate product alone as one ``torch.matmul`` in f32 (TF32
+    off): a yardstick for K1 (a), not the same function (no dropout, no
+    gates, no softmax or pooling), so it is no ``library_ms``."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand(m, k, device="cuda", generator=g)
+    b = torch.rand(k, n, device="cuda", generator=g)
+    ms = _time_ms(lambda: torch.matmul(a, b), iters=10).ms
+    tflops = 2 * m * k * n / ms / 1e9
+    print(f"  yardstick: torch.matmul ({m} x {k}) @ ({k} x {n}) f32, TF32 off: {ms:.4f} ms "
+          f"({tflops:.1f} TFLOP/s)", flush=True)
+
+
+def check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed):
     """One MC-head backward kernel (K4/K5) against its plain version and
-    against autograd of the plain forward, at dropout 0 and 0.1/0.1.  The
-    cotangent of M is ``dY w_cls``, so both references see the same
-    cotangents: ``loss = sum(Y dY) + sum(A dA)``."""
-    from montecarlo_gated_mil_tpu_torch.experiment import build_model
+    against autograd of the plain forward, at dropout 0 and 0.1/0.1, and
+    its products against the f64 plain version.  The cotangent of M is
+    ``dY w_cls``, so both references see the same cotangents:
+    ``loss = sum(Y dY) + sum(A dA)``."""
     from montecarlo_gated_mil_tpu_torch.ops import cuda_build
     from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
         _HEAD_FIELDS,
@@ -143,18 +312,10 @@ def check_mc_head_bwd(name, cfg, n, n_valid, T, seed):
         param_layout_grads,
     )
 
-    g = torch.Generator().manual_seed(seed)
-    model = build_model(cfg, seed=seed)
-    params = GatedAttentionParams.from_module(model).to("cuda")
+    model, params, H, mask, g = _head_inputs(shared, n, n_valid, layout, seed)
     L, D, C = model.L, model.D, model.num_classes
     G = C if params.separate else 1
-    H = (torch.rand(n, L, generator=g) * 2.0).cuda()
-    mask = torch.zeros(n, dtype=torch.bool)
-    mask[torch.randperm(n, generator=g)[:n_valid]] = True
-    mask = mask.cuda()
-    dY = torch.randn(T, C, generator=g).cuda()
-    dA = (torch.randn(T, C, n, generator=g) * 0.1).cuda()
-    dM = dY[:, :, None] * params.w_cls[None]
+    dY, dA, dM = _cotangents(model, params, n, T, g)
     names = ("H",) + _HEAD_FIELDS
     errs = []
 
@@ -206,22 +367,38 @@ def check_mc_head_bwd(name, cfg, n, n_valid, T, seed):
         if pad != 0.0 or not bitwise:
             raise RuntimeError(f"{name} p={p}: padded dH {pad}, bitwise {bitwise}")
         errs.append(worst)
+    exact = mc_head_backward_reference(H.double(), mask, params.to(dtype=torch.float64), T, 17,
+                                       0.1, 0.1, dM.double(), dA.double())
+    rel = {nm: float((k.double() - r).abs().max() / r.abs().max())
+           for nm, k, r in zip(names, got, exact) if nm in ("H", "w_V", "w_U")}
+    print(f"  {name} p=0.1: products against f64, max|d|/max|ref|: " + ", ".join(
+        f"d{nm} {r:.3e}" for nm, r in rel.items()) + f" (limit {PRODUCTS_VS_F64:g}; plain TF32 "
+        "products would give 1e-4 and more)", flush=True)
+    if max(rel.values()) > PRODUCTS_VS_F64:
+        raise RuntimeError(f"{name}: products against f64 {rel}, over {PRODUCTS_VS_F64:g}")
     _, A = _mc_head_cuda(H, mask, params, T, 17, 0.1, 0.1)
-    ms = _time_ms(lambda: kernel(0.1, A), iters=10)
+    ms = _time_ms(lambda: kernel(0.1, A), iters=10, what=name)
     plain_ms = _time_ms(
-        lambda: mc_head_backward_reference(H, mask, params, T, 17, 0.1, 0.1, dM, dA), iters=2
-    )
-    autograd_ms = _time_ms(lambda: autograd_ref(0.1), iters=2)
+        lambda: mc_head_backward_reference(H, mask, params, T, 17, 0.1, 0.1, dM, dA), iters=2,
+        what="plain version",
+    ).ms
+    autograd_ms = _time_ms(lambda: autograd_ref(0.1), iters=2,
+                           what="autograd of the plain version").ms
     # Work this data needs: gate recompute, dH and dW products over the valid
-    # rows, plus the row dot and pooling terms.
-    flops = T * (3 * 2 * n_valid * L * 2 * G * D + 2 * 2 * n_valid * L * C)
+    # rows (the tensor-core part), plus the row dot and pooling terms.
+    products = T * 3 * 2 * n_valid * L * 2 * G * D
+    rest = T * 2 * 2 * n_valid * L * C
     nbytes = 4 * (2 * n * L + n + 2 * 2 * G * L * D + T * C * (2 * n + L))
-    bound_ms, bound_by = _bound(flops, nbytes)
-    print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, autograd of plain "
-          f"{autograd_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP) "
-          f"at N={n} ({n_valid} valid) L={L} D={D} C={C} G={G} T={T}", flush=True)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    b = _bounds(products, rest, nbytes)
+    print(f"  {name}: kernel {ms}; plain {plain_ms:.3f} ms, autograd of plain "
+          f"{autograd_ms:.3f} ms; bound {b['bound_ms']:.4f} ms on the tensor cores "
+          f"({b['bound_by']}; share {b['bound_ms'] / ms.ms:.1%}), {b['fp32_bound_ms']:.4f} ms on "
+          f"the FP32 cores (share {b['fp32_bound_ms'] / ms.ms:.1%}); "
+          f"{(products + rest) / 1e9:.2f} GFLOP at N={n} ({n_valid} valid) L={L} D={D} C={C} "
+          f"G={G} T={T}", flush=True)
+    print("    by device function (ms per call, profiler): "
+          + _function_ms(lambda: kernel(0.1, A), "mc_head_bwd.cu"), flush=True)
+    return dict(max_abs_err=max(errs), ms=ms.ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def check_gather(image: torch.Tensor, starts: torch.Tensor, p: int):
@@ -238,12 +415,12 @@ def check_gather(image: torch.Tensor, starts: torch.Tensor, p: int):
     if not torch.equal(got, want):
         raise RuntimeError("gather_tiles disagrees with its plain version")
     ms = _time_ms(lambda: gather_selected(image, starts, p), iters=20)
-    plain_ms = _time_ms(lambda: gather_tiles_reference(image, starts, p), iters=5)
+    plain_ms = _time_ms(lambda: gather_tiles_reference(image, starts, p), iters=5).ms
     nbytes = 2 * starts.shape[0] * p * p * 4 + starts.numel() * 8
-    bound_ms, bound_by = _bound(0, nbytes)
-    print(f"  gather_tiles: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+    bound_ms, bound_by = _bound(nbytes)
+    print(f"  gather_tiles: kernel {ms}; plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.3f} ms ({bound_by}; {nbytes / 1e9:.3f} GB)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(max_abs_err=err, ms=ms.ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
@@ -269,10 +446,12 @@ def main() -> int:
 
     print("[3] kernels against their plain versions (TF32 off)", flush=True)
     rows = {}
-    rows["mc_head_sep"] = check_mc_head("mc_head_sep", Config(), 3072, 2400, 50, seed=1)
-    rows["mc_head_shared"] = check_mc_head(
-        "mc_head_shared", Config(shared_att=True), 256, 256, 30, seed=2
-    )
+    for label, name, shared, n, n_valid, layout, T, seed in HEAD_SHAPES:
+        print(f"  {label}: N={n}, {n_valid} valid ({layout}), T={T}", flush=True)
+        row = check_mc_head(name, shared, n, n_valid, layout, T, seed)
+        rows.setdefault(name, row)
+        if label == "K1 (a)":
+            matmul_yardstick(2400 * 50, 512, 512)
     cfg = Config()
     d = cfg.data
     grid = compute_tile_grid(d.H, d.W, d.patch_size, d.overlap_val_test)
@@ -342,18 +521,16 @@ def main() -> int:
     mask2 = torch.ones(256, dtype=torch.bool, device="cuda")
     mc_inference(model2, patches, mask2, 30, 0)  # warm
     cuda_build.reset_launch_counts()
-    bench_ms = _time_ms(lambda: mc_inference(model2, patches, mask2, 30, 0), iters=5, warm=0)
+    bench_ms = _time_ms(lambda: mc_inference(model2, patches, mask2, 30, 0), iters=5, warm=0).ms
     shared_launches = cuda_build.KERNELS["mc_head_shared"].launches
     print(f"  mc_inference: {bench_ms:.2f} ms per bag; mc_head_shared launches {shared_launches}")
     if shared_launches < 1:
         raise RuntimeError("the shared-gate workload did not go through its kernel")
 
     print("[6] backward kernels against their plain versions (TF32 off)", flush=True)
-    rows["mc_head_bwd_sep"] = check_mc_head_bwd("mc_head_bwd_sep", Config(), 1024, 650, 1, seed=5)
-    check_mc_head_bwd("mc_head_bwd_sep", Config(), 1024, 650, 4, seed=6)
-    rows["mc_head_bwd_shared"] = check_mc_head_bwd(
-        "mc_head_bwd_shared", Config(shared_att=True), 256, 200, 1, seed=7
-    )
+    for label, name, shared, n, n_valid, layout, T, seed in BWD_SHAPES:
+        print(f"  {label}: N={n}, {n_valid} valid ({layout}), T={T}", flush=True)
+        rows.setdefault(name, check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed))
 
     print("[7] training: run_training(Config(synthetic_count=8, epochs=2)), shipped widths",
           flush=True)
@@ -369,10 +546,11 @@ def main() -> int:
         mc_head_bwd_shared=shared_train_launches["mc_head_bwd_shared"],
     )
     kernels = []
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in cuda_build.KERNELS.values():
         kernels.append(dict(
             name=k.name, route="cuda", source=f"montecarlo_gated_mil_tpu_torch/csrc/{k.source}",
-            replaces=k.replaces, launches=launches[k.name], **rows[k.name],
+            replaces=k.replaces, launches=launches[k.name], **{x: rows[k.name][x] for x in keys},
         ))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
@@ -530,25 +708,38 @@ def check_train_bag_paths() -> dict:
 
 
 def profile_train_step(state, step, bag) -> None:
-    """Device time of one training step by kernel, from ``torch.profiler``."""
+    """Device time of one training step by kernel, from ``torch.profiler``.
+    K1 and K5 are found by the device functions ``cuda_build`` lists for
+    their sources; either reading 0 ms in a step that launched it fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+
+    k1, k5 = cuda_build.KERNELS["mc_head_sep"], cuda_build.KERNELS["mc_head_bwd_sep"]
+    before = (k1.launches, k5.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(state, bag, 3, True)
         torch.cuda.synchronize()
+    launched = (k1.launches - before[0], k5.launches - before[1])
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
     def dev_ms(e):
         return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
 
+    def kernel_ms(k):
+        names = cuda_build.DEVICE_FUNCTIONS[k.source]
+        return sum(dev_ms(e) for e in kernels if any(n in e.key for n in names))
+
     total = sum(dev_ms(e) for e in kernels)
     if total <= 0:
         print("  profiler: no device time recorded; the CUDA events above stand alone")
         return
-    k1 = sum(dev_ms(e) for e in kernels if any(
-        n in e.key for n in ("mc_logits_kernel", "mc_softmax_kernel", "mc_pool_kernel")))
-    k5 = sum(dev_ms(e) for e in kernels if "bwd_" in e.key and "_kernel" in e.key)
+    k1, k5 = kernel_ms(k1), kernel_ms(k5)
+    for name, ms, n in (("K1", k1, launched[0]), ("K5", k5, launched[1])):
+        if n > 0 and ms <= 0:
+            raise RuntimeError(f"profiler: {name} was launched {n} times in the step but its "
+                               "device functions read 0 ms: cuda_build.DEVICE_FUNCTIONS is stale")
     top = sorted(kernels, key=dev_ms, reverse=True)[:6]
     print(f"  profiler, one step: device kernels {total:.2f} ms; K1 {k1:.3f} ms, K5 {k5:.3f} ms "
           f"({100 * (k1 + k5) / total:.2f} %); the rest is the r18 embed forward and backward, "
@@ -693,5 +884,46 @@ def check_small_request_against_cpu() -> None:
         raise RuntimeError("the card's request path disagrees with the CPU plain path")
 
 
+def time_heads(root: str) -> int:
+    """Times the MC head kernels of the port under ``root`` at the shapes
+    and inputs of phases 3 and 6 with this script's timer, and prints one
+    JSON line.  It calls only what the port has had since it trained:
+    ``mc_gated_attention``, ``_mc_head_cuda`` and ``_mc_head_bwd_cuda``."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
+    sys.path.insert(0, str(Path(root).resolve()))
+    import montecarlo_gated_mil_tpu_torch as port
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
+        _mc_head_bwd_cuda,
+        _mc_head_cuda,
+        mc_gated_attention,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"card: {_gpu_line()}; port {Path(port.__file__).parent}", flush=True)
+    cuda_build.build_all()
+    times = {}
+    for label, _, shared, n, n_valid, layout, T, seed in HEAD_SHAPES:
+        _, params, H, mask, _ = _head_inputs(shared, n, n_valid, layout, seed)
+        times[label] = _time_ms(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1),
+                                iters=10, what=label)
+    for label, _, shared, n, n_valid, layout, T, seed in BWD_SHAPES:
+        model, params, H, mask, g = _head_inputs(shared, n, n_valid, layout, seed)
+        _, dA, dM = _cotangents(model, params, n, T, g)
+        _, A = _mc_head_cuda(H, mask, params, T, 17, 0.1, 0.1)
+        times[label] = _time_ms(lambda: _mc_head_bwd_cuda(H, params, T, 17, 0.1, 0.1, A, dM, dA),
+                                iters=10, what=label)
+    for label, t in times.items():
+        print(f"  {label}: {t}", flush=True)
+    print(json.dumps({"port": str(Path(port.__file__).parent),
+                      "heads": {k: asdict(t) for k, t in times.items()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--heads-from", metavar="DIR",
+                    help="only time the MC head kernels of the port under DIR")
+    args = ap.parse_args()
+    sys.exit(time_heads(args.heads_from) if args.heads_from else main())

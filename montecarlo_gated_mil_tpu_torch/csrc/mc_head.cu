@@ -10,257 +10,295 @@
 // Replaces the TPU kernels `_mc_kernel_sep` (G = C separate gates, K1) and
 // `_mc_kernel` (G = 1 shared gate, K2) of
 // montecarlo_gated_mil_tpu/ops/gated_attention.py.  wa_full is (C, G, D):
-// for separate gates it is zero off the class's own gate, for a shared gate
-// it is Wa transposed.
+// for separate gates it is zero off the class's own gate, so class c's logit
+// needs gate c alone; for a shared gate it is Wa transposed.
 //
-// What bounds it: the gate product, 2*N*L*(2*G*D) FLOP per sample, in plain
-// FP32 FMA (no TF32: the JAX kernel is exact f32).  At N=3072, L=512,
-// D=128, G=2, T=50 that is 80.5 GFLOP against 67 TFLOP/s, 1.2 ms.  Bytes
-// are small: H (6.3 MB) is read from L2 by every sample.
+// What bounds it: the gate product, 2*N*L*(2*G*D) FLOP per sample, 98 % of
+// the work.  The JAX kernel is exact f32, so it runs as 3xTF32 on the tensor
+// cores (mc_tile.cuh): three TF32 products, 3 * 63 GFLOP at N = 3072 (2400
+// valid), L = 512, D = 128, G = 2, T = 50, 0.39 ms at 495 TFLOP/s, against
+// 0.94 ms for one f32 product on the FP32 cores.  Next come the dropout bits
+// (one Philox4x32-10 call gives four elements, and each (t, n, l) is drawn
+// once per call of this kernel) and the weights, 0.5 MB per gate, read from
+// L2 by every block.  On the H100 the product runs at about a fifth of the
+// tensor-core peak: mma.sync with the split done in registers, eight warps
+// per SM, is bound by the latency of each 16-row weight stage (PERF.md).
 //
-// Design.  The TPU kernel keeps the whole (N, L) bag in VMEM across a
-// sequential T grid.  A block has at most 227 KB of shared memory and blocks
-// run in no order, so the work is split into three passes, each keyed by
-// (t, tile) alone:
-//   1. mc_logits_kernel: one block per (32-row tile of N, t).  A register-
-//      tiled SGEMM over L in chunks of 16 computes the V and U columns of all
-//      G gates for its rows (each thread owns 8 rows x 4 d of V and the same
-//      4 d of U, so the gate product never leaves registers); the feature
-//      mask is drawn as the H tile is staged in shared memory.  The per-row
-//      logit sums reduce through shared memory in a fixed order.
-//   2. mc_softmax_kernel: one block per t; masked max and sum over N by
-//      fixed-order tree reductions, A written in (T, C, N) layout.
-//   3. mc_pool_kernel: one block per (t, 64 columns of L); regenerates the
-//      feature mask from its counter rather than storing Hd.
-// No float atomics anywhere, so a seed gives bitwise the same output on
-// every call, as the TPU kernel does.  No ceiling is tied to N.
+// Design.  Two launches, every sum in a fixed order (no float atomics: one
+// seed gives bitwise the same output on every call):
+//   1. mc_fwd_tile_kernel, one block per (row tile, gate group, t).  It
+//      stages its rows of Hd in shared memory, dropout applied, and keeps
+//      them there: the gate product streams the weights through a cp.async
+//      ring against the resident tile (mma.sync, 3xTF32, each stage's
+//      partial added on the FP32 cores: mc_tile.cuh), the epilogue forms
+//      tanh * sigmoid, the wa dot, ba and the attention dropout, and then the
+//      same tile gives the tile's softmax partials: its max m_j, its sum
+//      s_j = sum exp(logit - m_j) and P_j = sum exp(logit - m_j) Hd (C, L).
+//      So H is read once and each dropout bit drawn once per sample.  A tile
+//      with no valid row does no product.  The row tile is 64, 32 or 16 rows
+//      (mc_tile.cuh, plan_rows): as large as shared memory allows (16 at
+//      r50's L = 2048) and small enough to give a block per SM at T = 1.
+//      There separate gates also take one block each (class c needs only
+//      gate c), which draws the tile's bits once per gate, and the 16- and
+//      32-row tiles split L over two warp groups, so that each warp waits on
+//      half as many weight stages.
+//   2. mc_fwd_finalize_kernel, one block per (128 outputs, c, t): the global
+//      max m and sum s = sum_j s_j exp(m_j - m), each folded over the tiles
+//      by one warp in a fixed order, then A = exp(logit - m) / s and
+//      M = sum_j exp(m_j - m) P_j / s.
+// Rows are split across blocks in every pass; no ceiling is tied to N.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "philox.cuh"
+#include "mc_tile.cuh"
 
 namespace {
 
-constexpr float kMaskFill = -1e30f;
-constexpr int BM = 32;          // rows of H per logits block
-constexpr int BK = 16;          // L chunk staged per step
-constexpr int AS = BM + 4;      // padded row stride of the staged H tile
-constexpr int POOL_COLS = 64;   // L columns per pool block
-constexpr int POOL_SLICES = 4;  // row slices per pool block
-constexpr int MAX_C = 8;
+using namespace mch;
 
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+constexpr int FIN_THREADS = 128;
 
-__global__ void mc_logits_kernel(
-    const float* __restrict__ H, int N, int L, int D, int C, int G,
-    const float* __restrict__ wv, const float* __restrict__ bv,
-    const float* __restrict__ wu, const float* __restrict__ bu,
-    const float* __restrict__ wa_full, const float* __restrict__ ba,
-    uint32_t seed, float p_feat, float scale_f, float p_att, float scale_a,
-    float* __restrict__ logits) {
+// Workspace layout, in floats: logits (T, C, N), tile max/sum (T, ntiles, C, 2),
+// tile pools P (T, ntiles, C, L).
+struct FwdWork {
+  float *logits, *part_ms, *part_p;
+};
+
+inline FwdWork carve(float* work, int N, int L, int C, int T, int ntiles) {
+  FwdWork w;
+  w.logits = work;
+  w.part_ms = w.logits + (size_t)T * C * N;
+  w.part_p = w.part_ms + (size_t)T * ntiles * C * 2;
+  return w;
+}
+
+template <int MT, int RW, int KS>
+__global__ void __launch_bounds__(256) mc_fwd_tile_kernel(
+    const float* __restrict__ H, const float* __restrict__ mask, int N, int L, int D, int C, int G,
+    int gpb, const float* __restrict__ wv, const float* __restrict__ bv,
+    const float* __restrict__ wu, const float* __restrict__ bu, const float* __restrict__ wa_full,
+    const float* __restrict__ ba, uint32_t seed, float p_feat, float scale_f, float p_att,
+    float scale_a, float* __restrict__ logits, float* __restrict__ part_ms,
+    float* __restrict__ part_p) {
+  constexpr int BM = 16 * MT * RW;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int t = blockIdx.y;
-  const int n0 = blockIdx.x * BM;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;           // G * D
-  const int cols = 2 * G * D;            // [g][V|U][d]
-  const int cgs = G * D / 4;             // column groups (4 d each)
-  const int rg = tid / cgs, cg = tid % cgs;
-  const int grp = cg / (D / 4), d0 = (cg % (D / 4)) * 4;
+  const int ldh = L + 4, DW = D / 32;
+  float* Hs = reinterpret_cast<float*>(smem4);                // [BM][L + 4]
+  float* stages = Hs + BM * ldh;                             // NSTAGE x [KS*BK][2D + 8]
+  float* red = stages + NSTAGE * KS * BK * (2 * D + 8);      // [kMaxC][BM][DW]
+  float* lg = red + kMaxC * BM * 4;                          // [kMaxC][BM]
+  int* ok = reinterpret_cast<int*>(lg + kMaxC * BM);         // [BM] row valid
+  const int tile = blockIdx.x, t = blockIdx.z, ntiles = gridDim.x;
+  const int n0 = tile * BM;
+  const int g0 = blockIdx.y * gpb;
+  // The classes this block completes: every class when it holds every gate
+  // (or the one shared gate), else class g0 of separate gates.
+  const bool all_cls = G == 1 || gpb == G;
+  const int c0 = all_cls ? 0 : g0, ncls = all_cls ? C : 1;
   const uint32_t key = seed + (uint32_t)t;
-  float* As = smem;                      // [BK][AS]
-  float* Bs = smem + BK * AS;            // [BK][cols]
+  const size_t pbase = ((size_t)t * ntiles + tile) * C;
+  const int tid = threadIdx.x, nthr = blockDim.x;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if (!set_row_flags(ok, BM, n0 + tid < N && mask[n0 + tid] > 0.f)) {
+    for (int cc = tid; cc < ncls; cc += nthr) {
+      part_ms[(pbase + c0 + cc) * 2] = kMaskFill;
+      part_ms[(pbase + c0 + cc) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+  load_hd_tile(Hs, ldh, H, ok, L, n0, BM, key, p_feat, scale_f, nullptr);
+  for (int e = tid; e < ncls * BM; e += nthr) lg[e] = 0.f;
 
-  for (int l0 = 0; l0 < L; l0 += BK) {
-    for (int e = tid; e < BM * BK; e += nthr) {
-      const int r = e / BK, k = e % BK;
-      const int n = n0 + r, l = l0 + k;
-      float h = 0.f;
-      if (n < N && l < L) {
-        h = H[(size_t)n * L + l];
-        if (p_feat > 0.f) {
-          const float keep = dropout_uniform(key, 0u, (uint32_t)(n * L + l)) >= p_feat ? 1.f : 0.f;
-          h = h * keep * scale_f;
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q = lane & 3;
+  const int rw = warp % RW, dj = (warp / RW) % DW, ks = warp / (RW * DW);
+  float acc[MT][8][4];
+  for (int g = g0; g < g0 + gpb; ++g) {
+    gate_product<MT, KS>(Hs, ldh, stages, wv, wu, g, L, D, rw * MT * 16, dj * 32, ks, acc);
+    // This thread's share of each class logit, per row it holds (warp
+    // group 0 holds the sums).
+#pragma unroll
+    for (int mt = 0; mt < MT && ks == 0; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float s[kMaxC];
+#pragma unroll
+        for (int cc = 0; cc < kMaxC; ++cc) s[cc] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = dj * 32 + j * 8 + 2 * q + e;
+            const float v = tanhf(acc[mt][j][2 * h + e] + bv[g * D + d]);
+            const float u = sigmoidf_(acc[mt][j + 4][2 * h + e] + bu[g * D + d]);
+            const float gate = v * u;
+#pragma unroll
+            for (int cc = 0; cc < kMaxC; ++cc)
+              if (cc < ncls) s[cc] = fmaf(gate, wa_full[((size_t)(c0 + cc) * G + g) * D + d], s[cc]);
+          }
+        }
+        const int row = rw * MT * 16 + mt * 16 + h * 8 + gq;
+#pragma unroll
+        for (int cc = 0; cc < kMaxC; ++cc) {
+          if (cc < ncls) {
+            float v = s[cc];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (q == 0) red[(cc * BM + row) * DW + dj] = v;
+          }
         }
       }
-      As[k * AS + r] = h;
-    }
-    for (int e = tid; e < BK * cols / 4; e += nthr) {
-      const int k = e / (cols / 4), c4 = (e % (cols / 4)) * 4;
-      const int g = c4 / (2 * D), rem = c4 % (2 * D);
-      const int l = l0 + k;
-      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (l < L) {
-        const float* src = (rem < D ? wv : wu) + ((size_t)g * L + l) * D + (rem % D);
-        w = *reinterpret_cast<const float4*>(src);
-      }
-      *reinterpret_cast<float4*>(&Bs[k * cols + c4]) = w;
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k * AS + rg * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k * AS + rg * 8 + 4]);
-      const float4 v4 = *reinterpret_cast<const float4*>(&Bs[k * cols + grp * 2 * D + d0]);
-      const float4 u4 = *reinterpret_cast<const float4*>(&Bs[k * cols + grp * 2 * D + D + d0]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {v4.x, v4.y, v4.z, v4.w, u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int e = tid; e < ncls * BM; e += nthr) {
+      float v = lg[e];
+      for (int w = 0; w < DW; ++w) v += red[e * DW + w];
+      lg[e] = v;
     }
     __syncthreads();
   }
 
-  // Epilogue: gate product and this thread's share of each class logit.
-  float* red = smem;  // [BM][C][cgs], reuses the staging buffers
-  for (int i = 0; i < 8; ++i) {
-    float gate[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float v = tanhf(acc[i][j] + bv[grp * D + d0 + j]);
-      const float u = sigmoidf_(acc[i][4 + j] + bu[grp * D + d0 + j]);
-      gate[j] = v * u;
-    }
-    const int r = rg * 8 + i;
-    for (int c = 0; c < C; ++c) {
-      const float* w = wa_full + ((size_t)c * G + grp) * D + d0;
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s = fmaf(gate[j], w[j], s);
-      red[(r * C + c) * cgs + cg] = s;
-    }
+  // Logits: bias, attention dropout; masked rows leave the softmax.
+  for (int e = tid; e < ncls * BM; e += nthr) {
+    const int cc = e / BM, r = e - cc * BM, c = c0 + cc, n = n0 + r;
+    float logit = lg[e] + ba[c];
+    if (p_att > 0.f && n < N)
+      logit = dropout_uniform(key, 1u, (uint32_t)(n * C + c)) >= p_att ? logit * scale_a : 0.f;
+    if (n < N) logits[((size_t)t * C + c) * N + n] = logit;
+    lg[e] = ok[r] ? logit : kMaskFill;
   }
   __syncthreads();
-  for (int e = tid; e < BM * C; e += nthr) {
-    const int r = e / C, c = e % C, n = n0 + r;
-    if (n >= N) continue;
+  // Tile max and sum per class; lg becomes the rows' softmax weights.
+  if (tid < ncls) {
+    float* w = lg + tid * BM;
+    float m = kMaskFill;
+    for (int r = 0; r < BM; ++r) m = fmaxf(m, w[r]);
     float s = 0.f;
-    for (int q = 0; q < cgs; ++q) s += red[(r * C + c) * cgs + q];
-    float logit = s + ba[c];
-    if (p_att > 0.f) {
-      const float keep = dropout_uniform(key, 1u, (uint32_t)(n * C + c)) >= p_att ? 1.f : 0.f;
-      logit = logit * keep * scale_a;
+    for (int r = 0; r < BM; ++r) {
+      const float x = w[r] > kMaskFill ? expf(w[r] - m) : 0.f;
+      w[r] = x;
+      s += x;
     }
-    logits[((size_t)t * C + c) * N + n] = logit;
+    part_ms[(pbase + c0 + tid) * 2] = m;
+    part_ms[(pbase + c0 + tid) * 2 + 1] = s;
   }
-}
-
-// Fixed-order tree reduction over one block; `buf` holds blockDim.x floats.
-template <bool IS_MAX>
-__device__ float block_reduce(float v, float* buf) {
-  const int tid = threadIdx.x;
-  buf[tid] = v;
   __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) buf[tid] = IS_MAX ? fmaxf(buf[tid], buf[tid + s]) : buf[tid] + buf[tid + s];
-    __syncthreads();
-  }
-  const float out = buf[0];
-  __syncthreads();
-  return out;
-}
-
-__global__ void mc_softmax_kernel(const float* __restrict__ logits, const float* __restrict__ mask,
-                                  int N, int C, float* __restrict__ A) {
-  extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);
-  const int t = blockIdx.x;
-  for (int c = 0; c < C; ++c) {
-    const float* lg = logits + ((size_t)t * C + c) * N;
-    float mx = kMaskFill;
-    for (int n = threadIdx.x; n < N; n += blockDim.x)
-      mx = fmaxf(mx, mask[n] > 0.f ? lg[n] : kMaskFill);
-    mx = block_reduce<true>(mx, buf);
-    if (mx <= kMaskFill) mx = 0.f;
-    float sum = 0.f;
-    for (int n = threadIdx.x; n < N; n += blockDim.x)
-      sum += mask[n] > 0.f ? expf(lg[n] - mx) : 0.f;
-    float denom = block_reduce<false>(sum, buf);
-    if (!(denom > 0.f)) denom = 1.f;
-    float* a = A + ((size_t)t * C + c) * N;
-    for (int n = threadIdx.x; n < N; n += blockDim.x)
-      a[n] = (mask[n] > 0.f ? expf(lg[n] - mx) : 0.f) / denom;
+  // The tile's pool P_j[c, l] = sum_r weight[c, r] Hd[r, l], rows in order.
+  for (int e = tid; e < ncls * L; e += nthr) {
+    const int cc = e / L, l = e - cc * L;
+    const float* w = lg + cc * BM;
+    float p = 0.f;
+    for (int r = 0; r < BM; ++r) p = fmaf(w[r], Hs[r * ldh + l], p);
+    part_p[(pbase + c0 + cc) * L + l] = p;
   }
 }
 
-__global__ void mc_pool_kernel(const float* __restrict__ H, const float* __restrict__ mask,
-                               const float* __restrict__ A, int N, int L, int C,
-                               uint32_t seed, float p_feat, float scale_f,
-                               float* __restrict__ M) {
-  __shared__ float red[POOL_SLICES][MAX_C][POOL_COLS];
-  const int t = blockIdx.x;
-  const int col = threadIdx.x % POOL_COLS, slice = threadIdx.x / POOL_COLS;
-  const int l = blockIdx.y * POOL_COLS + col;
-  const uint32_t key = seed + (uint32_t)t;
-  float acc[MAX_C];
+// Fixed-order sum or max over one warp: lanes fold in a butterfly.
+template <bool MAX>
+__device__ __forceinline__ float warp_fold(float v) {
 #pragma unroll
-  for (int c = 0; c < MAX_C; ++c) acc[c] = 0.f;
-  if (l < L) {
-    for (int n = slice; n < N; n += POOL_SLICES) {
-      if (!(mask[n] > 0.f)) continue;  // A is exactly 0 there
-      float h = H[(size_t)n * L + l];
-      if (p_feat > 0.f) {
-        const float keep = dropout_uniform(key, 0u, (uint32_t)(n * L + l)) >= p_feat ? 1.f : 0.f;
-        h = h * keep * scale_f;
-      }
-      for (int c = 0; c < C; ++c) acc[c] = fmaf(A[((size_t)t * C + c) * N + n], h, acc[c]);
-    }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = MAX ? fmaxf(v, o) : v + o;
   }
-  for (int c = 0; c < C; ++c) red[slice][c][col] = acc[c];
+  return v;
+}
+
+__global__ void __launch_bounds__(FIN_THREADS) mc_fwd_finalize_kernel(
+    const float* __restrict__ mask, int N, int L, int C, int ntiles,
+    const float* __restrict__ logits, const float* __restrict__ part_ms,
+    const float* __restrict__ part_p, float* __restrict__ A, float* __restrict__ M) {
+  extern __shared__ float4 smem4[];
+  float* wj = reinterpret_cast<float*>(smem4);  // [ntiles]: exp(m_j - m), 0 for empty tiles
+  __shared__ float ms[2];
+  const int c = blockIdx.y, t = blockIdx.z, tid = threadIdx.x, lane = tid & 31;
+  const int e = blockIdx.x * blockDim.x + tid;
+  const float* pm = part_ms + ((size_t)t * ntiles * C + c) * 2;  // tile j at pm[j * 2C]
+  if (tid < 32) {
+    float m = kMaskFill;
+    for (int j = lane; j < ntiles; j += 32) m = fmaxf(m, pm[(size_t)j * 2 * C]);
+    m = warp_fold<true>(m);
+    if (lane == 0) ms[0] = m;
+  }
   __syncthreads();
-  if (slice == 0 && l < L) {
-    for (int c = 0; c < C; ++c) {
-      float s = 0.f;
-      for (int q = 0; q < POOL_SLICES; ++q) s += red[q][c][col];
-      M[((size_t)t * C + c) * L + l] = s;
-    }
+  const float m = ms[0];
+  for (int j = tid; j < ntiles; j += blockDim.x)
+    wj[j] = pm[(size_t)j * 2 * C + 1] > 0.f ? expf(pm[(size_t)j * 2 * C] - m) : 0.f;
+  __syncthreads();
+  if (tid < 32) {
+    float s = 0.f;
+    for (int j = lane; j < ntiles; j += 32) s = fmaf(pm[(size_t)j * 2 * C + 1], wj[j], s);
+    s = warp_fold<false>(s);
+    if (lane == 0) ms[1] = s;
   }
+  __syncthreads();
+  const float s = ms[1];
+  if (e < N) {
+    const size_t i = ((size_t)t * C + c) * N + e;
+    A[i] = (s > 0.f && mask[e] > 0.f) ? expf(logits[i] - m) / s : 0.f;
+  } else if (e < N + L) {
+    const int l = e - N;
+    const float* p = part_p + ((size_t)t * ntiles * C + c) * L + l;  // tile j at p[j * C * L]
+    float acc = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < ntiles; ++j) {
+      const float w = wj[j];
+      if (w > 0.f) acc = fmaf(w, p[(size_t)j * C * L], acc);
+    }
+    M[((size_t)t * C + c) * L + l] = s > 0.f ? acc / s : 0.f;
+  }
+}
+
+template <int MT, int RW, int KS>
+cudaError_t launch_tile(const RowPlan& plan, int D, cudaStream_t s, const float* H,
+                        const float* mask, int N, int L, int C, int G, int T, const float* wv,
+                        const float* bv, const float* wu, const float* bu, const float* wa_full,
+                        const float* ba, uint32_t seed, float p_feat, float scale_f, float p_att,
+                        float scale_a, const FwdWork& w) {
+  static size_t allowed[kMaxDevices] = {};
+  cudaError_t err = allow_smem(mc_fwd_tile_kernel<MT, RW, KS>, plan.smem, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid(plan.ntiles, G / plan.gpb, T);
+  mc_fwd_tile_kernel<MT, RW, KS><<<grid, gate_block_threads(plan, D), plan.smem, s>>>(
+      H, mask, N, L, D, C, G, plan.gpb, wv, bv, wu, bu, wa_full, ba, seed, p_feat, scale_f,
+      p_att, scale_a, w.logits, w.part_ms, w.part_p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Floats of scratch mc_head_forward needs, or -1 for shapes it cannot take.
+long mc_head_forward_workspace(int N, int L, int D, int C, int G, int T) {
+  if (!shapes_ok(N, L, D, C, G, T)) return -1;
+  const RowPlan plan = plan_rows(N, L, D, G, T);
+  if (plan.bm == 0) return -1;
+  return (long)T * C * N + (long)T * plan.ntiles * C * (2 + (long)L);
+}
+
 // Shapes: H (N, L); mask (N,) 1.0/0.0; wv, wu (G, L, D); bv, bu (G, D);
-// wa_full (C, G, D); ba (C,); logits scratch (T, C, N); A out (T, C, N);
-// M out (T, C, L).  All float32, contiguous, on the device of `stream`.
-// Returns the cudaError_t of the launches (0 = success).
+// wa_full (C, G, D); ba (C,); work: mc_head_forward_workspace(...) floats;
+// A out (T, C, N); M out (T, C, L).  All float32, contiguous, on the device
+// of `stream`.  Returns the cudaError_t of the launches (0 = success).
 int mc_head_forward(const float* H, const float* mask, int N, int L, int D, int C, int G, int T,
                     const float* wv, const float* bv, const float* wu, const float* bu,
                     const float* wa_full, const float* ba, unsigned int seed, float p_feat,
-                    float scale_f, float p_att, float scale_a, float* logits, float* A, float* M,
+                    float scale_f, float p_att, float scale_a, float* work, float* A, float* M,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 4 != 0 || G * D > 1024 || G * D < 32 || (G * D) % 32 != 0 || C > MAX_C || C < 1)
-    return (int)cudaErrorInvalidValue;
-  const int nthr = G * D;
-  const size_t stage = (size_t)BK * AS + (size_t)BK * 2 * G * D;
-  const size_t reduce = (size_t)BM * C * (G * D / 4);
-  const size_t smem = 4 * (stage > reduce ? stage : reduce);
-  cudaError_t err = cudaFuncSetAttribute(mc_logits_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!shapes_ok(N, L, D, C, G, T)) return (int)cudaErrorInvalidValue;
+  const RowPlan plan = plan_rows(N, L, D, G, T);
+  if (plan.bm == 0) return (int)cudaErrorInvalidValue;
+  const FwdWork w = carve(work, N, L, C, T, plan.ntiles);
+#define MCH_LAUNCH_TILE(MT, RW, KS)                                                       \
+  launch_tile<MT, RW, KS>(plan, D, s, H, mask, N, L, C, G, T, wv, bv, wu, bu, wa_full, ba, seed, \
+                          p_feat, scale_f, p_att, scale_a, w)
+  const cudaError_t err = MCH_DISPATCH_ROWS(plan, MCH_LAUNCH_TILE);
+#undef MCH_LAUNCH_TILE
   if (err != cudaSuccess) return (int)err;
-  dim3 grid1((N + BM - 1) / BM, T);
-  mc_logits_kernel<<<grid1, nthr, smem, s>>>(H, N, L, D, C, G, wv, bv, wu, bu, wa_full, ba,
-                                             seed, p_feat, scale_f, p_att, scale_a, logits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int sthr = 512;
-  mc_softmax_kernel<<<T, sthr, sthr * sizeof(float), s>>>(logits, mask, N, C, A);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid3(T, (L + POOL_COLS - 1) / POOL_COLS);
-  mc_pool_kernel<<<grid3, POOL_COLS * POOL_SLICES, 0, s>>>(H, mask, A, N, L, C, seed, p_feat,
-                                                           scale_f, M);
+  dim3 grid((N + L + FIN_THREADS - 1) / FIN_THREADS, C, T);
+  mc_fwd_finalize_kernel<<<grid, FIN_THREADS, plan.ntiles * sizeof(float), s>>>(
+      mask, N, L, C, plan.ntiles, w.logits, w.part_ms, w.part_p, A, M);
   return (int)cudaGetLastError();
 }
 

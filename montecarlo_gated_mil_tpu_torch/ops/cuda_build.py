@@ -46,6 +46,16 @@ class Kernel:
     launches: int = 0
 
 
+# The __global__ functions each source launches, by the names a profiler
+# shows (templates carry their arguments after the name).
+DEVICE_FUNCTIONS: dict[str, tuple[str, ...]] = {
+    "mc_head.cu": ("mc_fwd_tile_kernel", "mc_fwd_finalize_kernel"),
+    "mc_head_bwd.cu": (
+        "bwd_gate_kernel", "bwd_dz_kernel", "bwd_dh_kernel", "bwd_dw_kernel", "bwd_reduce_kernel",
+    ),
+    "gather.cu": ("gather_tiles_kernel",),
+}
+
 KERNELS: dict[str, Kernel] = {
     k.name: k
     for k in (

@@ -16,9 +16,9 @@ it with ``csrc/mc_head_bwd.cu`` through :class:`_MCHead`; on a CPU tensor it
 runs :func:`mc_head_reference`, the plain PyTorch version of the same
 function, under ordinary autograd.  :func:`mc_head_backward_reference` is the
 plain version of the backward kernels.  All draw dropout from one
-counter-based stream, Philox4x32-10 keyed on ``(seed + t, draw)`` and
-counted by the element index, so kernels and plain versions agree with
-dropout on as well as off.
+counter-based stream, Philox4x32-10 keyed on ``(seed + t, draw)``, element
+``e`` taking word ``e % 4`` of counter ``e // 4``, so kernels and plain
+versions agree with dropout on as well as off.
 """
 
 from __future__ import annotations
@@ -69,11 +69,13 @@ def philox4x32_10(
 
 
 def dropout_uniform(key: int, draw: int, n: int, device) -> torch.Tensor:
-    """U[0,1) float32 for elements ``0..n-1`` of one draw: the top 24 bits of
-    word 0 of Philox at counter ``(index, 0, 0, 0)`` and key ``(key, draw)``."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    zero = torch.zeros_like(idx)
-    bits = philox4x32_10((idx, zero, zero, zero), (key, draw))[0]
+    """U[0,1) float32 for elements ``0..n-1`` of one draw: element ``e`` is
+    the top 24 bits of word ``e % 4`` of Philox at counter ``(e // 4, 0, 0,
+    0)`` and key ``(key, draw)``, so one call serves four elements."""
+    group = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(group)
+    words = philox4x32_10((group, zero, zero, zero), (key, draw))
+    bits = torch.stack(words, -1).reshape(-1)[:n]
     return (bits >> 8).to(torch.float32) * _INV_2_24
 
 
@@ -182,23 +184,54 @@ def mc_head_reference(
     mask = mask.to(H.device).bool()
     ys, attns = [], []
     for t in range(num_samples):
-        key = (seed + t) & _MASK32
-        Hd = _dropout(Hf, feature_dropout, key, FEATURE_DRAW) if feature_dropout > 0 else Hf
-        if p.separate:
-            V = torch.tanh(torch.einsum("nl,cld->cnd", Hd, p.w_V) + p.b_V[:, None, :])
-            U = torch.sigmoid(torch.einsum("nl,cld->cnd", Hd, p.w_U) + p.b_U[:, None, :])
-            logits = torch.einsum("cnd,cd->cn", V * U, p.w_att) + p.b_att[:, None]
-        else:
-            G = torch.tanh(Hd @ p.w_V + p.b_V) * torch.sigmoid(Hd @ p.w_U + p.b_U)
-            logits = (G @ p.w_att + p.b_att).T  # (C, N)
-        if attention_dropout > 0:
-            # Element index n * C + c of the (N, C) logit matrix.
-            logits = _dropout(logits.T, attention_dropout, key, ATTENTION_DRAW).T
+        Hd, logits = _sample_logits(Hf, p, (seed + t) & _MASK32, feature_dropout,
+                                    attention_dropout)
         A = masked_softmax(logits, mask[None, :])
         M = A @ Hd  # (C, L)
         ys.append((M * p.w_cls).sum(-1))
         attns.append(A)
     return torch.stack(ys), torch.stack(attns)
+
+
+def _sample_logits(
+    Hf: torch.Tensor, p: GatedAttentionParams, key: int, feature_dropout: float,
+    attention_dropout: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sample of the plain version: the dropout-masked features
+    ``Hd (N, L)`` and the logits ``(C, N)`` after attention dropout."""
+    Hd = _dropout(Hf, feature_dropout, key, FEATURE_DRAW) if feature_dropout > 0 else Hf
+    if p.separate:
+        V = torch.tanh(torch.einsum("nl,cld->cnd", Hd, p.w_V) + p.b_V[:, None, :])
+        U = torch.sigmoid(torch.einsum("nl,cld->cnd", Hd, p.w_U) + p.b_U[:, None, :])
+        logits = torch.einsum("cnd,cd->cn", V * U, p.w_att) + p.b_att[:, None]
+    else:
+        G = torch.tanh(Hd @ p.w_V + p.b_V) * torch.sigmoid(Hd @ p.w_U + p.b_U)
+        logits = (G @ p.w_att + p.b_att).T  # (C, N)
+    if attention_dropout > 0:
+        # Element index n * C + c of the (N, C) logit matrix.
+        logits = _dropout(logits.T, attention_dropout, key, ATTENTION_DRAW).T
+    return Hd, logits
+
+
+def mc_head_logits_reference(
+    H: torch.Tensor,
+    params: GatedAttentionParams,
+    num_samples: int,
+    seed: int,
+    feature_dropout: float,
+    attention_dropout: float,
+) -> torch.Tensor:
+    """The plain version's logits ``(T, C, N)`` after attention dropout: what
+    the forward kernel holds before its softmax (``_mc_head_cuda(...,
+    keep_logits=True)``).  In the dtype of ``H`` (at least f32): an f64 run
+    is the exact product the kernel's tensor-core math is held to."""
+    dt = torch.promote_types(H.dtype, torch.float32)
+    p = params.to(H.device, dt)
+    Hf = H.to(dt)
+    return torch.stack([
+        _sample_logits(Hf, p, (seed + t) & _MASK32, feature_dropout, attention_dropout)[1]
+        for t in range(num_samples)
+    ])
 
 
 def mc_head_backward_reference(
@@ -298,12 +331,16 @@ def _kernel_operands(params: GatedAttentionParams, device) -> tuple[torch.Tensor
     return tuple(x.contiguous() for x in (wv, bv, wu, bu, wa_full, b_att))
 
 
-def _check_shapes(name: str, N: int, L: int, wv: torch.Tensor, C: int) -> None:
+def _check_shapes(name: str, N: int, L: int, wv: torch.Tensor, C: int, work: int) -> None:
+    """Raise on shapes the kernels cannot take: ``work`` is the library's
+    workspace size, -1 where ``shapes_ok`` in ``csrc/mc_tile.cuh`` refuses
+    the shapes or a tile does not fit in shared memory."""
     G, L_w, D = wv.shape
-    if L_w != L or D % 4 or (G * D) % 32 or G * D > 1024 or not 1 <= C <= 8:
+    if L_w != L or work < 0:
         raise ValueError(
-            f"{name}: unsupported shapes N={N} L={L} D={D} C={C} G={G} "
-            "(needs D % 4 == 0, G*D a multiple of 32 up to 1024, 1 <= C <= 8)"
+            f"{name}: unsupported shapes N={N} L={L} D={D} C={C} G={G} (needs L a multiple "
+            "of 64, D a multiple of 32 up to 128, 1 <= C <= 8, G 1 or C, tiles that fit in "
+            "shared memory)"
         )
 
 
@@ -315,8 +352,12 @@ def _mc_head_cuda(
     seed: int,
     p_feat: float,
     p_att: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/mc_head.cu``; returns ``(M (T, C, L), A (T, C, N))``."""
+    keep_logits: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Launch ``csrc/mc_head.cu``; returns ``(M (T, C, L), A (T, C, N))``.
+    ``keep_logits`` adds the kernel's logits ``(T, C, N)`` after attention
+    dropout, as its workspace holds them; only the rows of tiles that hold a
+    valid row are written, the rest is undefined."""
     kernel = cuda_build.KERNELS["mc_head_sep" if params.separate else "mc_head_shared"]
     dev = H.device
     Hc = H.to(torch.float32).contiguous()
@@ -327,24 +368,32 @@ def _mc_head_cuda(
     C = ba.shape[0]
     T = num_samples
     cuda_build.require_cuda_f32(kernel.name, Hc, maskf, wv, bv, wu, bu, wa_full, ba)
-    _check_shapes(kernel.name, N, L, wv, C)
-    logits = torch.empty((T, C, N), dtype=torch.float32, device=dev)
-    A = torch.empty((T, C, N), dtype=torch.float32, device=dev)
-    M = torch.empty((T, C, L), dtype=torch.float32, device=dev)
-    fn = cuda_build.load(kernel.source).mc_head_forward
+    lib = cuda_build.load(kernel.source)
+    i32, f32, ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    ws = lib.mc_head_forward_workspace
+    ws.restype = ctypes.c_long
+    ws.argtypes = [i32] * 6
+    fn = lib.mc_head_forward
     fn.restype = ctypes.c_int
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
                    ctypes.c_uint, f32, f32, f32, f32, ptr, ptr, ptr, ptr]
-    err = fn(
-        Hc.data_ptr(), maskf.data_ptr(), N, L, D, C, G, T,
-        wv.data_ptr(), bv.data_ptr(), wu.data_ptr(), bu.data_ptr(),
-        wa_full.data_ptr(), ba.data_ptr(),
-        seed & _MASK32, p_feat, 1.0 / (1.0 - p_feat), p_att, 1.0 / (1.0 - p_att),
-        logits.data_ptr(), A.data_ptr(), M.data_ptr(), cuda_build.stream_handle(dev),
-    )
+    with torch.cuda.device(dev):  # the row plan and shared-memory limit are per device
+        size = ws(N, L, D, C, G, T)
+        _check_shapes(kernel.name, N, L, wv, C, size)
+        work = torch.empty(size, dtype=torch.float32, device=dev)
+        A = torch.empty((T, C, N), dtype=torch.float32, device=dev)
+        M = torch.empty((T, C, L), dtype=torch.float32, device=dev)
+        err = fn(
+            Hc.data_ptr(), maskf.data_ptr(), N, L, D, C, G, T,
+            wv.data_ptr(), bv.data_ptr(), wu.data_ptr(), bu.data_ptr(),
+            wa_full.data_ptr(), ba.data_ptr(),
+            seed & _MASK32, p_feat, 1.0 / (1.0 - p_feat), p_att, 1.0 / (1.0 - p_att),
+            work.data_ptr(), A.data_ptr(), M.data_ptr(), cuda_build.stream_handle(dev),
+        )
     cuda_build.check(err, kernel.name)
     kernel.launches += 1
+    if keep_logits:
+        return M, A, work[: T * C * N].view(T, C, N)
     return M, A
 
 
@@ -372,7 +421,6 @@ def _mc_head_bwd_cuda(
     G, _, D = wv.shape
     T, C = A.shape[0], A.shape[1]
     cuda_build.require_cuda_f32(kernel.name, Hc, wv, bv, wu, bu, wa_full, A, dM, dA)
-    _check_shapes(kernel.name, N, L, wv, C)
     if A.shape != (T, C, N) or dA.shape != (T, C, N) or dM.shape != (T, C, L) or T != num_samples:
         raise ValueError(
             f"{kernel.name}: A {tuple(A.shape)}, dA {tuple(dA.shape)}, dM {tuple(dM.shape)} "
@@ -385,24 +433,27 @@ def _mc_head_bwd_cuda(
     ws = lib.mc_head_backward_workspace
     ws.restype = ctypes.c_long
     ws.argtypes = [i32] * 7
-    work = torch.empty(ws(N, L, D, C, G, T, slices), dtype=torch.float32, device=dev)
-    dH = torch.empty((N, L), dtype=torch.float32, device=dev)
-    dwv, dwu = (torch.empty((G, L, D), dtype=torch.float32, device=dev) for _ in range(2))
-    dbv, dbu = (torch.empty((G, D), dtype=torch.float32, device=dev) for _ in range(2))
-    dwa = torch.empty((C, D), dtype=torch.float32, device=dev)
-    dba = torch.empty((C,), dtype=torch.float32, device=dev)
     fn = lib.mc_head_backward
     fn.restype = ctypes.c_int
     fn.argtypes = [ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                    ctypes.c_uint, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                    ptr, ptr]
-    err = fn(
-        Hc.data_ptr(), N, L, D, C, G, T, wv.data_ptr(), bv.data_ptr(), wu.data_ptr(),
-        bu.data_ptr(), wa_full.data_ptr(), A.data_ptr(), dM.data_ptr(), dA.data_ptr(),
-        seed & _MASK32, p_feat, 1.0 / (1.0 - p_feat), p_att, 1.0 / (1.0 - p_att), slices,
-        work.data_ptr(), dH.data_ptr(), dwv.data_ptr(), dbv.data_ptr(), dwu.data_ptr(),
-        dbu.data_ptr(), dwa.data_ptr(), dba.data_ptr(), cuda_build.stream_handle(dev),
-    )
+    with torch.cuda.device(dev):  # the row plan and shared-memory limits are per device
+        size = ws(N, L, D, C, G, T, slices)
+        _check_shapes(kernel.name, N, L, wv, C, size)
+        work = torch.empty(size, dtype=torch.float32, device=dev)
+        dH = torch.empty((N, L), dtype=torch.float32, device=dev)
+        dwv, dwu = (torch.empty((G, L, D), dtype=torch.float32, device=dev) for _ in range(2))
+        dbv, dbu = (torch.empty((G, D), dtype=torch.float32, device=dev) for _ in range(2))
+        dwa = torch.empty((C, D), dtype=torch.float32, device=dev)
+        dba = torch.empty((C,), dtype=torch.float32, device=dev)
+        err = fn(
+            Hc.data_ptr(), N, L, D, C, G, T, wv.data_ptr(), bv.data_ptr(), wu.data_ptr(),
+            bu.data_ptr(), wa_full.data_ptr(), A.data_ptr(), dM.data_ptr(), dA.data_ptr(),
+            seed & _MASK32, p_feat, 1.0 / (1.0 - p_feat), p_att, 1.0 / (1.0 - p_att), slices,
+            work.data_ptr(), dH.data_ptr(), dwv.data_ptr(), dbv.data_ptr(), dwu.data_ptr(),
+            dbu.data_ptr(), dwa.data_ptr(), dba.data_ptr(), cuda_build.stream_handle(dev),
+        )
     cuda_build.check(err, kernel.name)
     kernel.launches += 1
     return dH, dwv, dbv, dwu, dbu, dwa, dba

@@ -106,6 +106,19 @@ def test_philox_known_answer_vectors(counter, key, expected):
     assert tuple(int(w[0]) for w in out) == expected
 
 
+def test_dropout_uniform_maps_elements_to_philox_words():
+    """Element e of a draw is word e % 4 of counter (e // 4, 0, 0, 0): at key
+    (0, 0) elements 0-3 are Random123's first known-answer vector, and
+    element 4 starts counter 1."""
+    words = (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)
+    u = tga.dropout_uniform(0, 0, 6, "cpu")
+    assert [float(x) for x in u[:4]] == [(w >> 8) * 2.0**-24 for w in words]
+    one = torch.ones(1, dtype=torch.int64)
+    zero = torch.zeros(1, dtype=torch.int64)
+    nxt = tga.philox4x32_10((one, zero, zero, zero), (0, 0))
+    assert [float(x) for x in u[4:]] == [(int(w[0]) >> 8) * 2.0**-24 for w in nxt[:2]]
+
+
 def test_dropout_uniform_is_uniform_and_keyed():
     u = tga.dropout_uniform(123, 0, 1 << 16, "cpu")
     assert u.dtype == torch.float32 and float(u.min()) >= 0.0 and float(u.max()) < 1.0

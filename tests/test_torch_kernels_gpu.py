@@ -4,7 +4,10 @@ These import no JAX, so they also run on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
-Where ``torch.cuda.is_available()`` is false each test skips.
+Where ``torch.cuda.is_available()`` is false each ``gpu`` test skips; the
+two checks without the marker (the padded-tile cases and the list of
+device functions) read only the test data and the sources, and run
+anywhere.
 """
 
 import pytest
@@ -15,6 +18,10 @@ from montecarlo_gated_mil_tpu_torch.ops import gated_attention as tga
 from montecarlo_gated_mil_tpu_torch.ops import patching as tp
 
 FIELDS = ("w_V", "b_V", "w_U", "b_U", "w_att", "b_att")
+# Limits against f64, as in tests/test_torch_tf32_split.py, which shows on
+# the CPU that 3xTF32 meets them and plain TF32 fails them.
+LOGITS_VS_F64 = 5e-6  # max |logit - exact logit| on the valid rows
+PRODUCTS_VS_F64 = 1e-5  # max |d - exact| / max |exact| of dH, dw_V, dw_U
 
 
 @pytest.fixture
@@ -116,6 +123,136 @@ def test_autograd_through_the_kernels(cuda, separate):
     got = grads(tga.mc_gated_attention)
     assert kernel.launches == before + 1
     _assert_grads_close(got, grads(tga.mc_head_reference))
+
+
+# Full-width cases (separate gates, C = 2, D = 128): (N, valid rows, where
+# they lie, T, L).  "first" is how serving lays a bag out; "random" leaves
+# few tiles empty; "gap" pads whole tiles in the middle of the bag.
+FULL_CASES = {
+    "ragged_random_T1": (1000, 700, "random", 1, 512),
+    "valid_first_T1": (1024, 650, "first", 1, 512),
+    "padded_tiles_T50": (1031, 600, "gap", 50, 512),
+    "random_T50": (3072, 2400, "random", 50, 512),
+    "r50_L2048_T4": (600, 450, "random", 4, 2048),
+}
+
+
+def _full_case(cuda, case, seed=11):
+    N, n_valid, where, T, L = FULL_CASES[case]
+    D, C = 128, 2
+    g = torch.Generator().manual_seed(seed)
+
+    def init(*shape, fan_in):  # torch.nn.Linear's default init
+        return (torch.rand(*shape, generator=g) * 2 - 1) / fan_in**0.5
+
+    params = tga.GatedAttentionParams(
+        init(C, L, D, fan_in=L), init(C, D, fan_in=L), init(C, L, D, fan_in=L),
+        init(C, D, fan_in=L), init(C, D, fan_in=D), init(C, fan_in=D), init(C, L, fan_in=L),
+    ).to(cuda)
+    H = (torch.rand(N, L, generator=g) * 2.0).to(cuda)
+    mask = torch.zeros(N, dtype=torch.bool)
+    if where == "first":
+        mask[:n_valid] = True
+    elif where == "gap":
+        mask[: n_valid // 2] = True
+        mask[N - (n_valid - n_valid // 2):] = True
+    else:
+        mask[torch.randperm(N, generator=g)[:n_valid]] = True
+    dY = torch.randn(T, C, generator=g).to(cuda)
+    dA = (torch.randn(T, C, N, generator=g) * 0.1).to(cuda)
+    return H, mask.to(cuda), params, T, dY, dA
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FULL_CASES))
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_mc_head_kernel_full_width(cuda, case, p):
+    """K1 at the model's widths against its plain version: Y within 1e-4,
+    A within 1e-5, padded rows exactly 0, two calls bitwise equal."""
+    H, mask, params, T, _, _ = _full_case(cuda, case)
+    y_k, a_k = tga.mc_gated_attention(H, mask, params, T, 21, p, p)
+    y_r, a_r = tga.mc_head_reference(H, mask, params, T, 21, p, p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y_k, y_r, atol=1e-4, rtol=0)
+    torch.testing.assert_close(a_k, a_r, atol=1e-5, rtol=0)
+    assert torch.all(a_k[:, :, ~mask] == 0)
+    y_again, a_again = tga.mc_gated_attention(H, mask, params, T, 21, p, p)
+    assert torch.equal(y_again, y_k) and torch.equal(a_again, a_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c for c in FULL_CASES if not c.startswith("random_T50")])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_backward_kernel_full_width(cuda, case, p):
+    """K5 at the model's widths against its plain version, each gradient
+    within 1e-3 of its size plus the 5e-5 floor; dH exactly 0 on padded
+    rows; two calls bitwise equal."""
+    H, mask, params, T, dY, dA = _full_case(cuda, case)
+    _, A = tga._mc_head_cuda(H, mask, params, T, 4, p, p)
+    dM = dY[:, :, None] * params.w_cls[None]
+    got = tga._mc_head_bwd_cuda(H, params, T, 4, p, p, A, dM, dA)
+    want = tga.mc_head_backward_reference(H, mask, params, T, 4, p, p, dM, dA)
+    torch.cuda.synchronize()
+    _assert_grads_close((got[0], *tga.param_layout_grads(True, *got[1:])), want)
+    assert torch.all(got[0][~mask] == 0)
+    again = tga._mc_head_bwd_cuda(H, params, T, 4, p, p, A, dM, dA)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+F64_CASES = ["ragged_random_T1", "valid_first_T1", "r50_L2048_T4"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F64_CASES)
+def test_forward_logits_against_f64(cuda, case):
+    """K1's logits on the valid rows within LOGITS_VS_F64 of the f64
+    product.  A and Y alone cannot tell 3xTF32 from plain TF32 (which moves
+    A by about 1e-7); the logits can (plain TF32 moves them by about 2e-4)."""
+    H, mask, params, T, _, _ = _full_case(cuda, case)
+    _, _, logits = tga._mc_head_cuda(H, mask, params, T, 21, 0.1, 0.1, keep_logits=True)
+    exact = tga.mc_head_logits_reference(H.double(), params.to(dtype=torch.float64), T, 21,
+                                         0.1, 0.1)
+    err = float((logits.double() - exact)[:, :, mask].abs().max())
+    assert err <= LOGITS_VS_F64, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F64_CASES)
+def test_backward_products_against_f64(cuda, case):
+    """K5's dH, dw_V and dw_U within PRODUCTS_VS_F64 of their size against
+    the f64 plain backward; plain TF32 products would miss it by over 10x."""
+    H, mask, params, T, dY, dA = _full_case(cuda, case)
+    _, A = tga._mc_head_cuda(H, mask, params, T, 4, 0.1, 0.1)
+    dM = dY[:, :, None] * params.w_cls[None]
+    dH, dwv, _, dwu, *_ = tga._mc_head_bwd_cuda(H, params, T, 4, 0.1, 0.1, A, dM, dA)
+    exact = tga.mc_head_backward_reference(
+        H.double(), mask, params.to(dtype=torch.float64), T, 4, 0.1, 0.1, dM.double(),
+        dA.double(),
+    )
+    for name, got, ref in (("H", dH, exact[0]), ("w_V", dwv, exact[1]), ("w_U", dwu, exact[3])):
+        rel = float((got.double() - ref).abs().max() / ref.abs().max())
+        assert rel <= PRODUCTS_VS_F64, (name, rel)
+
+
+def test_full_width_cases_pad_whole_tiles():
+    """The "gap" case leaves 16-row tiles with no valid row, which the
+    kernels must skip; "first" leaves them at the end."""
+    for case in ("padded_tiles_T50", "valid_first_T1"):
+        H, mask, *_ = _full_case(torch.device("cpu"), case)
+        tiles = torch.nn.functional.pad(mask, (0, -len(mask) % 16)).view(-1, 16)
+        assert int((~tiles.any(1)).sum()) >= 4
+
+
+def test_device_function_names_cover_every_kernel():
+    """``cuda_build.DEVICE_FUNCTIONS`` names every ``__global__`` function of
+    each source, in the order they are defined, so that the profiler's
+    per-kernel sums in ``chip_smoke.py`` miss none."""
+    import re
+
+    for source in {k.source for k in cuda_build.KERNELS.values()}:
+        text = (cuda_build.CSRC / source).read_text()
+        defined = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\(\w+\)\s+)?(\w+)\(", text)
+        assert tuple(defined) == cuda_build.DEVICE_FUNCTIONS[source], source
 
 
 @pytest.mark.gpu
