@@ -21,6 +21,13 @@ Phases, each of which raises on failure:
    (float and uint16, both lateralities, a repeated seed that must reproduce
    bit for bit), and checks that the requests went through the kernels;
    a small request is held against the CPU plain path;
+4b. the serving front-ends on full-size mammograms written as ``.npy``:
+   ``serve_jsonl`` through phase 4's predictor (with a malformed line and a
+   missing file), ``cli.main(["serve", ...])`` with a YAML of ``Config()``,
+   and the HTTP server (``make_server``) with four concurrent clients, a
+   path outside its data root and two maps requests (``map_downsample`` 8
+   and 1); every result must equal the direct ``predict`` bit for bit, and
+   the maps request's memory above a plain request stays under 2 GiB;
 5. the shared-gate workload of the JAX package's ``bench.py`` (a 256-tile
    224x224 bag, r18, T=30) through ``mc_inference``;
 6. holds the backward kernels (K5 separate gates, K4 shared) against their
@@ -514,6 +521,10 @@ def main() -> int:
     request_breakdown(pred, d)
     check_small_request_against_cpu()
 
+    print("[4b] serving front-ends: serve_jsonl, cli serve, HTTP server (full-size requests)",
+          flush=True)
+    front_launches = check_front_ends(pred, d)
+
     print("[5] shared-gate workload (256x224 bag, r18, T=30) through mc_inference", flush=True)
     cfg2 = Config(shared_att=True)
     model2 = build_model(cfg2, seed=4).cuda().eval()
@@ -540,8 +551,10 @@ def main() -> int:
     shared_train_launches = check_train_bag_paths()
     check_small_train_step_against_cpu()
 
+    # Serving kernels: phase 4's direct requests plus phase 4b's front-ends.
     launches = dict(
-        serve_launches, mc_head_shared=shared_launches,
+        {k: n + front_launches.get(k, 0) for k, n in serve_launches.items()},
+        mc_head_shared=shared_launches,
         mc_head_bwd_sep=train_launches["mc_head_bwd_sep"],
         mc_head_bwd_shared=shared_train_launches["mc_head_bwd_shared"],
     )
@@ -882,6 +895,250 @@ def check_small_request_against_cpu() -> None:
           f"{a.num_instances} instances", flush=True)
     if a.num_instances != b.num_instances or err > 1e-4:
         raise RuntimeError("the card's request path disagrees with the CPU plain path")
+
+
+MAPS_EXTRA_LIMIT = 2 * 2**30  # a (T, C, H, W) map stack alone would be 7.9 GB
+
+
+def _http(port: int, method: str, path: str, body: dict | None = None) -> tuple[int, dict]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, data, {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def check_front_ends(pred, d) -> dict:
+    """Phase 4b: the front-ends a user calls, on full-size mammograms
+    written as ``.npy`` (float and uint16, both lateralities).  JSONL and
+    HTTP go through phase 4's warm predictor, the CLI through its own.
+    Every result record must equal the record of a direct ``predict`` of
+    the same image and seed, bit for bit.  Returns the launch counts over
+    the phase, which must cover every request scored."""
+    import io
+    import threading
+
+    import yaml
+
+    from montecarlo_gated_mil_tpu_torch import cli
+    from montecarlo_gated_mil_tpu_torch.core.config import Config, config_to_dict
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.serve import _prepare_image
+    from montecarlo_gated_mil_tpu_torch.server import (
+        build_predictor,
+        make_server,
+        result_to_dict,
+        serve_jsonl,
+    )
+    from montecarlo_gated_mil_tpu_torch.viz.attention import _box_mean, attention_map_stats
+
+    def record(p, req, **kw):
+        r = p.predict(np.load(req["image"]), req["laterality"], seed=req["seed"], **kw)
+        return result_to_dict(r)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        reqs = []
+        for kind, lat, img_seed, seed in (("float", "L", 10, 200), ("uint16", "R", 11, 201),
+                                          ("float", "R", 12, 202), ("uint16", "L", 13, 203)):
+            img = synthetic_image(d.H, d.W, positive=bool(img_seed % 2), seed=img_seed)
+            if kind == "uint16":
+                img = np.round(img * 65535).astype(np.uint16)
+            np.save(tmp / f"scan_{img_seed}.npy", img)
+            reqs.append({"image": str(tmp / f"scan_{img_seed}.npy"), "laterality": lat,
+                         "seed": seed})
+        cuda_build.reset_launch_counts()
+        want = [record(pred, r) for r in reqs]
+        scored = len(reqs)
+
+        # JSONL, in-process: a malformed line and a missing file among them.
+        lines = [json.dumps(r) for r in reqs]
+        lines.insert(2, "{not json")
+        lines.append(json.dumps({"image": str(tmp / "missing.npy"), "seed": 1}))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        n = serve_jsonl(pred, io.StringIO("\n".join(lines) + "\n"), out)
+        jsonl_s = time.perf_counter() - t0
+        got = [json.loads(line) for line in out.getvalue().splitlines()]
+        scored += len(reqs)
+        errors = [i for i, g in enumerate(got) if set(g) == {"error"}]
+        same = [g == w for g, w in zip([got[i] for i in (0, 1, 3, 4)], want)]
+        print(f"  JSONL: {n} lines in {jsonl_s:.2f} s; error lines at {errors} (expected [2, 5]); "
+              f"records equal to the direct predict bit for bit (prediction, p_mean, mean_probs "
+              f"and every other key): {same}", flush=True)
+        if n != 6 or errors != [2, 5] or not all(same):
+            raise RuntimeError("serve_jsonl: wrong error lines, or a record differs from predict")
+
+        # CLI: cli.main serve on a YAML of Config(), its own predictor.
+        cfg_path = tmp / "config.yml"
+        cfg_path.write_text(yaml.safe_dump(config_to_dict(Config())))
+        (tmp / "cli.jsonl").write_text("".join(json.dumps(r) + "\n" for r in reqs[:2]))
+        t0 = time.perf_counter()
+        rc = cli.main(["serve", "--config", str(cfg_path), "--input", str(tmp / "cli.jsonl"),
+                       "--output", str(tmp / "cli_out.jsonl")])
+        cli_s = time.perf_counter() - t0
+        cli_got = [json.loads(line) for line in (tmp / "cli_out.jsonl").read_text().splitlines()]
+        scored += 2
+        ref = build_predictor(Config())
+        cli_same = [g == record(ref, r) for g, r in zip(cli_got, reqs)]
+        del ref
+        print(f"  CLI: cli.main serve exit {rc}, {len(cli_got)} result lines in {cli_s:.1f} s "
+              f"(model build, warmup, 2 requests); equal to build_predictor(Config()).predict "
+              f"bit for bit: {cli_same}", flush=True)
+        if rc != 0 or len(cli_got) != 2 or not all(cli_same):
+            raise RuntimeError("cli serve: non-zero exit, wrong line count or a differing record")
+
+        # HTTP: concurrent clients by image_path, confinement, map artifacts.
+        srv = make_server(pred, port=0, data_root=str(tmp), maps_dir=str(tmp / "maps"))
+        port = srv.server_address[1]
+        server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        server_thread.start()
+        try:
+            status, health = _http(port, "GET", "/healthz")
+            print(f"  HTTP: GET /healthz {status} {health}", flush=True)
+            if status != 200 or health.get("status") != "ok":
+                raise RuntimeError("HTTP /healthz failed")
+
+            def body(i, **kw):
+                r = reqs[i]
+                return {"image_path": r["image"], "laterality": r["laterality"],
+                        "seed": r["seed"], **kw}
+
+            answers, failures = {}, []
+
+            def client(ci):
+                try:
+                    for j in range(2):
+                        i = (ci + j) % len(reqs)
+                        answers[(ci, j)] = (i, *_http(port, "POST", "/predict", body(i)))
+                except Exception as e:  # noqa: BLE001 — reported by the main thread
+                    failures.append(f"client {ci}: {type(e).__name__}: {e}")
+
+            clients = [threading.Thread(target=client, args=(ci,)) for ci in range(4)]
+            t0 = time.perf_counter()
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+            burst_s = time.perf_counter() - t0
+            scored += 2 * len(clients)
+            exact = [s == 200 and p == want[i] for i, s, p in answers.values()]
+            print(f"  HTTP: 4 client threads x 2 requests in {burst_s:.2f} s; each equal to the "
+                  f"direct predict bit for bit: {exact}", flush=True)
+            if failures or any(c.is_alive() for c in clients) or len(exact) != 8 or not all(exact):
+                raise RuntimeError(f"HTTP concurrent requests failed: {failures}")
+
+            status, err = _http(port, "POST", "/predict",
+                                {"image_path": str(tmp / ".." / "outside.npy")})
+            print(f"  HTTP: image_path outside the data root: {status} {err}", flush=True)
+            if status != 400:
+                raise RuntimeError("HTTP served an image_path outside its data root")
+
+            http_ms, direct_ms = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                status, payload = _http(port, "POST", "/predict", body(0))
+                http_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                direct = record(pred, reqs[0])
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200 or payload != direct:
+                    raise RuntimeError("a serial HTTP request differs from the direct predict")
+            scored += 6
+            print("  latency, host clock, image 10 (float, L, bucket "
+                  f"{pred._pick_bucket(np.load(reqs[0]['image']), 'L')}): HTTP "
+                  + ", ".join(f"{t:.1f}" for t in http_ms) + " ms; direct predict "
+                  + ", ".join(f"{t:.1f}" for t in direct_ms) + " ms", flush=True)
+
+            maps, maps_ms = {}, {}
+            for k in (8, 1):
+                t0 = time.perf_counter()
+                status, payload = _http(port, "POST", "/predict",
+                                        body(1, maps=True, map_downsample=k))
+                maps_ms[k] = (time.perf_counter() - t0) * 1e3
+                if status != 200:
+                    raise RuntimeError(f"HTTP maps request k={k}: {status} {payload}")
+                stats_same = {key: v for key, v in payload.items() if "maps" not in key} == want[1]
+                maps[k] = [np.load(payload[f"attention_{s}_maps"]) for s in ("mean", "std")]
+                if not stats_same:
+                    raise RuntimeError(f"HTTP maps request k={k}: statistics differ from predict")
+            scored += 2
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            server_thread.join(timeout=60)
+        shapes = {k: [m.shape for m in v] for k, v in maps.items()}
+        box_err = [float(np.abs(_box_mean(torch.from_numpy(full), 8).numpy() - small).max())
+                   for full, small in zip(maps[1], maps[8])]
+        peaks = [float(m.max()) for v in maps.values() for m in v]
+        print(f"  maps (image 11, uint16, R): shapes {shapes}; host 8-fold box mean of the k=1 "
+              f"maps against the k=8 maps: max|d| mean {box_err[0]:.2e}, std {box_err[1]:.2e} "
+              f"(tol 1e-6); max of each map {[round(p, 6) for p in peaks]} (<= 1); HTTP request "
+              f"k=8 {maps_ms[8]:.1f} ms, k=1 {maps_ms[1]:.1f} ms (.npy writes included)",
+              flush=True)
+        if (shapes[8] != [(2, -(-d.H // 8), -(-d.W // 8))] * 2 or shapes[1] != [(2, d.H, d.W)] * 2
+                or max(box_err) > 1e-6 or max(peaks) > 1.0):
+            raise RuntimeError("maps: wrong shape, box mean off, or a map above 1")
+
+        # The maps request's time and memory above a plain one (direct predict).
+        img1 = np.load(reqs[1]["image"])
+        cost = {}
+        for label, kw in (("plain", {}), ("maps k=8", dict(return_maps=True, map_downsample=8)),
+                          ("maps k=1", dict(return_maps=True))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            pred.predict(img1, "R", seed=reqs[1]["seed"], **kw)
+            cost[label] = ((time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() - base)
+        scored += 3
+        # The maps stage alone, on the attention of the same request.
+        with torch.inference_mode():
+            arr, inv_max = _prepare_image(img1, None)
+            bucket1 = pred._pick_bucket(arr, "R")
+            bag, _, a, _, _ = pred._infer(pred._upload(arr), True, reqs[1]["seed"], inv_max,
+                                          bucket1)
+            stage = {}
+            for k in (8, 1):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = attention_map_stats(a, bag.tile_indices, bag.mask, pred._grid, downsample=k)
+                ev[1].record()
+                torch.cuda.synchronize()
+                stage[k] = (ev[0].elapsed_time(ev[1]), torch.cuda.max_memory_allocated() - base)
+                del out
+            del bag, a
+        extra = {k: cost[k][1] - cost["plain"][1] for k in ("maps k=8", "maps k=1")}
+        print("  direct predict (host clock, peak device memory above the request's start): "
+              + "; ".join(f"{k} {ms:.1f} ms, {b / 2**30:.3f} GiB" for k, (ms, b) in cost.items())
+              + "; maps above plain: " + ", ".join(
+                  f"{k} +{cost[k][0] - cost['plain'][0]:.1f} ms, {extra[k] / 2**30:+.3f} GiB"
+                  for k in extra) + f" (limit {MAPS_EXTRA_LIMIT / 2**30:.0f} GiB)", flush=True)
+        print(f"  attention_map_stats alone at bucket {bucket1}, T="
+              f"{pred.num_samples}: " + ", ".join(
+                  f"k={k} {ms:.3f} ms (CUDA events around the call, its host work "
+                  f"included), {b / 2**20:.1f} MiB peak"
+                  for k, (ms, b) in stage.items()), flush=True)
+        if max(extra.values()) > MAPS_EXTRA_LIMIT or max(b for _, b in stage.values()) > MAPS_EXTRA_LIMIT:
+            raise RuntimeError("maps: more than 2 GiB of device memory above a plain request")
+
+    launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    print(f"  launches over the phase: K1 mc_head_sep {launches['mc_head_sep']}, K3 gather_tiles "
+          f"{launches['gather_tiles']} ({scored} requests scored, plus the CLI's warmup and "
+          f"the maps stage's own request); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if launches["mc_head_sep"] < scored or launches["gather_tiles"] < scored:
+        raise RuntimeError("the front-ends' requests did not all go through K1 and K3")
+    return launches
 
 
 def time_heads(root: str) -> int:

@@ -330,3 +330,9 @@ def load_config(path: str) -> Config:
     if not isinstance(raw, dict):
         raise ValueError(f"Config file {path} did not parse to a mapping")
     return config_from_dict(raw)
+
+
+def config_to_dict(cfg: Config) -> dict[str, Any]:
+    """Round-trip a Config back to a plain dict (for logging sinks, or a
+    YAML file that :func:`load_config` reads back)."""
+    return dataclasses.asdict(cfg)

@@ -2,12 +2,13 @@
 
 Counterpart of ``montecarlo_gated_mil_tpu/serve.py::MCDOPredictor``: on-device
 preprocessing (``data/pipeline.py``, tile gather kernel), one feature pass,
-T Monte Carlo head samples in one kernel launch, and the uncertainty
-reductions on the device, behind one warm predictor.
+T Monte Carlo head samples in one kernel launch, the uncertainty
+reductions and, on request, the mean/std attention maps
+(``viz/attention.py``) on the device, behind one warm predictor.
 
     predictor = MCDOPredictor.from_config(cfg, state_dict)
-    result = predictor.predict(image, laterality="R", seed=7)
-    result.prediction, result.stats.mean, result.attention.mean
+    result = predictor.predict(image, laterality="R", seed=7, return_maps=True)
+    result.prediction, result.stats.mean, result.attention_mean_maps
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from montecarlo_gated_mil_tpu_torch.mcdo.sampling import (
 )
 from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
 from montecarlo_gated_mil_tpu_torch.ops.patching import compute_tile_grid
+from montecarlo_gated_mil_tpu_torch.viz.attention import attention_map_stats
 
 
 def _prepare_image(image, pixel_max: float | None) -> tuple[np.ndarray, float]:
@@ -63,6 +65,8 @@ class PredictionResult:
     attention: AttentionStats  # per instance, over T samples
     num_instances: int
     bucket: int
+    attention_mean_maps: np.ndarray | None = None  # (C, H', W') if requested
+    attention_std_maps: np.ndarray | None = None
 
 
 def _host(x):
@@ -76,7 +80,9 @@ class MCDOPredictor:
     Thread-safe.  Host-side prep (pixel normalization, the subsampled bucket
     estimate) and the image upload run concurrently across caller threads;
     device execution goes through a bounded gate (``max_inflight``, default
-    1), so at most that many requests hold device memory at once.
+    1), so at most that many requests run on the device at once, and at
+    most ``2 * max_inflight`` hold an uploaded image there (running or
+    queued for the gate).
 
     With a ``bucket_spec`` each request embeds at the smallest sufficient
     bucket; an oversized request (more valid tiles than the cap bucket)
@@ -108,12 +114,22 @@ class MCDOPredictor:
         self.model = model.to(self.device).eval()
         self.pipeline = pipeline
         self.num_samples = num_samples
+        self.quantized = quantized
         self.bucket_spec = bucket_spec
         self.oversized = oversized
         self.truncated_requests = 0
         self._warned_truncation = False
-        self._lock = threading.Lock()  # truncation counter
+        self._lock = threading.Lock()  # truncation counter, warm buckets
         self._execute_gate = threading.BoundedSemaphore(max_inflight)
+        # Held from before a request's upload until its device tensors are
+        # released: the requests in the gate plus as many queued for it, so
+        # a burst of callers cannot stack their images on the device.
+        self._upload_slots = threading.BoundedSemaphore(2 * max_inflight)
+        # Buckets whose shapes have run once (cuDNN setup, kernel loading,
+        # allocator growth), replaced whole under ``_lock``; read while a
+        # background warmup runs (``warmup``).
+        self._warm: frozenset[int] = frozenset()
+        self._warming = False
         self._grid = pipeline.grid()
         self._starts_np = self._grid.tiles_array()[:, :2]
         self._starts = torch.as_tensor(self._starts_np, dtype=torch.int64, device=self.device)
@@ -218,20 +234,63 @@ class MCDOPredictor:
         y, a = out.predictions, out.attention
         return bag, y, a, predictive_stats(y), attention_stats(a, bag.mask)
 
-    def warmup(self, dtypes=(np.float32, np.uint16)) -> None:
+    def _mark_warm(self, bucket: int) -> None:
+        with self._lock:
+            self._warm = self._warm | {bucket}
+
+    def _route(self, bucket: int) -> int:
+        """While a background warmup runs, a bucket that is not warm yet
+        gives way to the smallest warm bucket that holds it: the same
+        result with more padding, without this request paying the cold
+        start of its own bucket."""
+        if not self._warming or bucket in self._warm:
+            return bucket
+        warm = sorted(b for b in self._warm if b >= bucket)
+        return warm[0] if warm else bucket
+
+    def warmup(self, dtypes=(np.float32, np.uint16), *, background: bool = False):
         """Run one dummy request per registry bucket and input dtype, so the
-        first real request pays no kernel build or library setup."""
+        first real request pays no kernel build, cuDNN setup or allocator
+        growth.
+
+        ``background=True`` warms the cap bucket for the first dtype before
+        it returns (any request can run there, with more padding) and the
+        rest in a daemon thread, which it returns; meanwhile a request whose
+        bucket is not warm yet runs at the smallest warm bucket that holds
+        it.  A failure in that thread is reported by ``threading``'s hook
+        and leaves the remaining buckets cold.
+        """
         hw = (self.pipeline.height, self.pipeline.width)
         buckets = [self.pipeline.bucket]
         if self.bucket_spec is not None:
             buckets += [b for b in self.bucket_spec.sizes if b <= self.pipeline.bucket]
-        for dtype in dtypes:
+        combos = [(d, b) for d in dtypes for b in dict.fromkeys(buckets)]
+
+        def warm(dtype, bucket):
             zero, inv_max = _prepare_image(np.zeros(hw, dtype), None)
-            for b in dict.fromkeys(buckets):
-                with self._execute_gate, torch.inference_mode():
-                    self._infer(self._upload(zero), False, 0, inv_max, b)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with self._upload_slots:
+                self._run(zero, False, 0, inv_max, bucket, None)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._mark_warm(bucket)
+
+        if not background:
+            for d, b in combos:
+                warm(d, b)
+            return None
+        warm(*combos[0])
+        self._warming = True
+
+        def rest():
+            try:
+                for d, b in combos[1:]:
+                    warm(d, b)
+            finally:
+                self._warming = False
+
+        thread = threading.Thread(target=rest, daemon=True, name="mcdo-warmup")
+        thread.start()
+        return thread
 
     def predict(
         self,
@@ -240,24 +299,45 @@ class MCDOPredictor:
         *,
         seed: int = 0,
         return_maps: bool = False,
+        map_downsample: int = 1,
         pixel_max: float | None = None,
     ) -> PredictionResult:
         """Classify one grayscale mammogram.
 
         ``image`` is float in [0, 1], or raw integer pixels (uint8/uint16)
         normalized on the device by ``pixel_max`` (default: the dtype's max),
-        which halves the upload.  ``return_maps`` is not ported yet.
+        which halves the upload.  ``return_maps`` adds the per-class mean and
+        std attention maps over T (``viz.attention.attention_map_stats``,
+        computed on the device); ``map_downsample=k`` returns their exact
+        k-fold box mean instead of full resolution (2 x 79 MB f32 at the
+        shipped 7036x2800; k=8 is 1/64 of that).
         """
-        if return_maps:
-            raise NotImplementedError(
-                "return_maps needs viz/attention.py, which is not ported yet "
-                "(ROADMAP.md queue 1, item 13: viz)"
-            )
+        if map_downsample < 1:
+            raise ValueError(f"map_downsample must be >= 1, got {map_downsample}")
         arr, inv_max = _prepare_image(image, pixel_max)
-        bucket = self._pick_bucket(arr, laterality)
+        bucket = self._route(self._pick_bucket(arr, laterality))
+        with self._upload_slots:
+            result = self._run(arr, laterality == "R", seed, inv_max, bucket,
+                               map_downsample if return_maps else None)
+        self._mark_warm(bucket)
+        return result
+
+    def _run(self, arr, flip: bool, seed: int, inv_max: float, bucket: int,
+             map_downsample: int | None) -> PredictionResult:
+        """Upload, then the request on the device behind the execute gate.
+        Returns host results only, so the request's device tensors are
+        released when it returns (the caller holds an upload slot until
+        then)."""
         dev = self._upload(arr)
         with self._execute_gate, torch.inference_mode():
-            bag, _, _, stats, att = self._infer(dev, laterality == "R", seed, inv_max, bucket)
+            bag, _, a, stats, att = self._infer(dev, flip, seed, inv_max, bucket)
+            maps = (None, None)
+            if map_downsample is not None:
+                maps = tuple(
+                    m.cpu().numpy() for m in attention_map_stats(
+                        a, bag.tile_indices, bag.mask, self._grid, downsample=map_downsample,
+                    )
+                )
             n_inst = int(bag.num_instances)
             stats, att = _host(stats), _host(att)
         return PredictionResult(
@@ -266,6 +346,8 @@ class MCDOPredictor:
             attention=att,
             num_instances=n_inst,
             bucket=bucket,
+            attention_mean_maps=maps[0],
+            attention_std_maps=maps[1],
         )
 
     def predict_many(

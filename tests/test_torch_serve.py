@@ -1,8 +1,13 @@
 """The slice whole: the port's MCDOPredictor against the JAX package's, and
 the port's independence from JAX."""
 
+import ast
 import subprocess
 import sys
+import threading
+import time
+import weakref
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ from montecarlo_gated_mil_tpu_torch.experiment import build_model
 from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
 from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
 from montecarlo_gated_mil_tpu_torch.weights import from_jax_params
+from test_torch_viz import _np_box_mean
 
 # test_serve.py's geometry
 PIPE = dict(height=128, width=128, patch_size=64, overlap=0.0, empty_threshold=0.05, bucket=8)
@@ -91,10 +97,114 @@ def test_dropout_on_is_deterministic_per_seed():
 
 def test_unported_options_raise():
     pred = _port_predictor(0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred.predict(np.zeros((128, 128), np.float32), return_maps=True)
+    assert pred.quantized is False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MCDOPredictor(pred.model, PipelineConfig(**PIPE), quantized=True, device="cpu")
+
+
+def test_predict_returns_maps():
+    """``return_maps``: per-class mean and std maps at full resolution,
+    peak-normalized; ``map_downsample=k`` is their exact box mean (3 and 48
+    leave partial edge windows at 128); the statistics do not change."""
+    pred = _port_predictor(0.1)
+    img = synthetic_image(128, 128, positive=True, seed=3)
+    plain = pred.predict(img, "R", seed=5)
+    full = pred.predict(img, "R", seed=5, return_maps=True)
+    assert plain.attention_mean_maps is None and plain.attention_std_maps is None
+    assert torch.equal(full.stats.mean_probs, plain.stats.mean_probs)
+    assert torch.equal(full.attention.mean, plain.attention.mean)
+    for m in (full.attention_mean_maps, full.attention_std_maps):
+        assert isinstance(m, np.ndarray) and m.shape == (2, 128, 128) and m.dtype == np.float32
+    peaks = full.attention_mean_maps.max(axis=(1, 2))  # mean over T of maps with peak 1
+    assert np.all(peaks <= 1.0) and np.all(peaks > 0.5)
+    assert full.attention_std_maps.min() >= 0 and full.attention_std_maps.max() > 0
+    for k in (3, 48):
+        small = pred.predict(img, "R", seed=5, return_maps=True, map_downsample=k)
+        for name in ("attention_mean_maps", "attention_std_maps"):
+            got = getattr(small, name)
+            assert got.shape == (2, -(-128 // k), -(-128 // k))
+            np.testing.assert_allclose(got, _np_box_mean(getattr(full, name), k), atol=1e-6)
+    with pytest.raises(ValueError, match="map_downsample"):
+        pred.predict(img, return_maps=True, map_downsample=0)
+
+
+def test_queued_uploads_are_bounded():
+    """Eight concurrent callers on a predictor with ``max_inflight=1``: no
+    more than 2 uploaded images are alive at once (counted from the upload
+    until the tensor is freed).  With the bound lifted, the same callers
+    hold more, so the count does see queued uploads."""
+    img = synthetic_image(128, 128, positive=True, seed=6)
+
+    def peak_resident(pred):
+        lock, state = threading.Lock(), {"now": 0, "peak": 0}
+        upload, infer = pred._upload, pred._infer
+
+        def release():
+            with lock:
+                state["now"] -= 1
+
+        def counting_upload(arr):
+            t = upload(arr)
+            with lock:
+                state["now"] += 1
+                state["peak"] = max(state["peak"], state["now"])
+            weakref.finalize(t, release)
+            return t
+
+        def slow_infer(*args):
+            time.sleep(0.05)  # callers pile up behind the gate
+            return infer(*args)
+
+        pred._upload, pred._infer = counting_upload, slow_infer
+        out = {}
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, pred.predict(img, seed=i)))
+                   for i in range(8)]
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(t.is_alive() for t in threads) and len(out) == 8
+        assert state["now"] == 0
+        return state["peak"]
+
+    assert peak_resident(_port_predictor(0.0, num_samples=2)) <= 2
+    unbounded = _port_predictor(0.0, num_samples=2)
+    unbounded._upload_slots = threading.BoundedSemaphore(8)
+    assert peak_resident(unbounded) > 2
+
+
+def test_background_warmup_routes_to_warm_bucket():
+    """``warmup(background=True)`` warms the cap bucket before it returns
+    and the rest in the thread it returns; while it runs, a request whose
+    bucket is cold runs at the smallest warm bucket that holds it, with the
+    same result at dropout 0."""
+    from montecarlo_gated_mil_tpu_torch.core.bag import BucketSpec
+
+    model = _port_predictor(0.0).model
+    pred = MCDOPredictor(model, PipelineConfig(**PIPE), num_samples=2,
+                         bucket_spec=BucketSpec((2, 4, 8)), device="cpu")
+    sparse = np.zeros((128, 128), np.float32)
+    sparse[:64, :64] = 0.8  # one filled tile: bucket 2
+    assert pred._pick_bucket(sparse, "L") == 2
+    pred._warm, pred._warming = frozenset({4, 8}), True  # as while warming
+    routed = pred.predict(sparse, seed=5)
+    assert routed.bucket == 4 and routed.attention.mean.shape == (2, 4)
+    pred._warm, pred._warming = frozenset(), False
+
+    thread = pred.warmup(dtypes=(np.float32,), background=True)
+    assert 8 in pred._warm  # the cap bucket, before returning
+    thread.join(timeout=120)
+    assert not thread.is_alive() and not pred._warming
+    assert pred._warm == {2, 4, 8}
+    own = pred.predict(sparse, seed=5)
+    assert own.bucket == 2 and own.prediction == routed.prediction
+    torch.testing.assert_close(own.stats.mean_probs, routed.stats.mean_probs, atol=1e-6, rtol=0)
+    assert pred.warmup(dtypes=(np.float32,)) is None
 
 
 def test_oversized_bucket_pick_equals_jax():
@@ -137,8 +247,30 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import montecarlo_gated_mil_tpu_torch.serve, montecarlo_gated_mil_tpu_torch.weights\n"
         "import montecarlo_gated_mil_tpu_torch.ops.cuda_build\n"
+        "import montecarlo_gated_mil_tpu_torch.server, montecarlo_gated_mil_tpu_torch.cli\n"
+        "import montecarlo_gated_mil_tpu_torch.viz.attention\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))"
         " or m == 'montecarlo_gated_mil_tpu' or m.startswith('montecarlo_gated_mil_tpu.')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_no_jax_import_statement_in_port_or_chip_smoke():
+    """Every import statement of the port's modules and of chip_smoke.py,
+    those inside functions included, names neither JAX nor the JAX package."""
+    repo = Path(__file__).resolve().parents[1]
+    files = sorted((repo / "montecarlo_gated_mil_tpu_torch").rglob("*.py"))
+    files.append(repo / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "montecarlo_gated_mil_tpu")]
+    assert len(files) > 30 and not bad, bad
