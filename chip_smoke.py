@@ -28,6 +28,15 @@ Phases, each of which raises on failure:
    path outside its data root and two maps requests (``map_downsample`` 8
    and 1); every result must equal the direct ``predict`` bit for bit, and
    the maps request's memory above a plain request stays under 2 GiB;
+4q. the int8 serving path: K6 (int8 conv) at every distinct conv shape of
+   r18 at N=3072 for each conv store, bit for bit against its plain version
+   on 256 instances (on all 3072 at layer 1's 3x3, the shape launched
+   most), timed beside ``torch._int_mm`` and a cuDNN bf16 conv as
+   yardsticks; K7/K8 (BN statistics, normalize + requantize) at the stem, a
+   layer-1 and a layer-4 shape; then ``MCDOPredictor.from_config`` with
+   ``tpu.quantized_inference`` serving phase 4's five requests beside their
+   float results, ``cli serve`` on a quantized YAML, and a small quantized
+   request held against the CPU plain path;
 5. the shared-gate workload of the JAX package's ``bench.py`` (a 256-tile
    224x224 bag, r18, T=30) through ``mc_inference``;
 6. holds the backward kernels (K5 separate gates, K4 shared) against their
@@ -73,6 +82,7 @@ import torch
 # H100 SXM data-sheet peaks used for the bounds.
 PEAK_FP32_FLOPS = 67e12  # FP32 cores, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # tensor cores, dense TF32
+PEAK_INT8_OPS = 1979e12  # tensor cores, dense int8
 PEAK_BYTES = 3.35e12
 # Limits against f64 (tests/test_torch_tf32_split.py shows on the CPU that
 # 3xTF32 meets them and plain TF32 fails them; A and Y alone cannot tell).
@@ -525,6 +535,9 @@ def main() -> int:
           flush=True)
     front_launches = check_front_ends(pred, d)
 
+    print("[4q] int8 serving path: K6-K8, then quantized requests at full width", flush=True)
+    quant_launches = check_quantized(rows, pred, weights, results, requests, d)
+
     print("[5] shared-gate workload (256x224 bag, r18, T=30) through mc_inference", flush=True)
     cfg2 = Config(shared_att=True)
     model2 = build_model(cfg2, seed=4).cuda().eval()
@@ -551,9 +564,11 @@ def main() -> int:
     shared_train_launches = check_train_bag_paths()
     check_small_train_step_against_cpu()
 
-    # Serving kernels: phase 4's direct requests plus phase 4b's front-ends.
+    # Serving kernels: phase 4's direct requests, phase 4b's front-ends and
+    # phase 4q's quantized requests.
     launches = dict(
-        {k: n + front_launches.get(k, 0) for k, n in serve_launches.items()},
+        {k: n + front_launches.get(k, 0) + quant_launches.get(k, 0)
+         for k, n in serve_launches.items()},
         mc_head_shared=shared_launches,
         mc_head_bwd_sep=train_launches["mc_head_bwd_sep"],
         mc_head_bwd_shared=shared_train_launches["mc_head_bwd_shared"],
@@ -827,7 +842,8 @@ def check_small_train_step_against_cpu() -> None:
 
 def request_breakdown(pred, d, reps: int = 3) -> None:
     """Where one request's time goes, stage by stage, by CUDA events around
-    each stage of ``MCDOPredictor`` (image 2, right laterality, bucket 3072)."""
+    each stage of ``MCDOPredictor`` (image 2, right laterality, bucket 3072);
+    the embed is the predictor's own, f32 or int8."""
     from montecarlo_gated_mil_tpu_torch.data.pipeline import image_to_bag
     from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
     from montecarlo_gated_mil_tpu_torch.mcdo.sampling import (
@@ -855,7 +871,7 @@ def request_breakdown(pred, d, reps: int = 3) -> None:
             bag = image_to_bag(image, True, 0, pred._starts,
                                replace(pred.pipeline, bucket=bucket), device="cuda")
             ev[2].record()
-            H = pred.model.embed(bag.patches, bag.mask)
+            H = pred._embed(bag.patches, bag.mask)
             ev[3].record()
             out = mc_head(pred.model, H, bag.mask, pred.num_samples, 0, pred._head_params)
             ev[4].record()
@@ -866,8 +882,9 @@ def request_breakdown(pred, d, reps: int = 3) -> None:
             totals[n] += ev[i].elapsed_time(ev[i + 1])
     parts = ", ".join(f"{k} {v / reps:.2f}" for k, v in totals.items())
     device_ms = sum(totals[n] for n in names) / reps
-    print(f"  breakdown at bucket {bucket} (ms, mean of {reps}): {parts}; "
-          f"device stages total {device_ms:.2f}", flush=True)
+    print(f"  breakdown at bucket {bucket} (ms, mean of {reps}; embed "
+          f"{'int8' if pred.quantized else 'f32'}): {parts}; device stages total {device_ms:.2f}",
+          flush=True)
 
 
 def check_small_request_against_cpu() -> None:
@@ -1139,6 +1156,399 @@ def check_front_ends(pred, d) -> dict:
     if launches["mc_head_sep"] < scored or launches["gather_tiles"] < scored:
         raise RuntimeError("the front-ends' requests did not all go through K1 and K3")
     return launches
+
+
+# r18's int8 convs at 224x224 patches: label, H, W, Cin, Cout, k, stride,
+# padding (top, bottom, left, right), launches per request.  The s2d stem is
+# the ``stem="s2d_i8"`` option, off on the main path.
+QCONV_SHAPES = (
+    ("layer1 3x3", 56, 56, 64, 64, 3, 1, (1, 1, 1, 1), 4),
+    ("layer2 3x3/2", 56, 56, 64, 128, 3, 2, (1, 1, 1, 1), 1),
+    ("layer2 1x1/2", 56, 56, 64, 128, 1, 2, (0, 0, 0, 0), 1),
+    ("layer2 3x3", 28, 28, 128, 128, 3, 1, (1, 1, 1, 1), 3),
+    ("layer3 3x3/2", 28, 28, 128, 256, 3, 2, (1, 1, 1, 1), 1),
+    ("layer3 1x1/2", 28, 28, 128, 256, 1, 2, (0, 0, 0, 0), 1),
+    ("layer3 3x3", 14, 14, 256, 256, 3, 1, (1, 1, 1, 1), 3),
+    ("layer4 3x3/2", 14, 14, 256, 512, 3, 2, (1, 1, 1, 1), 1),
+    ("layer4 1x1/2", 14, 14, 256, 512, 1, 2, (0, 0, 0, 0), 1),
+    ("layer4 3x3", 7, 7, 512, 512, 3, 1, (1, 1, 1, 1), 3),
+    ("stem s2d 4x4", 112, 112, 12, 64, 4, 1, (2, 1, 2, 1), 0),
+)
+QUANT_N = 3072  # instances: the bucket of a full-size request
+QUANT_CHECK_N = 256  # instances held bit for bit against the plain version
+K8_FLIP_LIMIT = 1e-5  # share of K8's codes allowed one off
+
+
+def _int8(shape, g) -> torch.Tensor:
+    return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+
+def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -> dict:
+    """K6 at one r18 conv shape, for each store: bit for bit against the
+    plain version (exact f64 accumulators) on QUANT_CHECK_N instances, or
+    with ``full`` on all QUANT_N, where the plain version is timed too;
+    timed at QUANT_N beside its int8 tensor-core and byte bounds; then two
+    yardsticks that the port never calls."""
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+
+    import torch.nn.functional as F
+
+    n = QUANT_N
+    n_check = n if full else QUANT_CHECK_N
+    a = _int8((n, h, w, cin), g)
+    wt = _int8((cout, k, k, cin), g)
+    K = k * k * cin
+    std_acc = K**0.5 * 127**2 / 3  # of a sum of K products of uniform codes
+    oh, ow = qk.conv_out_hw(h, w, k, k, stride, pad)
+    m = n * oh * ow
+    ops = 2.0 * m * cout * K
+    out = {}
+    for store in ("bf16", "f8", "i8"):
+        scale = torch.rand(cout, generator=g, device="cuda") + 0.5
+        scale = scale * ((40.0 if store == "i8" else 2.0) / std_acc)
+        got = qk.qconv(a[:n_check], wt, scale, stride, pad, store)
+        want = qk.qconv_reference(a[:n_check], wt, scale, stride, pad, store)
+        torch.cuda.synchronize()
+        exact = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        spread = float(got.float().abs().max())
+        if not exact:
+            err = float((got.float() - want.float()).abs().max())
+            raise RuntimeError(f"K6 {label} {store}: differs from its plain version (max|d| {err})")
+        del got, want
+        ms = _time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, store), iters=5,
+                      what=f"K6 {label} {store}")
+        plain = None
+        if full:
+            plain = _time_ms(lambda: qk.qconv_reference(a, wt, scale, stride, pad, store),
+                             iters=2, what="plain K6").ms
+        nbytes = a.numel() + wt.numel() + m * cout * (2 if store == "bf16" else 1) + 4 * cout
+        t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        print(f"  K6 {label} store {store}: bit-exact on {n_check} instances (max|out| "
+              f"{spread:.3g}); at N={n}: {ms}; bound {bound:.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: int8 tensor cores {t_ops:.4f} "
+              f"ms, bytes {t_bytes:.4f} ms), share {bound / ms.ms:.1%}; "
+              f"{ops / ms.ms / 1e9:.1f} TOP/s"
+              + ("" if plain is None else f"; plain version (f64 cuDNN conv of the codes, then "
+                 f"the epilogue) {plain:.3f} ms"), flush=True)
+        out[store] = dict(max_abs_err=0.0, ms=ms.ms, plain_ms=plain, bound_ms=bound,
+                          bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None)
+    try:  # yardsticks: the GEMM alone, and cuDNN's bf16 conv of the same shape
+        A = _int8((m, K), g)
+        B = _int8((cout, K), g).t()
+        mm = _time_ms(lambda: torch._int_mm(A, B), iters=5, what="torch._int_mm").ms
+        del A, B
+        x = torch.randn(n, cin, h + pad[0] + pad[1], w + pad[2] + pad[3], device="cuda",
+                        dtype=torch.bfloat16).to(memory_format=torch.channels_last)
+        wb = torch.randn(cout, cin, k, k, device="cuda", dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        cd = _time_ms(lambda: F.conv2d(x, wb, stride=stride), iters=5, what="cuDNN bf16").ms
+        del x, wb
+        print(f"  yardsticks, {label}: torch._int_mm ({m} x {K}) @ ({K} x {cout}) int8, the "
+              f"GEMM alone without its im2col: {mm:.4f} ms ({ops / mm / 1e9:.1f} TOP/s); cuDNN "
+              f"bf16 conv, channels_last: {cd:.4f} ms ({ops / cd / 1e9:.1f} TFLOP/s)", flush=True)
+    except RuntimeError as e:
+        print(f"  yardsticks, {label}: not measured ({type(e).__name__}: {e})", flush=True)
+    return out
+
+
+def check_bn_epilogues(g) -> tuple[dict, dict]:
+    """K7 and K8 at the stem, a layer-1 and a layer-4 shape at QUANT_N,
+    against their plain versions and timed.  Returns the rows of the
+    ``kernels`` line (the stem's)."""
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+
+    n = QUANT_N
+
+    def affine(c):
+        return ((torch.rand(c, generator=g, device="cuda") + 0.5) * 20.0,
+                torch.randn(c, generator=g, device="cuda") * 10.0)
+
+    def stored(shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 3.0).to(torch.bfloat16)
+
+    rows = {}
+    cases = (
+        ("stem", (n, 112, 112, 64), "pool_i8", None),
+        ("layer1", (n, 56, 56, 64), "i8", None),
+        ("layer1", (n, 56, 56, 64), "i8", "identity"),
+        ("layer4", (n, 7, 7, 512), "mean", "identity"),
+        ("layer4", (n, 7, 7, 512), "i8", "downsample"),
+    )
+    stats_done = set()
+    for label, shape, mode, res in cases:
+        t = stored(shape)
+        c = shape[-1]
+        tb = t.numel() * 2
+        if label not in stats_done:
+            stats_done.add(label)
+            s1, s2 = qk.bn_stats(t)
+            r1, r2 = qk.bn_stats_reference(t)
+            torch.cuda.synchronize()
+            err = max(float((s1 - r1).abs().max() / r1.abs().max()),
+                      float((s2 - r2).abs().max() / r2.abs().max()))
+            del r1, r2
+            ms = _time_ms(lambda: qk.bn_stats(t), iters=5, what=f"K7 {label}")
+            plain = _time_ms(lambda: qk.bn_stats_reference(t), iters=2, what="plain K7").ms
+            bound, by = _bound(tb + 2 * n * c * 4)
+            print(f"  K7 bn_stats {label} {tuple(shape)} bf16: max|d| / max|plain| {err:.2e} "
+                  f"(limit 1e-6); kernel {ms}; plain {plain:.3f} ms; bound {bound:.4f} ms "
+                  f"({by}), share {bound / ms.ms:.1%}", flush=True)
+            if err > 1e-6:
+                raise RuntimeError(f"K7 {label}: {err:.2e} from its plain version")
+            rows.setdefault("bn_stats", dict(max_abs_err=err, ms=ms.ms, plain_ms=plain,
+                                             bound_ms=bound, bound_by=by, library_ms=None))
+        A, B = affine(c)
+        residual, rb = None, 0
+        if res == "identity":
+            residual = qk.Residual(_int8(shape, g), None, affine(c)[0] / 100.0, None)
+            rb = t.numel()
+        elif res == "downsample":
+            residual = qk.Residual(stored(shape), None, *affine(c))
+            rb = tb
+
+        def kernel():
+            return qk.bn_relu_quant(t, None, A, B, residual, mode=mode)
+
+        def plain_fn():
+            return qk.bn_relu_quant_reference(t, None, A, B, residual, mode=mode)
+
+        got, want = kernel(), plain_fn()
+        torch.cuda.synchronize()
+        if mode == "mean":
+            err = float((got - want).abs().max() / want.abs().max())
+            verdict = f"max|d| / max|plain| {err:.2e} (limit 1e-6)"
+            bad = err > 1e-6
+        else:
+            d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+            flips, err = int((d > 0).sum()), float(d.max())
+            verdict = (f"codes differing {flips} of {got.numel()} (limit "
+                       f"{K8_FLIP_LIMIT:g} of them, by 1), max|d| {err:g}; "
+                       f"codes above 0: {float((got > 0).float().mean()):.1%}")
+            bad = err > 1 or flips > K8_FLIP_LIMIT * got.numel()
+        del got, want
+        ms = _time_ms(kernel, iters=5, what=f"K8 {label} {mode}")
+        plain = _time_ms(plain_fn, iters=2, what="plain K8").ms
+        out_b = n * c * 4 if mode == "mean" else (t.numel() // 4 if mode == "pool_i8" else t.numel())
+        bound, by = _bound(tb + rb + out_b)
+        print(f"  K8 bn_relu_quant {label} {tuple(shape)} mode {mode}, residual {res}: {verdict}; "
+              f"kernel {ms}; plain {plain:.3f} ms; bound {bound:.4f} ms ({by}), share "
+              f"{bound / ms.ms:.1%}", flush=True)
+        if bad:
+            raise RuntimeError(f"K8 {label} {mode} {res}: disagrees with its plain version")
+        rows.setdefault("bn_relu_quant", dict(max_abs_err=err, ms=ms.ms, plain_ms=plain,
+                                              bound_ms=bound, bound_by=by, library_ms=None))
+        del t, residual
+    return rows["bn_stats"], rows["bn_relu_quant"]
+
+
+def check_int8_embed(qpred, d) -> float:
+    """One request's bag (image 2, R): the minimum per-instance cosine of
+    the int8 features against the f32 embed (same weights), and the int8
+    embed's device time by kernel (``torch.profiler``).  Returns the cosine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import image_to_bag
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.serve import _prepare_image
+
+    arr, inv_max = _prepare_image(synthetic_image(d.H, d.W, positive=False, seed=2), None)
+    bucket = qpred._pick_bucket(arr, "R")
+    with torch.inference_mode():
+        image = qpred._upload(arr).to(torch.float32) * inv_max
+        bag = image_to_bag(image, True, 0, qpred._starts, replace(qpred.pipeline, bucket=bucket),
+                           device="cuda")
+        hq = qpred._embed(bag.patches, bag.mask)
+        hf = qpred.model.embed(bag.patches, bag.mask)
+        cos = torch.nn.functional.cosine_similarity(hq[bag.mask], hf[bag.mask], dim=-1)
+        del hf
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            qpred._embed(bag.patches, bag.mask)
+            torch.cuda.synchronize()
+    print(f"  int8 features against the f32 embed, image 2 R, bucket {bucket}, "
+          f"{int(bag.mask.sum())} valid tiles: per-instance cosine min {float(cos.min()):.5f}, "
+          f"mean {float(cos.mean()):.5f} (limit 0.97)", flush=True)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def dev_ms(e):
+        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+
+    total = sum(dev_ms(e) for e in kernels)
+    if total <= 0:
+        print("  profiler: no device time recorded for the int8 embed", flush=True)
+        return float(cos.min())
+    groups = {"K6": cuda_build.DEVICE_FUNCTIONS["qconv.cu"], "K7": ("bn_stats_kernel",),
+              "K8": ("bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel")}
+    parts, counted = [], set()
+    for name, fns in groups.items():
+        es = [e for e in kernels if any(f in e.key for f in fns)]
+        counted.update(id(e) for e in es)
+        parts.append(f"{name} {sum(dev_ms(e) for e in es):.2f} ms in "
+                     f"{sum(e.count for e in es)} launches")
+    rest = sorted((e for e in kernels if id(e) not in counted), key=dev_ms, reverse=True)
+    print(f"  int8 embed by kernel (torch.profiler, one call at bucket {bucket}): device "
+          f"{total:.2f} ms; " + "; ".join(parts) + f"; other {sum(dev_ms(e) for e in rest):.2f} "
+          f"ms in {sum(e.count for e in rest)} launches, the largest:", flush=True)
+    for e in rest[:5]:
+        print(f"    {dev_ms(e):9.3f} ms  x{e.count:<4d} {e.key[:90]}", flush=True)
+    return float(cos.min())
+
+
+def check_quantized(rows, pred, weights, results, requests, d) -> dict:
+    """Phase 4q.  K6-K8 against their plain versions and timed, then the
+    quantized predictor at full width: phase 4's requests, the CLI on a
+    quantized YAML, a small request against the CPU.  Fills ``rows`` and
+    returns the launch counts of the quantized requests."""
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for label, h, w, cin, cout, k, stride, pad, per_request in QCONV_SHAPES:
+        print(f"  K6 {label}: ({QUANT_N}, {h}, {w}, {cin}) -> {cout}, {k}x{k}/{stride}, pad "
+              f"{pad}; {per_request} per request", flush=True)
+        # The kernels line's row is the shape launched most, held whole.
+        full = label == "layer1 3x3"
+        by_store = check_qconv(label, h, w, cin, cout, k, stride, pad, g, full=full)
+        if full:
+            rows["qconv_i8"] = by_store["bf16"]
+        torch.cuda.empty_cache()
+    rows["bn_stats"], rows["bn_relu_quant"] = check_bn_epilogues(g)
+    torch.cuda.empty_cache()
+    print(f"  kernel checks: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    cfg = Config()
+    qcfg = replace(cfg, tpu=replace(cfg.tpu, quantized_inference=True))
+    t0 = time.perf_counter()
+    qpred = MCDOPredictor.from_config(qcfg, weights)
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qpred.warmup()
+    print(f"  quantized predictor: plan built in {built:.2f} s (with the model), warmup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cuda_build.reset_launch_counts()
+    qres = []
+    for (kind, lat, img_seed, seed), fr in zip(requests, results):
+        img = synthetic_image(d.H, d.W, positive=bool(img_seed % 2), seed=img_seed)
+        if kind == "uint16":
+            img = np.round(img * 65535).astype(np.uint16)
+        t0 = time.perf_counter()
+        r = qpred.predict(img, lat, seed=seed)
+        ms = (time.perf_counter() - t0) * 1e3
+        qres.append(r)
+        finite = all(bool(torch.isfinite(getattr(r.stats, f)).all()) for f in vars(r.stats))
+        print(f"  int8 request {kind:6s} {lat} image {img_seed} seed {seed}: bucket {r.bucket} "
+              f"prediction {r.prediction} P(pos) {float(r.stats.mean):.4f} entropy "
+              f"{float(r.stats.mean_entropy):.4f} {ms:.1f} ms | f32: prediction {fr.prediction} "
+              f"P(pos) {float(fr.stats.mean):.4f} entropy {float(fr.stats.mean_entropy):.4f}; "
+              f"|d P(pos)| {abs(float(r.stats.mean) - float(fr.stats.mean)):.4f}", flush=True)
+        if not finite or r.num_instances != fr.num_instances:
+            raise RuntimeError("int8 request: a statistic is not finite or the bag differs")
+    launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    per = {k: launches[k] / len(requests) for k in ("qconv_i8", "bn_stats", "bn_relu_quant",
+                                                   "mc_head_sep", "gather_tiles")}
+    gap = max(abs(float(q.stats.mean) - float(f.stats.mean)) for q, f in zip(qres, results))
+    agree = sum(q.prediction == f.prediction for q, f in zip(qres, results))
+    repeat = (torch.equal(qres[0].stats.mean_probs, qres[-1].stats.mean_probs)
+              and torch.equal(qres[0].attention.mean, qres[-1].attention.mean))
+    print(f"  launches per int8 request: {per}; max |d P(pos)| against f32 {gap:.4f} (limit "
+          f"0.05); predictions agree on {agree} of {len(requests)} (need 4); repeated seed bit "
+          f"for bit: {repeat}", flush=True)
+    if not (per["qconv_i8"] >= 19 and min(per.values()) >= 1):
+        raise RuntimeError(f"the int8 requests did not go through K6-K8, K1 and K3: {launches}")
+    if gap > 0.05 or agree < 4 or not repeat:
+        raise RuntimeError("int8 requests: P(pos) gap, prediction agreement or repeat failed")
+    if check_int8_embed(qpred, d) < 0.97:
+        raise RuntimeError("int8 features: cosine against the f32 embed under 0.97")
+    request_breakdown(qpred, d)
+    img2 = synthetic_image(d.H, d.W, positive=False, seed=2)
+    peaks = {}
+    for name, p in (("f32", pred), ("int8", qpred)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        p.predict(img2, "R", seed=102)
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print("  peak device memory of one request above its start (image 2 R): " + ", ".join(
+        f"{k} {v:.3f} GiB" for k, v in peaks.items()), flush=True)
+    check_quantized_cli(qcfg, d)
+    check_small_quantized_request_against_cpu()
+    print(f"  phase 4q: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def check_quantized_cli(qcfg, d) -> None:
+    """``cli.main(["serve", ...])`` on a YAML with ``tpu.quantized_inference:
+    true`` and two of phase 4b's records: each line equals the direct
+    quantized ``predict`` of a predictor built the same way."""
+    import yaml
+
+    from montecarlo_gated_mil_tpu_torch import cli
+    from montecarlo_gated_mil_tpu_torch.core.config import config_to_dict
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.server import build_predictor, result_to_dict
+
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        reqs = []
+        for kind, lat, img_seed, seed in (("float", "L", 10, 200), ("uint16", "R", 11, 201)):
+            img = synthetic_image(d.H, d.W, positive=bool(img_seed % 2), seed=img_seed)
+            if kind == "uint16":
+                img = np.round(img * 65535).astype(np.uint16)
+            np.save(tmp / f"scan_{img_seed}.npy", img)
+            reqs.append({"image": str(tmp / f"scan_{img_seed}.npy"), "laterality": lat,
+                         "seed": seed})
+        (tmp / "config.yml").write_text(yaml.safe_dump(config_to_dict(qcfg)))
+        (tmp / "in.jsonl").write_text("".join(json.dumps(r) + "\n" for r in reqs))
+        t0 = time.perf_counter()
+        rc = cli.main(["serve", "--config", str(tmp / "config.yml"), "--input",
+                       str(tmp / "in.jsonl"), "--output", str(tmp / "out.jsonl")])
+        cli_s = time.perf_counter() - t0
+        got = [json.loads(line) for line in (tmp / "out.jsonl").read_text().splitlines()]
+        ref = build_predictor(qcfg)
+        same = [g == result_to_dict(ref.predict(np.load(r["image"]), r["laterality"],
+                                                seed=r["seed"]))
+                for g, r in zip(got, reqs)]
+        del ref
+    print(f"  CLI on a quantized YAML: exit {rc}, {len(got)} lines in {cli_s:.1f} s (model and "
+          f"plan build, warmup, 2 requests); quantized {qcfg.tpu.quantized_inference}; equal to "
+          f"build_predictor(that config).predict bit for bit: {same}", flush=True)
+    if rc != 0 or len(got) != 2 or not all(same):
+        raise RuntimeError("cli serve, quantized: non-zero exit, wrong count or a differing record")
+
+
+def check_small_quantized_request_against_cpu() -> None:
+    """A small quantized request with dropout on, on the card (K6-K8, K1,
+    K3) and on the CPU (plain versions): the same codes except where the
+    bf16 stem (cuDNN against the CPU's conv) or a statistic's last bit
+    differs."""
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import PipelineConfig
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.experiment import build_model
+    from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
+
+    pipe = PipelineConfig(height=256, width=256, patch_size=64, overlap=0.5,
+                          empty_threshold=0.3, bucket=16)
+    img = synthetic_image(256, 256, positive=True, seed=5)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(Config(), seed=9)
+        out[device] = MCDOPredictor(model, pipe, num_samples=8, quantized=True,
+                                    device=device).predict(img, "R", seed=4)
+    a, b = out["cuda"], out["cpu"]
+    err = max(float((a.stats.mean_probs - b.stats.mean_probs).abs().max()),
+              float((a.attention.mean - b.attention.mean).abs().max()))
+    print(f"  small int8 request, card vs CPU plain path (dropout 0.1): max|d| {err:.2e} (limit "
+          f"5e-3), predictions {a.prediction} and {b.prediction}, {a.num_instances} instances",
+          flush=True)
+    if a.num_instances != b.num_instances or a.prediction != b.prediction or err > 5e-3:
+        raise RuntimeError("the card's int8 request disagrees with the CPU plain path")
 
 
 def time_heads(root: str) -> int:

@@ -4,8 +4,8 @@ Same dataclasses, defaults and validation as
 ``montecarlo_gated_mil_tpu/core/config.py``, so one YAML file configures
 both packages.  The ``tpu:`` section keeps its name for that reason.  The
 port's predictor reads ``buckets``, ``compute_dtype``, ``oversized_bags``
-and ``quantized_inference`` (which it refuses until the quantized embed is
-ported); training reads ``buckets``, ``adaptive_buckets``,
+and ``quantized_inference`` (the int8 embed of ``ops/quantized.py``);
+training reads ``buckets``, ``adaptive_buckets``,
 ``compute_dtype``, ``oversized_bags`` and ``checkpoint_every``.  The other
 knobs are parsed and validated only.  ``use_pallas_train`` in particular has
 no effect in the port: on the card a training step's head always runs the
@@ -168,9 +168,8 @@ class TpuConfig:
     # head.  Parsed only: the port's head runs its kernels on the card
     # and their plain version on the CPU (module docstring).
     use_pallas_train: bool = False
-    # Opt-in quantized embedding (post-training quantization with static
-    # k-sigma activation scales).  Parsed for config compatibility; the
-    # port's predictor refuses it until the quantized embed is ported.
+    # Opt-in quantized embedding for serving (post-training quantization
+    # with static k-sigma activation scales, ops/quantized.py).
     quantized_inference: bool = False
     # Debug toggles (SURVEY.md §5: the JAX analogue of the reference's
     # deterministic-algorithms enforcement is explicit-key purity; these add

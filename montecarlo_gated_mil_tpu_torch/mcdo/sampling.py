@@ -1,7 +1,8 @@
 """Monte Carlo dropout inference: T head samples over one feature pass.
 
 Counterpart of ``montecarlo_gated_mil_tpu/mcdo/sampling.py``.  Features are
-computed once; the T stochastic head passes run in the MC-head kernel
+computed once, by the float backbone or the int8 embed (``make_embed_fn``);
+the T stochastic head passes run in the MC-head kernel
 (``ops/gated_attention.py``) on the card, or its plain version on the CPU.
 The uncertainty reductions are plain tensor ops on the device.
 """
@@ -28,6 +29,28 @@ class MCOutputs:
 
     predictions: torch.Tensor
     attention: torch.Tensor
+
+
+def make_embed_fn(model, quantized: bool = False):
+    """Feature extractor shared by the evaluation and serving paths:
+    ``embed(patches, mask) -> (N, L)`` f32 features, from the model's float
+    backbone or, with ``quantized``, the int8 PTQ embed
+    (``ops/quantized.py``), whose plan is built here, once, on the model's
+    device."""
+    if not quantized:
+        return model.embed
+    from montecarlo_gated_mil_tpu_torch.ops.quantized import (
+        quantize_backbone_static,
+        quantized_embed_static,
+    )
+
+    plan = quantize_backbone_static(model.feature_extractor, model.backbone)
+
+    def embed(patches, mask):
+        return quantized_embed_static(plan, patches, mask, backbone=model.backbone)
+
+    embed.plan = plan
+    return embed
 
 
 def mc_head(
@@ -59,18 +82,21 @@ def mc_inference(
     num_samples: int,
     seed: int,
     *,
+    quantized: bool = False,
     device: str | torch.device = "cuda",
 ) -> MCOutputs:
-    """Features once, then T head samples.  ``patches``: one bag
-    ``(N, h, w, 3)``; ``model`` must already live on ``device``."""
+    """Features once (the int8 embed with ``quantized``), then T head
+    samples.  ``patches``: one bag ``(N, h, w, 3)``; ``model`` must already
+    live on ``device``."""
     device = torch.device(device)
     model_device = next(model.parameters()).device
     if model_device.type != device.type:
         raise ValueError(f"model is on {model_device}, inference asked for {device}")
     patches = torch.as_tensor(patches, device=device)
     mask = None if mask is None else torch.as_tensor(mask, device=device)
+    embed = make_embed_fn(model, quantized)
     with torch.inference_mode():
-        H = model.embed(patches, mask)
+        H = embed(patches, mask)
         return mc_head(model, H, mask, num_samples, seed)
 
 

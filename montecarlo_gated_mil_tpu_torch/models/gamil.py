@@ -82,6 +82,7 @@ class MultiHeadGatedAttentionMIL(nn.Module):
         aux_loss_type: str = "pairwise",
         aux_margin: float = 1.0,
         aux_scale: float = 0.5,
+        space_to_depth: bool = False,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -96,7 +97,10 @@ class MultiHeadGatedAttentionMIL(nn.Module):
         self.aux_scale = aux_scale
         L = feature_dim(backbone)
         self.L = L
-        self.feature_extractor = make_backbone(backbone, dtype=dtype)
+        self.space_to_depth = space_to_depth  # exact s2d stem (same weights)
+        self.feature_extractor = make_backbone(
+            backbone, dtype=dtype, space_to_depth=space_to_depth
+        )
 
         def gate(act):
             return nn.Sequential(nn.Linear(L, D), act())

@@ -11,6 +11,11 @@ features ``(N, L)`` out.  Inside, the convolutions run on an NCHW view in
 ``channels_last`` memory, which is the same bytes as NHWC.  Parameter names
 follow torchvision (``conv1``, ``layer1.0.bn2``, ``layer2.0.downsample.0``),
 so ``weights.py`` maps them one to one onto the JAX parameter tree.
+
+``space_to_depth=True`` runs the stem as its exact space-to-depth form (a
+4x4 stride-1 conv over 2x2-rearranged input, :func:`s2d_stem_kernel`), with
+the same ``conv1.weight``; the quantized embed's ``stem="s2d_i8"`` uses the
+same rearrangement.
 """
 
 from __future__ import annotations
@@ -189,6 +194,44 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
+def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
+    """``(7, 7, C, 64)`` HWIO stem kernel -> the exact ``(4, 4, 4C, 64)``
+    kernel of its space-to-depth form.  The 7x7 stride-2 conv reads
+    ``x[2o + k - 3]``; zero-padding the kernel at its leading edge to 8 taps
+    makes that ``x[2o + k' - 4]``, which regroups into 4 stride-1 taps over
+    2x2 pairs with padding (2, 1).  The channel grouping matches
+    :func:`s2d_input`."""
+    c = w7.shape[2]
+    w8 = F.pad(w7, (0, 0, 0, 0, 1, 0, 1, 0))  # a leading zero tap on ky and kx
+    return (
+        w8.reshape(4, 2, 4, 2, c, 64)
+        .permute(0, 2, 1, 3, 4, 5)
+        .reshape(4, 4, 4 * c, 64)
+    )
+
+
+def s2d_input(x: torch.Tensor) -> torch.Tensor:
+    """``(N, H, W, C)`` -> ``(N, H/2, W/2, 4C)`` 2x2 space-to-depth, channel
+    order matching :func:`s2d_stem_kernel`."""
+    n, h, w, c = x.shape
+    return (
+        x.reshape(n, h // 2, 2, w // 2, 2, c)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(n, h // 2, w // 2, 4 * c)
+    )
+
+
+def _s2d_stem(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The 7x7 stride-2 stem as a 4x4 stride-1 conv over s2d input, padded
+    (2, 1) on each spatial axis.  ``x``: NHWC; returns NCHW."""
+    n, h, w, _ = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space-to-depth stem needs even H, W; got {h}x{w}")
+    wk = s2d_stem_kernel(conv.weight.permute(2, 3, 1, 0)).permute(3, 2, 0, 1)
+    x2 = F.pad(s2d_input(x).permute(0, 3, 1, 2), (2, 1, 2, 1))
+    return F.conv2d(x2, wk.to(x.dtype))
+
+
 @contextlib.contextmanager
 def _exact_float_convs(dtype: torch.dtype):
     """cuDNN runs float32 convolutions in TF32 by default; a float32 (or
@@ -209,6 +252,7 @@ class ResNetFeatures(nn.Module):
 
     ``mask`` (N,) marks valid instances; BN statistics ignore padded ones.
     ``dtype`` is the compute dtype of the convolutions; parameters stay f32.
+    ``space_to_depth`` runs the stem in its exact s2d form (same weights).
     """
 
     def __init__(
@@ -216,9 +260,11 @@ class ResNetFeatures(nn.Module):
         stage_sizes: Sequence[int],
         block_cls: type,
         dtype: torch.dtype = torch.float32,
+        space_to_depth: bool = False,
     ):
         super().__init__()
         self.dtype = dtype
+        self.space_to_depth = space_to_depth
         self.conv1 = _make_conv(3, 64, 7, 2, 3)
         self.bn1 = MaskedBatchStatsNorm(64)
         cin = 64
@@ -234,16 +280,25 @@ class ResNetFeatures(nn.Module):
         _lecun_normal_init(self)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        # NHWC storage viewed as NCHW: a channels_last tensor, no copy.
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        x = x.to(self.dtype)
         with _exact_float_convs(self.dtype):
-            x = F.relu(self.bn1(_conv(self.conv1, x), mask))
+            # The stem's output is a temporary: bound to a name, it would stay
+            # alive through the BN and the ReLU (9.9 GB at bucket 3072).
+            x = F.relu(self.bn1(self._stem(x), mask))
             x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
             for i in range(1, self.num_stages + 1):
                 for block in getattr(self, f"layer{i}"):
                     x = block(x, mask)
         # Global average pool, accumulated in >= f32.
         return x.to(_stats_dtype(x.dtype)).mean(dim=(2, 3))
+
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC patches -> the stem conv's NCHW output."""
+        if self.space_to_depth:
+            return _s2d_stem(self.conv1, x)
+        # NHWC storage viewed as NCHW: a channels_last tensor, no copy.
+        return _conv(self.conv1, x.permute(0, 3, 1, 2))
 
 
 def _lecun_normal_init(module: nn.Module) -> None:
@@ -263,12 +318,14 @@ _CONFIGS: dict[str, tuple[Sequence[int], type]] = {
 }
 
 
-def make_backbone(name: str, dtype: torch.dtype = torch.float32) -> ResNetFeatures:
+def make_backbone(
+    name: str, dtype: torch.dtype = torch.float32, space_to_depth: bool = False
+) -> ResNetFeatures:
     """Backbone factory for the reference's r18/r34/r50 switch."""
     if name not in _CONFIGS:
         raise ValueError(f"backbone must be one of {sorted(_CONFIGS)}, got {name!r}")
     sizes, block = _CONFIGS[name]
-    return ResNetFeatures(sizes, block, dtype=dtype)
+    return ResNetFeatures(sizes, block, dtype=dtype, space_to_depth=space_to_depth)
 
 
 def feature_dim(name: str) -> int:

@@ -42,7 +42,7 @@ class Kernel:
 
     name: str
     source: str  # file under csrc/
-    replaces: str  # file:line of the Pallas kernel in the JAX package
+    replaces: str  # file:line of the Pallas kernel (or XLA-compiled function) it replaces
     launches: int = 0
 
 
@@ -54,6 +54,10 @@ DEVICE_FUNCTIONS: dict[str, tuple[str, ...]] = {
         "bwd_gate_kernel", "bwd_dz_kernel", "bwd_dh_kernel", "bwd_dw_kernel", "bwd_reduce_kernel",
     ),
     "gather.cu": ("gather_tiles_kernel",),
+    "qconv.cu": ("qconv_kernel",),
+    "bn_quant.cu": (
+        "bn_stats_kernel", "bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel",
+    ),
 }
 
 KERNELS: dict[str, Kernel] = {
@@ -78,6 +82,19 @@ KERNELS: dict[str, Kernel] = {
         Kernel(
             "mc_head_bwd_shared", "mc_head_bwd.cu",
             "montecarlo_gated_mil_tpu/ops/gated_attention.py:356",
+        ),
+        # The int8 embed's kernels replace XLA ops, not Pallas kernels.
+        Kernel(
+            "qconv_i8", "qconv.cu",
+            "montecarlo_gated_mil_tpu/ops/quantized.py:370",
+        ),
+        Kernel(
+            "bn_stats", "bn_quant.cu",
+            "montecarlo_gated_mil_tpu/ops/quantized.py:409",
+        ),
+        Kernel(
+            "bn_relu_quant", "bn_quant.cu",
+            "montecarlo_gated_mil_tpu/ops/quantized.py:497",
         ),
     )
 }

@@ -1,7 +1,9 @@
 """Serving: raw mammogram in, uncertainty-aware prediction out.
 
 Counterpart of ``montecarlo_gated_mil_tpu/serve.py::MCDOPredictor``: on-device
-preprocessing (``data/pipeline.py``, tile gather kernel), one feature pass,
+preprocessing (``data/pipeline.py``, tile gather kernel), one feature pass
+(the f32 backbone, or with ``quantized=True`` the int8 embed of
+``ops/quantized.py``),
 T Monte Carlo head samples in one kernel launch, the uncertainty
 reductions and, on request, the mean/std attention maps
 (``viz/attention.py``) on the device, behind one warm predictor.
@@ -32,6 +34,7 @@ from montecarlo_gated_mil_tpu_torch.mcdo.sampling import (
     AttentionStats,
     PredictiveStats,
     attention_stats,
+    make_embed_fn,
     mc_head,
     predictive_stats,
 )
@@ -87,6 +90,9 @@ class MCDOPredictor:
     With a ``bucket_spec`` each request embeds at the smallest sufficient
     bucket; an oversized request (more valid tiles than the cap bucket)
     extends past the cap under ``oversized='extend'`` and keeps every tile.
+
+    ``quantized=True`` embeds through the int8 PTQ path (static k-sigma
+    scales, ``ops/quantized.py``); its plan is built once, here.
     """
 
     def __init__(
@@ -101,11 +107,6 @@ class MCDOPredictor:
         max_inflight: int = 1,
         device: str | torch.device = "cuda",
     ):
-        if quantized:
-            raise NotImplementedError(
-                "quantized inference is not ported yet (ROADMAP.md queue 1, "
-                "item 10: ops/quantized.py)"
-            )
         if oversized not in ("extend", "truncate"):
             raise ValueError(f"oversized must be 'extend' or 'truncate', got {oversized!r}")
         if max_inflight < 1:
@@ -135,6 +136,8 @@ class MCDOPredictor:
         self._starts = torch.as_tensor(self._starts_np, dtype=torch.int64, device=self.device)
         # Head weights in kernel layout, converted once.
         self._head_params = GatedAttentionParams.from_module(self.model).to(self.device)
+        # The f32 backbone, or the int8 embed with its plan built once.
+        self._embed = make_embed_fn(self.model, quantized)
 
     @classmethod
     def from_config(
@@ -229,7 +232,7 @@ class MCDOPredictor:
             image, flip, 0, self._starts, replace(self.pipeline, bucket=bucket),
             device=self.device,
         )
-        H = self.model.embed(bag.patches, bag.mask)
+        H = self._embed(bag.patches, bag.mask)
         out = mc_head(self.model, H, bag.mask, self.num_samples, seed, self._head_params)
         y, a = out.predictions, out.attention
         return bag, y, a, predictive_stats(y), attention_stats(a, bag.mask)

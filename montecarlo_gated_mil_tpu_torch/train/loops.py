@@ -14,7 +14,9 @@ Counterpart of ``montecarlo_gated_mil_tpu/train/loops.py`` (reference
   T of (CE + aux) per sample; prediction = argmax of the mean **raw
   logits** over T;
 - ``test`` (``net_utils.py:160-192``): accuracy and the classification
-  report.
+  report;
+- ``mc_test`` (``net_utils.py:195-230``): T MC samples per bag, prediction =
+  argmax of the mean **softmax** over T, optionally through the int8 embed.
 
 A loader is anything with ``epoch(e)`` yielding ``(Bag, record)``, or a
 plain iterable of such pairs.
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from montecarlo_gated_mil_tpu_torch.core import rng
-from montecarlo_gated_mil_tpu_torch.mcdo.sampling import mc_head
+from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn, mc_head
 from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
 from montecarlo_gated_mil_tpu_torch.train.state import TrainState
 from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics
@@ -203,5 +205,30 @@ def test(
         for bag, _rec in _items(loader, 0):
             y, _ = model(bag.patches, bag.mask)
             preds.append(int(torch.argmax(y)))
+            targets.append(int(bag.label))
+    return _finish_test(targets, preds, metrics)
+
+
+def mc_test(
+    model,
+    loader: Iterable,
+    *,
+    num_samples: int = 50,
+    seed: int,
+    metrics: Metrics | None = None,
+    quantized: bool = False,
+):
+    """MC test pass: ``(accuracy, Report)`` from the argmax of the MC-mean
+    softmax.  Bag ``i`` samples with seed ``fold_in(seed, i)``;
+    ``quantized=True`` embeds through the int8 PTQ path.  An oversized bag
+    runs whole on the one card."""
+    embed = make_embed_fn(model, quantized)
+    preds, targets = [], []
+    with torch.no_grad():
+        for i, (bag, _rec) in enumerate(_items(loader, 0)):
+            H = embed(bag.patches, bag.mask)
+            out = mc_head(model, H, bag.mask, num_samples, rng.fold_in(seed, i))
+            probs = torch.softmax(out.predictions, dim=-1)
+            preds.append(int(torch.argmax(probs.mean(0))))
             targets.append(int(bag.label))
     return _finish_test(targets, preds, metrics)

@@ -284,3 +284,190 @@ def test_kernels_refuse_wrong_inputs(cuda):
         tga._mc_head_bwd_cuda(H, params, 2, 0, 0.0, 0.0, A, dM, dA)
     with pytest.raises(ValueError, match="unsupported shapes"):
         tga._mc_head_bwd_cuda(H, bad, 3, 0, 0.0, 0.0, A, dM, dA)
+
+
+# ---------------------------------------------------------------- K6-K8
+# The int8 embed's kernels (ops/quant_kernels.py).  Their plain versions
+# repeat the kernels' arithmetic op for op, so the outputs are held equal.
+
+from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk  # noqa: E402
+
+# (N, H, W, Cin, Cout, k, stride, pad (top, bottom, left, right)): every conv
+# geometry of r18 and r50 at a few instances and odd sizes, r50's widest
+# 1x1s, an oversize-extended bag, and the s2d stem.
+QCONV_CASES = {
+    "3x3_s1_64": (3, 15, 13, 64, 64, 3, 1, (1, 1, 1, 1)),
+    "3x3_s2_64_128": (3, 15, 14, 64, 128, 3, 2, (1, 1, 1, 1)),
+    "1x1_s2_64_128": (3, 15, 14, 64, 128, 1, 2, (0, 0, 0, 0)),
+    "3x3_s1_256": (2, 7, 7, 256, 256, 3, 1, (1, 1, 1, 1)),
+    "3x3_s1_512": (5, 4, 3, 512, 512, 3, 1, (1, 1, 1, 1)),
+    "1x1_s1_256_64": (2, 9, 9, 256, 64, 1, 1, (0, 0, 0, 0)),
+    "1x1_s1_64_256": (2, 9, 9, 64, 256, 1, 1, (0, 0, 0, 0)),
+    "3x3_s2_128_256": (3, 9, 11, 128, 256, 3, 2, (1, 1, 1, 1)),
+    "1x1_s1_2048_512": (2, 4, 5, 2048, 512, 1, 1, (0, 0, 0, 0)),
+    "1x1_s2_1024_2048": (2, 7, 7, 1024, 2048, 1, 2, (0, 0, 0, 0)),
+    "3x3_s1_512_n6144": (6144, 3, 3, 512, 512, 3, 1, (1, 1, 1, 1)),  # an extended bucket
+    "s2d_stem_4x4": (3, 20, 18, 12, 64, 4, 1, (2, 1, 2, 1)),
+}
+
+
+def _qconv_inputs(cuda, case, extreme=False, seed=3):
+    n, h, w, cin, cout, k, stride, pad = QCONV_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    if extreme:  # |acc| up to 127^2 * K, past 2^24 where float32 has gaps
+        a = torch.full((n, h, w, cin), 127, dtype=torch.int8)
+        wt = torch.where(torch.rand(cout, k, k, cin, generator=g) < 0.98, 127, -127).to(torch.int8)
+    else:
+        a = torch.randint(-127, 128, (n, h, w, cin), generator=g, dtype=torch.int8)
+        wt = torch.randint(-127, 128, (cout, k, k, cin), generator=g, dtype=torch.int8)
+    scale = torch.rand(cout, generator=g) * 2e-4 + 1e-5
+    return a.to(cuda), wt.to(cuda), scale.to(cuda), stride, pad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(QCONV_CASES))
+@pytest.mark.parametrize("store", ["bf16", "f8", "i8"])
+def test_qconv_kernel_bit_exact(cuda, case, store):
+    """K6 equals its plain version (exact f64 accumulators, the same
+    epilogue) bit for bit, and launches once."""
+    a, w, scale, stride, pad = _qconv_inputs(cuda, case)
+    if store == "i8":
+        scale = scale * 50.0  # s / t: codes spread over the int8 range
+    before = cuda_build.KERNELS["qconv_i8"].launches
+    got = qk.qconv(a, w, scale, stride, pad, store)
+    want = qk.qconv_reference(a, w, scale, stride, pad, store)
+    torch.cuda.synchronize()
+    assert cuda_build.KERNELS["qconv_i8"].launches == before + 1
+    assert got.dtype == want.dtype == qk.STORE_DTYPES[store] and got.shape == want.shape
+    assert torch.equal(got.view(torch.int8) if store == "f8" else got,
+                       want.view(torch.int8) if store == "f8" else want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["3x3_s1_512", "s2d_stem_4x4"])
+def test_qconv_kernel_large_accumulators(cuda, case):
+    """Accumulators past 2^24 convert with round-to-nearest-even, as
+    torch's int32 -> float32 does."""
+    a, w, scale, stride, pad = _qconv_inputs(cuda, case, extreme=True)
+    acc = qk.qconv_accumulate(a, w, stride, pad)
+    if case == "3x3_s1_512":
+        assert int(acc.abs().max()) > 2**24
+    got = qk.qconv(a, w, scale, stride, pad, "bf16")
+    assert torch.equal(got, qk.store_epilogue(acc, scale, "bf16"))
+
+
+def _stored(cuda, dtype, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, generator=g) * 3.0
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(x * 20), -127, 127).to(torch.int8).to(cuda), (
+            torch.rand(shape[-1], generator=g) * 0.05 + 0.01).to(cuda)
+    return x.to(dtype).to(cuda), None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn, torch.int8])
+@pytest.mark.parametrize("shape", [(3, 33, 31, 64), (4, 7, 7, 512), (2, 3, 3, 2048)])
+def test_bn_stats_kernel(cuda, dtype, shape):
+    """K7 sums in float64: within 1e-6 of the size of the plain f32 sums."""
+    t, tq = _stored(cuda, dtype, shape, 5)
+    s1, s2 = qk.bn_stats(t, tq)
+    r1, r2 = qk.bn_stats_reference(t, tq)
+    torch.cuda.synchronize()
+    for got, want in ((s1, r1), (s2, r2)):
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    again = qk.bn_stats(t, tq)
+    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+
+
+def _affine(cuda, c, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(c, generator=g) * 4).to(cuda), (torch.randn(c, generator=g) * 10).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn, torch.int8])
+@pytest.mark.parametrize("residual", ["none", "identity", "downsample"])
+@pytest.mark.parametrize("mode", ["i8", "mean"])
+def test_bn_relu_quant_kernel(cuda, dtype, residual, mode):
+    """K8's codes equal the plain version's; the mean mode within 1e-6 of
+    the features' size."""
+    shape = (3, 9, 7, 128)
+    t, tq = _stored(cuda, dtype, shape, 6)
+    scale, shift = _affine(cuda, 128, 7)
+    res = None
+    if residual == "identity":
+        x, _ = _stored(cuda, torch.int8, shape, 8)
+        res = qk.Residual(x, None, _affine(cuda, 128, 9)[0].abs(), None)
+    elif residual == "downsample":
+        d, dtq = _stored(cuda, dtype, shape, 10)
+        res = qk.Residual(d, dtq, *_affine(cuda, 128, 11))
+    got = qk.bn_relu_quant(t, tq, scale, shift, res, mode=mode)
+    want = qk.bn_relu_quant_reference(t, tq, scale, shift, res, mode=mode)
+    torch.cuda.synchronize()
+    if mode == "i8":
+        assert got.dtype == torch.int8 and torch.equal(got, want)
+        assert int((got != 0).sum()) > got.numel() // 10  # not all clipped away
+    else:
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(112, 112), (17, 14)])
+def test_stem_pool_quant_kernel(cuda, hw):
+    """K8's stem mode: affine, ReLU, 3x3/2 max-pool padded with -inf and
+    the rounding, code for code."""
+    t, _ = _stored(cuda, torch.bfloat16, (2, *hw, 64), 12)
+    scale, shift = _affine(cuda, 64, 13)
+    got = qk.bn_relu_quant(t, None, scale, shift, mode="pool_i8")
+    want = qk.bn_relu_quant_reference(t, None, scale, shift, mode="pool_i8")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, (hw[0] + 1) // 2, (hw[1] + 1) // 2, 64)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stem", ["bf16", "s2d_i8"])
+@pytest.mark.parametrize("store", ["bf16", "f8", "i8"])
+def test_quantized_embed_on_the_card(cuda, stem, store):
+    """The int8 embed of a small r18 bag on the card goes through K6, K7 and
+    K8 only (19 int8 convs), and tracks the float embed as the CPU tests
+    hold it (cosine > 0.97 per valid instance)."""
+    from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
+    from montecarlo_gated_mil_tpu_torch.ops.quantized import (
+        quantize_backbone_static,
+        quantized_embed_static,
+    )
+
+    torch.manual_seed(0)
+    backbone = make_backbone("r18").to(cuda)
+    g = torch.Generator().manual_seed(1)
+    patches = torch.clamp(torch.randn(12, 64, 64, 3, generator=g) * 0.8, -2.2, 2.7).to(cuda)
+    mask = (torch.arange(12) < 10).to(cuda)
+    plan = quantize_backbone_static(backbone, "r18", conv_store=store, stem=stem)
+    cuda_build.reset_launch_counts()
+    with torch.inference_mode():
+        hq = quantized_embed_static(plan, patches, mask)
+        hf = backbone(patches, mask)
+    torch.cuda.synchronize()
+    launches = {k: cuda_build.KERNELS[k].launches for k in ("qconv_i8", "bn_stats", "bn_relu_quant")}
+    assert launches == {"qconv_i8": 19 + (stem == "s2d_i8"), "bn_stats": 20, "bn_relu_quant": 17}
+    cos = torch.nn.functional.cosine_similarity(hq[:10], hf[:10], dim=-1)
+    assert bool(torch.isfinite(hq).all()) and float(cos.min()) > 0.97
+
+
+@pytest.mark.gpu
+def test_quant_kernels_refuse_wrong_inputs(cuda):
+    a, w, scale, stride, pad = _qconv_inputs(cuda, "3x3_s1_64")
+    with pytest.raises(ValueError, match="qconv_i8"):
+        qk.qconv(a.float(), w, scale, stride, pad, "bf16")
+    with pytest.raises(ValueError, match="unsupported conv"):
+        qk.qconv(a[..., :6].contiguous(), w[..., :6].contiguous(), scale, stride, pad, "bf16")
+    t, _ = _stored(cuda, torch.bfloat16, (2, 4, 4, 12), 1)
+    with pytest.raises(ValueError, match="bn_stats"):
+        qk.bn_stats(t)
+    t, tq = _stored(cuda, torch.int8, (2, 4, 4, 64), 1)
+    with pytest.raises(ValueError, match="bn_stats"):
+        qk.bn_stats(t)  # an int8 store without its tq
+    with pytest.raises(ValueError, match="bn_relu_quant"):
+        qk.bn_relu_quant(t, tq, *_affine(cuda, 64, 1), mode="pool_i8")

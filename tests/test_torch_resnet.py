@@ -12,6 +12,17 @@ from montecarlo_gated_mil_tpu_torch.models import resnet as tr
 from montecarlo_gated_mil_tpu_torch.weights import backbone_from_jax
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several worker
+    processes at once, and oversubscribed OpenMP threads slow these CPU
+    convolutions down severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randomize_bn(tree, rng):
     """Non-trivial BN affines, so the test sees scale and bias."""
     if "scale" in tree:
@@ -102,3 +113,42 @@ def test_feature_dims_and_keys(name, L):
     keys = set(m.state_dict())
     assert "conv1.weight" in keys and "layer2.0.downsample.0.weight" in keys
     assert "layer4.0.downsample.1.bias" in keys
+
+
+def test_s2d_stem_kernel_and_input_equal_jax():
+    """The space-to-depth rearrangements are pure reshapes: bit-equal."""
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((7, 7, 3, 64)).astype(np.float32)
+    np.testing.assert_array_equal(tr.s2d_stem_kernel(torch.from_numpy(w)).numpy(),
+                                  np.asarray(jr.s2d_stem_kernel(jnp.asarray(w))))
+    x = rng.standard_normal((2, 10, 8, 3)).astype(np.float32)
+    np.testing.assert_array_equal(tr.s2d_input(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jr.s2d_input(jnp.asarray(x))))
+
+
+def test_space_to_depth_stem_matches_plain_stem():
+    """``space_to_depth=True`` is the same function with the same weights
+    (``tests/test_parity.py``'s tolerance), and needs even sides."""
+    torch.manual_seed(0)
+    plain, s2d = tr.make_backbone("r18"), tr.make_backbone("r18", space_to_depth=True)
+    assert list(plain.state_dict()) == list(s2d.state_dict())
+    s2d.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 64, 64, 3)).astype(np.float32))
+    mask = torch.ones(4, dtype=torch.bool)
+    with torch.no_grad():
+        np.testing.assert_allclose(s2d(x, mask).numpy(), plain(x, mask).numpy(), atol=2e-4, rtol=1e-4)
+        with pytest.raises(ValueError, match="even"):
+            s2d(x[:, :63], mask)
+
+
+def test_space_to_depth_resnet_matches_jax():
+    """The s2d stem against JAX's ``SpaceToDepthStem`` (same parameter tree)
+    in a small f32 ResNet, as ``test_small_resnet_matches_jax``."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((6, 64, 64, 3)).astype(np.float32)
+    mask = np.arange(6) < 4
+    tmodel = tr.ResNetFeatures((1, 1, 1, 1), tr.BasicBlock, space_to_depth=True)
+    jmodel = jr.ResNetFeatures(stage_sizes=(1, 1, 1, 1), block_cls=jr.BasicBlock,
+                               space_to_depth=True)
+    got, want = _pair(jmodel, tmodel, x, mask, np.float32)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)

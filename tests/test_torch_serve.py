@@ -32,6 +32,17 @@ from test_torch_viz import _np_box_mean
 PIPE = dict(height=128, width=128, patch_size=64, overlap=0.0, empty_threshold=0.05, bucket=8)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several worker
+    processes at once, and oversubscribed OpenMP threads slow these CPU
+    convolutions down severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_predictor(p, num_samples=4, seed=0):
     model = MultiHeadGatedAttentionMIL(
         feature_dropout=p, attention_dropout=p, shared_attention=False
@@ -96,10 +107,78 @@ def test_dropout_on_is_deterministic_per_seed():
 
 
 def test_unported_options_raise():
+    """``quantized=True`` is ported now (the int8 embed); what the predictor
+    does not take still raises."""
     pred = _port_predictor(0.0)
-    assert pred.quantized is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MCDOPredictor(pred.model, PipelineConfig(**PIPE), quantized=True, device="cpu")
+    assert pred.quantized is False and pred._embed == pred.model.embed
+    q = MCDOPredictor(pred.model, PipelineConfig(**PIPE), quantized=True, device="cpu")
+    assert q.quantized is True and q._embed.plan["backbone"] == "r18"
+    with pytest.raises(ValueError, match="oversized"):
+        MCDOPredictor(pred.model, PipelineConfig(**PIPE), oversized="drop", device="cpu")
+    with pytest.raises(ValueError, match="max_inflight"):
+        MCDOPredictor(pred.model, PipelineConfig(**PIPE), max_inflight=0, device="cpu")
+
+
+STAT_FIELDS = ("mean_probs", "mean", "std", "median", "iqr", "low", "high", "mean_entropy")
+
+
+def _max_gap(a, b) -> float:
+    """Largest difference of two requests' statistics and mean attention."""
+    gaps = [np.abs(np.asarray(getattr(a.stats, f)) - np.asarray(getattr(b.stats, f))).max()
+            for f in STAT_FIELDS]
+    gaps.append(np.abs(np.asarray(a.attention.mean) - np.asarray(b.attention.mean)).max())
+    return float(max(gaps))
+
+
+# The unpinned port against JAX's jitted quantized predictor.  The f32 BN
+# statistics round differently in the two packages, and at 4 valid 64x64
+# tiles a BN sees 16 values in layer 4, where the codes this flips grow (see
+# tests/test_torch_quantized.py).  JAX's jitted request differs from its own
+# op-by-op run by as much (measured on images 0-3: 0.003-0.009; the port's
+# gap to the jitted one 0.003-0.011), so both are held to one bar.
+QUANT_VS_JAX_STATS = 0.03
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_quantized_predictor_matches_float_and_jax(seed, monkeypatch):
+    """The quantized predictor at ``test_serve.py``'s geometry, dropout 0:
+    with its BN affines and stem conv pinned to JAX's
+    (``pin_rounding_to_jax``), every statistic within 1e-5 of JAX's
+    quantized predictor run op by op (measured 6e-8); unpinned, the same
+    prediction as JAX's jitted predictor and every statistic within
+    QUANT_VS_JAX_STATS, and against the port's float predictor |d P(pos)| <
+    0.05 and the same prediction."""
+    from test_torch_quantized import pin_rounding_to_jax
+
+    jmodel = JaxMIL(feature_dropout=0.0, attention_dropout=0.0, shared_attention=False)
+    params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(
+        jax.random.key(0), jnp.zeros((2, 64, 64, 3)), jnp.ones(2, bool))["params"])
+    jpred = JaxPredictor(jmodel, params, JaxPipelineConfig(**PIPE), num_samples=4,
+                         use_pallas=False, quantized=True)
+    tmodel = MultiHeadGatedAttentionMIL(
+        feature_dropout=0.0, attention_dropout=0.0, shared_attention=False
+    )
+    tmodel.load_state_dict(from_jax_params(params))
+    tq = MCDOPredictor(tmodel, PipelineConfig(**PIPE), num_samples=4, quantized=True,
+                       device="cpu")
+    tf = MCDOPredictor(tmodel, PipelineConfig(**PIPE), num_samples=4, device="cpu")
+    img = synthetic_image(128, 128, positive=bool(seed % 2), seed=seed)
+    got, fl, want = tq.predict(img, "R", seed=3), tf.predict(img, "R", seed=3), jpred.predict(
+        img, "R", seed=3)
+    assert got.num_instances == fl.num_instances == want.num_instances > 0
+    assert got.prediction == fl.prediction == want.prediction
+    assert abs(float(got.stats.mean) - float(fl.stats.mean)) < 0.05
+    assert _max_gap(got, want) <= QUANT_VS_JAX_STATS
+    again = tq.predict(img, "R", seed=3)
+    assert torch.equal(again.stats.mean_probs, got.stats.mean_probs)
+
+    with jax.disable_jit():
+        op_by_op = jpred.predict(img, "R", seed=3)
+    assert _max_gap(op_by_op, want) <= QUANT_VS_JAX_STATS
+    pin_rounding_to_jax(monkeypatch)
+    pinned = tq.predict(img, "R", seed=3)
+    assert pinned.prediction == op_by_op.prediction
+    assert _max_gap(pinned, op_by_op) <= 1e-5
 
 
 def test_predict_returns_maps():
@@ -239,7 +318,23 @@ def test_from_config_builds_the_shipped_geometry():
     pred = MCDOPredictor.from_config(cfg, sd, device="cpu")
     assert pred.num_samples == 50 and pred.pipeline.overlap == 0.75
     assert pred._grid.num_tiles == 5781 and pred.pipeline.bucket == 128
-    assert not pred.model.shared_attention
+    assert not pred.model.shared_attention and not pred.quantized
+
+
+def test_from_config_serves_quantized_when_the_yaml_says_so():
+    """``tpu.quantized_inference: true`` builds the int8 plan once, from the
+    loaded weights (the plan's codes follow the checkpoint)."""
+    from montecarlo_gated_mil_tpu_torch.ops.quantized import quantize_backbone_static
+
+    cfg = config_from_dict({"tpu": {"buckets": [64, 128], "quantized_inference": True}})
+    sd = build_model(cfg, seed=1).state_dict()
+    pred = MCDOPredictor.from_config(cfg, sd, device="cpu")
+    assert pred.quantized
+    want = quantize_backbone_static(pred.model.feature_extractor, "r18")
+    got = pred._embed.plan
+    assert torch.equal(got["layer3_0"]["conv2"]["w"], want["layer3_0"]["conv2"]["w"])
+    other = quantize_backbone_static(build_model(cfg, seed=2).feature_extractor, "r18")
+    assert not torch.equal(got["layer3_0"]["conv2"]["w"], other["layer3_0"]["conv2"]["w"])
 
 
 def test_port_imports_no_jax():
@@ -249,6 +344,7 @@ def test_port_imports_no_jax():
         "import montecarlo_gated_mil_tpu_torch.ops.cuda_build\n"
         "import montecarlo_gated_mil_tpu_torch.server, montecarlo_gated_mil_tpu_torch.cli\n"
         "import montecarlo_gated_mil_tpu_torch.viz.attention\n"
+        "import montecarlo_gated_mil_tpu_torch.ops.quantized\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))"
         " or m == 'montecarlo_gated_mil_tpu' or m.startswith('montecarlo_gated_mil_tpu.')]\n"
         "assert not bad, bad\n"

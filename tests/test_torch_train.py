@@ -311,3 +311,27 @@ def test_training_imports_no_jax():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_mc_test_quantized_matches_jax():
+    """``mc_test`` through the int8 embed against the JAX package's at
+    dropout 0 (every MC sample the same): equal accuracy and report on five
+    bags of 6 valid 64x64 tiles; the float path's too."""
+    jm, jp, tm = _models(False, np.float32, 64)
+    rng = np.random.default_rng(2)
+    jitems, titems = [], []
+    for i in range(5):
+        x = np.zeros((8, 64, 64, 3), np.float32)
+        x[:6] = np.clip(rng.normal(0.0, 0.8, size=(6, 64, 64, 3)), -2.2, 2.7)
+        jbag, tbag = _bag_pair(x, np.arange(8) < 6, i % 2)
+        jitems.append((jbag, None))
+        titems.append((tbag, None))
+    want = jloops.mc_test(jm, jp, jitems, num_samples=3, key=jax.random.key(4),
+                          metrics=JaxMetrics([JaxMemorySink()]), quantized=True)
+    sink = MemorySink()
+    got = tloops.mc_test(tm, titems, num_samples=3, seed=4, metrics=Metrics([sink]),
+                         quantized=True)
+    assert got[0] == want[0] and got[1] == want[1]
+    assert sink.values("test/accuracy") == [got[0]]
+    float_acc, _ = tloops.mc_test(tm, titems, num_samples=3, seed=4)
+    assert abs(float_acc - got[0]) <= 0.2  # at most one of five flips
