@@ -35,8 +35,9 @@ Phases, each of which raises on failure:
    yardsticks; K7/K8 (BN statistics, normalize + requantize) at the stem, a
    layer-1 and a layer-4 shape; then ``MCDOPredictor.from_config`` with
    ``tpu.quantized_inference`` serving phase 4's five requests beside their
-   float results, ``cli serve`` on a quantized YAML, and a small quantized
-   request held against the CPU plain path;
+   float results (a profile of one int8 embed shows each of its 19 convs
+   on K6's wgmma kernel), ``cli serve`` on a quantized YAML, and a small
+   quantized request held against the CPU plain path;
 5. the shared-gate workload of the JAX package's ``bench.py`` (a 256-tile
    224x224 bag, r18, T=30) through ``mc_inference``;
 6. holds the backward kernels (K5 separate gates, K4 shared) against their
@@ -59,7 +60,10 @@ times the MC head kernels (K1, K2, K4, K5) of the port found under DIR,
 another checkout such as the parent commit or ``.``, at phases 3 and 6's
 shapes and inputs with this script's timer, and prints them as one JSON
 line: run it for both trees on one card, one after the other, to compare
-them.
+them.  ``python3 chip_smoke.py --kernels-from DIR`` does the same for K6
+(the int8 conv) at every ``QCONV_SHAPES`` shape, with the per-request sum
+and SHA-256 digests of K6's outputs and of a seeded int8 embed, which two
+bit-exact trees share.
 
 Imports nothing of JAX.  TF32 is off throughout: the shipped configuration
 computes in float32.
@@ -1183,6 +1187,18 @@ def _int8(shape, g) -> torch.Tensor:
     return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
 
 
+def _pixels_read(h: int, w: int, k: int, stride: int, pad) -> int:
+    """Input pixels of one instance that a k x k conv's taps read: a 1x1/2
+    conv reads one pixel in four, a 3x3/2 with padding 1 reads them all."""
+    top, bottom, left, right = pad
+
+    def axis(size, lo, hi):
+        out = (size + lo + hi - k) // stride + 1
+        return len({o * stride + t - lo for o in range(out) for t in range(k)} & set(range(size)))
+
+    return axis(h, top, bottom) * axis(w, left, right)
+
+
 def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -> dict:
     """K6 at one r18 conv shape, for each store: bit for bit against the
     plain version (exact f64 accumulators) on QUANT_CHECK_N instances, or
@@ -1221,7 +1237,8 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -
         if full:
             plain = _time_ms(lambda: qk.qconv_reference(a, wt, scale, stride, pad, store),
                              iters=2, what="plain K6").ms
-        nbytes = a.numel() + wt.numel() + m * cout * (2 if store == "bf16" else 1) + 4 * cout
+        nbytes = (n * _pixels_read(h, w, k, stride, pad) * cin + wt.numel()
+                  + m * cout * (2 if store == "bf16" else 1) + 4 * cout)
         t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         print(f"  K6 {label} store {store}: bit-exact on {n_check} instances (max|out| "
@@ -1345,7 +1362,8 @@ def check_bn_epilogues(g) -> tuple[dict, dict]:
 def check_int8_embed(qpred, d) -> float:
     """One request's bag (image 2, R): the minimum per-instance cosine of
     the int8 features against the f32 embed (same weights), and the int8
-    embed's device time by kernel (``torch.profiler``).  Returns the cosine."""
+    embed's device time by kernel (``torch.profiler``), which must show
+    each of its convs on K6's wgmma kernel.  Returns the cosine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1378,22 +1396,30 @@ def check_int8_embed(qpred, d) -> float:
 
     total = sum(dev_ms(e) for e in kernels)
     if total <= 0:
-        print("  profiler: no device time recorded for the int8 embed", flush=True)
-        return float(cos.min())
-    groups = {"K6": cuda_build.DEVICE_FUNCTIONS["qconv.cu"], "K7": ("bn_stats_kernel",),
+        raise RuntimeError("profiler: no device time recorded for the int8 embed, so K6's "
+                           "device functions cannot be checked")
+    wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
+    groups = {f"K6 {wgmma_fn}": (wgmma_fn,), f"K6 {gather_fn}": (gather_fn,),
+              "K7": ("bn_stats_kernel",),
               "K8": ("bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel")}
-    parts, counted = [], set()
+    parts, counted, launches = [], set(), {}
     for name, fns in groups.items():
         es = [e for e in kernels if any(f in e.key for f in fns)]
         counted.update(id(e) for e in es)
-        parts.append(f"{name} {sum(dev_ms(e) for e in es):.2f} ms in "
-                     f"{sum(e.count for e in es)} launches")
+        launches[name] = sum(e.count for e in es)
+        parts.append(f"{name} {sum(dev_ms(e) for e in es):.2f} ms in {launches[name]} launches")
     rest = sorted((e for e in kernels if id(e) not in counted), key=dev_ms, reverse=True)
     print(f"  int8 embed by kernel (torch.profiler, one call at bucket {bucket}): device "
           f"{total:.2f} ms; " + "; ".join(parts) + f"; other {sum(dev_ms(e) for e in rest):.2f} "
           f"ms in {sum(e.count for e in rest)} launches, the largest:", flush=True)
     for e in rest[:5]:
         print(f"    {dev_ms(e):9.3f} ms  x{e.count:<4d} {e.key[:90]}", flush=True)
+    convs = sum(shape[-1] for shape in QCONV_SHAPES)
+    print(f"  K6 by device function in that embed: {wgmma_fn} {launches[f'K6 {wgmma_fn}']} "
+          f"(need {convs}, one per conv), {gather_fn} {launches[f'K6 {gather_fn}']} (need 0)",
+          flush=True)
+    if launches[f"K6 {wgmma_fn}"] != convs or launches[f"K6 {gather_fn}"]:
+        raise RuntimeError(f"the int8 embed's {convs} convs did not all run {wgmma_fn}")
     return float(cos.min())
 
 
@@ -1588,9 +1614,76 @@ def time_heads(root: str) -> int:
     return 0
 
 
+EMBED_N = 64  # instances of the bag whose int8 embed is hashed by --kernels-from
+
+
+def time_qconv(root: str) -> int:
+    """Times K6 of the port under ``root`` at every ``QCONV_SHAPES`` shape
+    at N=QUANT_N with the bf16 store, on the same seeded inputs, with this
+    script's timer, and prints one JSON line: ms per shape, the sum over a
+    request's convs weighted by their launches, a SHA-256 of each shape's
+    output on QUANT_CHECK_N instances, and a SHA-256 of the bytes of the
+    int8 embed (``quantized_embed_static``) of one seeded 64-instance bag at
+    224 px under a plan from seeded r18 weights.  It calls only what the
+    port has had since the int8 path began: ``qconv`` and the plan and
+    embed of ``ops/quantized.py``."""
+    import hashlib
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
+    sys.path.insert(0, str(Path(root).resolve()))
+    import montecarlo_gated_mil_tpu_torch as port
+    from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+    from montecarlo_gated_mil_tpu_torch.ops.quantized import (
+        quantize_backbone_static,
+        quantized_embed_static,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the bf16 stem conv, for the embed's digest
+    print(f"card: {_gpu_line()}; port {Path(port.__file__).parent}", flush=True)
+    cuda_build.build_all()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    times, digests, per_request = {}, {}, 0.0
+    for label, h, w, cin, cout, k, stride, pad, launches in QCONV_SHAPES:
+        a = _int8((QUANT_N, h, w, cin), g)
+        wt = _int8((cout, k, k, cin), g)
+        scale = (torch.rand(cout, generator=g, device="cuda") + 0.5) * (
+            2.0 / ((k * k * cin) ** 0.5 * 127**2 / 3))
+        out = qk.qconv(a[:QUANT_CHECK_N], wt, scale, stride, pad, "bf16")
+        digests[label] = hashlib.sha256(out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        del out
+        t = _time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, "bf16"), iters=10, what=label)
+        times[label] = t.ms
+        per_request += launches * t.ms
+        print(f"  K6 {label}: {t}", flush=True)
+        del a, wt
+        torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    backbone = make_backbone("r18").to("cuda")
+    plan = quantize_backbone_static(backbone, "r18")
+    rng = np.random.default_rng(3)
+    patches = torch.from_numpy(rng.uniform(-2.0, 2.5, (EMBED_N, 224, 224, 3)).astype(np.float32))
+    with torch.inference_mode():
+        h = quantized_embed_static(plan, patches.to("cuda"))
+    embed = hashlib.sha256(h.cpu().numpy().tobytes()).hexdigest()
+    print(f"  K6 per request (launch-weighted): {per_request:.4f} ms; int8 embed of "
+          f"{EMBED_N} instances: sha256 {embed}", flush=True)
+    print(json.dumps({"port": str(Path(port.__file__).parent), "qconv_ms": times,
+                      "per_request_ms": per_request, "qconv_sha256": digests,
+                      "embed_sha256": embed}))
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--heads-from", metavar="DIR",
                     help="only time the MC head kernels of the port under DIR")
+    ap.add_argument("--kernels-from", metavar="DIR",
+                    help="only time K6 (int8 conv) of the port under DIR and hash its int8 embed")
     args = ap.parse_args()
-    sys.exit(time_heads(args.heads_from) if args.heads_from else main())
+    if args.heads_from:
+        sys.exit(time_heads(args.heads_from))
+    sys.exit(time_qconv(args.kernels_from) if args.kernels_from else main())

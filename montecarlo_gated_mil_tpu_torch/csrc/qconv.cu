@@ -6,41 +6,497 @@
 // montecarlo_gated_mil_tpu/ops/quantized.py (no Pallas kernel there; PyTorch
 // has no int8 convolution on CUDA at all).
 //
-// What bounds it on an H100: at the r18 embed's shapes the products need
-// 2 * M * Cout * K int8 operations (1,979 TOP/s dense) against reading the
-// activations and weights once and writing the store once (3.35 TB/s); the
-// 3x3 convs of layers 1-2 sit near the balance point, the 1x1 downsamples
-// and the bf16 stores are byte-bound.
+// What bounds it on an H100: the products need 2 * M * Cout * K int8
+// operations (1,979 TOP/s dense, reached only through `wgmma`) against
+// reading the activations and weights once and writing the store once
+// (3.35 TB/s).  The r18 embed's 3x3 convs of layers 2-4 are bound by
+// operations, layer 1's 3x3 and the 1x1 downsamples by bytes, most of them
+// the bf16 store.  Between the two sits the traffic from L2 into the SMs:
+// an implicit GEMM that fetches its A operand per tap reads every input
+// pixel KH * KW times, and every tile needs the weights of its columns.
 //
-// Design, simple first: an implicit GEMM.  Rows are output pixels
-// (M = N * OH * OW), columns output channels, the depth K = KH * KW * Cin in
-// (ky, kx, ci) order, which is the weight layout, so a weight row is
-// contiguous.  Each block computes a 128 x BN tile with eight warps of
-// `mma.sync.m16n8k32` s8 x s8 -> s32, over K tiles of 64 double-buffered in
-// shared memory by cp.async.  With Cin % 64 == 0 a K tile lies inside one tap:
-// each row of it is 64 contiguous bytes of one input pixel, fetched in 16-byte
-// copies, zero-filled where the tap falls in the padding (the scheme is
-// symmetric, so a zero code is an exact zero).  Otherwise (Cin = 12 at the
-// space-to-depth stem) the tile is gathered in 4-byte groups, each inside one
-// tap because Cin % 4 == 0.  Shared-memory rows are 80 bytes apart, which
-// makes the fragment reads free of bank conflicts.  The accumulators never
-// leave registers: the epilogue converts each with round-to-nearest
-// (`__int2float_rn`, as torch's `.to(float32)`; |acc| can pass 2^24), scales
-// it with one rounded multiply, and stores it.  Offsets into the activations
-// and the output are 64-bit: the stem's output passes 2^31 elements.
+// Design (`qconv_wgmma_kernel`; every conv with Cin % 64 == 0, at most 64
+// taps and stride 1 or 2, which is every int8 conv of r18, r34 and r50): an
+// implicit GEMM.  Rows are output pixels, columns output channels, the
+// depth K = KH * KW * Cin in (ky, kx, ci) order, the weight layout; `wgmma`
+// takes 8-bit A and B only K-major, which is the layout both already have.
+// - A tile is 8 x 8 output pixels of one instance, one `wgmma` M of 64 rows.
+//   For each 64 input channels the producer loads a tile's input halo once,
+//   (8 + KW - 1) x (8 + KH - 1) pixels at stride 1, by TMA, and every tap's
+//   A operand is an offset into that halo (from a per-tap table in shared
+//   memory), with no second fetch.  This needs the unswizzled K-major
+//   layout: each 16-channel slice of the halo is its own plane of 16-byte
+//   pixel rows (one 4-D TMA box over (C, W, H, N) of 16 channels), so an
+//   8-pixel row segment is one 8 x 16-byte core matrix at any pixel offset,
+//   the next output row is one halo row further (the stride byte offset)
+//   and the next 16 channels one plane further (the leading byte offset).
+// - Out-of-range box coordinates fill with zeros; under the symmetric scheme
+//   a zero code is an exact zero, so that is the padding, at every edge.
+//   Stride 2 uses one tensor map per parity of (y, x) that a tap reads, each
+//   a plain tiled view with doubled strides, so a stride-2 tap is again an
+//   offset into a dense halo (TMA's element strides would not let the taps
+//   of one parity share a box; im2col mode fetches per tap).
+// - Two consumer warpgroups work independently, each on its own stream of
+//   work items (MT tiles at one column tile of BN = 64, 128 or 256 output
+//   channels, MT = 256 / BN where the rings fit, so 128 accumulator
+//   registers), fed by its own producer warp through its own halo and
+//   weight rings with full / empty `mbarrier`s; one warpgroup's epilogue
+//   overlaps the other's products.  `setmaxnreg` gives the consumers 232
+//   registers and the producers 40.
+// - The weights stay resident in shared memory where the conv has one column
+//   tile and they fit beside the rings (r18's layer-1 3x3 at 37 KB, its
+//   layer-2 3x3/2 at 74 KB and the 1x1/2 downsamples of layers 2-3), loaded
+//   once per block.  Otherwise a (tap,
+//   64-channel) slice of BN rows streams through the weight ring (64-byte
+//   swizzle, matched by its descriptor), and neighbouring blocks share it in
+//   L2 (the column tile varies fastest).
+// - `wgmma.m64nNk32` s8 x s8 -> s32 keeps one group in flight while the
+//   next is issued.  Blocks are persistent, one per SM, walking the items.
+// - The rings are as deep as shared memory allows (`plan_stages`): weight
+//   stages first, then halo stages, from two.  At the bf16 store the halo
+//   ring of r18's shapes has 3 stages at layer 1's 3x3 and layer 4's 1x1/2,
+//   8 at the 1x1/2 of layers 2-3, and 2 at every 3x3/2 and at the 3x3 of
+//   layers 2-4, where a third does not fit beside the resident weights or
+//   the weight ring (2-4 stages).  One halo stage serves all taps of its
+//   64 channels.
+// - The epilogue converts each accumulator exactly as before
+//   (`__int2float_rn`, as torch's `.to(float32)`; |acc| can pass 2^24), scales
+//   it with one rounded multiply and rounds it to the store, stages a tile in
+//   shared memory (in two passes of 32 rows where that lets the weights
+//   stay resident) and writes each output row in 16-byte stores.  The int32
+//   sums are exact in any order, so the result is bit-exact.
+// Offsets into the activations and the output are 64-bit: at an extended
+// bucket of 6144 instances layer 1's bf16 output passes 2^31 bytes.
+//
+// The s2d stem (Cin = 12, the `stem="s2d_i8"` option, off by default) and
+// any conv outside those shapes run `qconv_gather_kernel`, the first design
+// kept for them: 128-pixel tiles, eight warps of `mma.sync.m16n8k32`, the
+// A tile gathered in 4-byte `cp.async` groups (each inside one tap because
+// Cin % 4 == 0) and double-buffered with the weights.  `qconv_i8` alone
+// picks the path by shape; which device function ran is read from the
+// profiler's kernel names (chip_smoke.py phase 4q, the card-only tests).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_s8.cuh"
+
 namespace {
+
+enum Store { kBf16 = 0, kF8 = 1, kI8 = 2 };
+
+template <int STORE>
+__host__ __device__ constexpr int store_bytes() {
+  return STORE == kBf16 ? 2 : 1;
+}
+
+// One output element pair (columns c, c + 1 of one row) from its
+// accumulators, in the store's bits: a bf16 pair in 32 bits, an 8-bit pair
+// in the low 16.
+template <int STORE>
+__device__ __forceinline__ uint32_t pack_pair(int a0, int a1, float s0, float s1) {
+  const float y0 = __fmul_rn(__int2float_rn(a0), s0);
+  const float y1 = __fmul_rn(__int2float_rn(a1), s1);
+  if (STORE == kBf16) {
+    const uint32_t b0 = __bfloat16_as_ushort(__float2bfloat16_rn(y0));
+    const uint32_t b1 = __bfloat16_as_ushort(__float2bfloat16_rn(y1));
+    return b0 | (b1 << 16);
+  } else if (STORE == kF8) {
+    const __nv_fp8_storage_t q0 =
+        __nv_cvt_float_to_fp8(fminf(fmaxf(y0, -448.f), 448.f), __NV_SATFINITE, __NV_E4M3);
+    const __nv_fp8_storage_t q1 =
+        __nv_cvt_float_to_fp8(fminf(fmaxf(y1, -448.f), 448.f), __NV_SATFINITE, __NV_E4M3);
+    return static_cast<uint32_t>(q0) | (static_cast<uint32_t>(q1) << 8);
+  } else {
+    const int q0 = static_cast<int>(fminf(fmaxf(rintf(y0), -127.f), 127.f));
+    const int q1 = static_cast<int>(fminf(fmaxf(rintf(y1), -127.f), 127.f));
+    return static_cast<uint32_t>(q0 & 0xff) | (static_cast<uint32_t>(q1 & 0xff) << 8);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------ the wgmma path
+
+constexpr int W_T = 8;           // a warpgroup's tile: 8 x 8 output pixels
+constexpr int W_BK = 64;         // input channels per halo stage
+constexpr int W_THREADS = 384;   // two consumer warpgroups and a producer warpgroup
+constexpr int W_MAX_STAGES = 8;
+constexpr int W_SMEM = 232448;   // shared memory a block may use
+constexpr int W_MAX_TAPS = 64;   // KH * KW
+
+struct ActMaps {
+  CUtensorMap m[4];  // one tiled view per input parity (y, x) a tap reads
+};
+
+// The geometry the kernel walks, fixed per launch.
+struct Tiling {
+  int N, OH, OW, Cout;
+  int KH, KW, stride, pad_top, pad_left, cin_chunks;
+  int q0y, q0x;         // the halo's first row and column, relative to the tile, per parity view
+  int BH, BW;           // halo rows and columns
+  int par_y, par_x;     // input parities read along y and x: bit p set if parity p is read
+  int n_par;            // parity views loaded per stage (1, 2 or 4)
+  int plane;            // bytes of one 16-channel halo plane, rounded up to 128
+  int tiles_x, tiles_y, col_tiles, spatial, items;
+  int a_stages, b_stages;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the barrier's phase differs from `parity`.  A wait of more
+// than about 10 s traps, so that a pipeline fault ends the launch with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    if (clock64() - start > 20000000000ll) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Descriptor of the A operand in the unswizzled K-major layout: core
+// matrices of 8 rows x 16 bytes, `lbo` bytes apart along K (the halo's
+// 16-channel planes) and `sbo` bytes apart along M (one halo row).
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Descriptor of the B operand as TMA writes it with the 64-byte swizzle:
+// rows of 64 bytes, groups of 8 rows 512 bytes apart; the leading byte
+// offset is unused for this layout.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_k32(int (&d)[BN / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (BN == 64)
+    wgmma_m64n64k32(d, a, b, scale_d);
+  else if constexpr (BN == 128)
+    wgmma_m64n128k32(d, a, b, scale_d);
+  else
+    wgmma_m64n256k32(d, a, b, scale_d);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The warpgroup tile `st`: instance and top-left pixel.
+struct TileAt {
+  int n, oy0, ox0;
+};
+
+__device__ __forceinline__ TileAt tile_at(const Tiling& t, int st) {
+  TileAt r;
+  r.ox0 = (st % t.tiles_x) * W_T;
+  const int rest = st / t.tiles_x;
+  r.oy0 = (rest % t.tiles_y) * W_T;
+  r.n = rest / t.tiles_y;
+  return r;
+}
+
+// A tap offset o = k - pad along one axis: the parity p of the input it
+// reads and the halo index of output 0, (o - p) / s - q0.
+__device__ __forceinline__ void tap_axis(int o, int s, int q0, int& p, int& h) {
+  p = ((o % s) + s) % s;
+  h = (o - p) / s - q0;
+}
+
+// Index of parity (py, px) among the views loaded per stage.
+__device__ __forceinline__ int parity_index(const Tiling& t, int py, int px) {
+  const int nx = __popc(t.par_x);
+  return __popc(t.par_y & ((1 << py) - 1)) * nx + __popc(t.par_x & ((1 << px) - 1));
+}
+
+template <int BN, int STORE>
+__host__ __device__ constexpr int staging_row() {
+  return BN * store_bytes<STORE>() + 16;
+}
+
+// One warpgroup's halos for one stage: MT tiles, each n_par parity views of
+// four 16-channel planes.
+template <int MT>
+__host__ __device__ inline int a_stage_bytes(const Tiling& t) {
+  return (MT * t.n_par * 4 * t.plane + 1023) / 1024 * 1024;
+}
+
+// Shared memory, from a 1024-byte aligned base: for each consumer
+// warpgroup its halo ring (a_stages) and, unless the weights are resident,
+// its weight ring (b_stages x BN x 64 bytes); the resident weights (KT x BN
+// x 64 bytes); each warpgroup's output staging (64 / HALVES rows of BN stores plus
+// 16 bytes of padding); then the barriers and the tap table.
+template <int BN, int STORE, int MT, bool WRES, int HALVES>
+__host__ __device__ inline int smem_bytes(const Tiling& t) {
+  const int ring = t.a_stages * a_stage_bytes<MT>(t) + (WRES ? 0 : t.b_stages * BN * W_BK);
+  const int wres = WRES ? t.KH * t.KW * t.cin_chunks * BN * W_BK : 0;
+  return 1024 + 2 * ring + wres + 2 * (64 / HALVES) * staging_row<BN, STORE>() +
+         (8 * W_MAX_STAGES + 1) * 8 +
+         W_MAX_TAPS * 4;
+}
+
+template <int BN, int STORE, int MT, bool WRES, int HALVES>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    qconv_wgmma_kernel(const __grid_constant__ ActMaps act, const __grid_constant__ CUtensorMap wgt,
+                       const float* __restrict__ scale, void* __restrict__ out, Tiling t) {
+  constexpr int B_BYTES = BN * W_BK;
+  constexpr int ES = store_bytes<STORE>();
+  constexpr int SROW = staging_row<BN, STORE>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  const int A_BYTES = a_stage_bytes<MT>(t);
+  const int KT = t.KH * t.KW * t.cin_chunks;
+  const int taps = t.KH * t.KW;
+  const int tile_bytes = t.n_par * 4 * t.plane;  // one tile's halo in a stage
+  const int ring = t.a_stages * A_BYTES + (WRES ? 0 : t.b_stages * B_BYTES);
+  uint8_t* wres = base + 2 * ring;
+  uint8_t* staging = wres + (WRES ? KT * B_BYTES : 0);
+  constexpr int stage_rows = 64 / HALVES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(staging + 2 * stage_rows * SROW);
+  uint64_t* w_full = bars + 8 * W_MAX_STAGES;
+  uint32_t* tap_offset = reinterpret_cast<uint32_t*>(w_full + 1);  // in a stage's halos
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i)
+      for (int s = 0; s < W_MAX_STAGES; ++s) {
+        uint64_t* b = bars + i * 4 * W_MAX_STAGES;
+        mbar_init(&b[s], 1);                     // halo full
+        mbar_init(&b[W_MAX_STAGES + s], 4);      // halo empty: one arrival per consumer warp
+        mbar_init(&b[2 * W_MAX_STAGES + s], 1);  // weights full
+        mbar_init(&b[3 * W_MAX_STAGES + s], 4);  // weights empty
+      }
+    mbar_init(w_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < taps) {  // where each tap's A operand starts in a tile's halos
+    const int ky = threadIdx.x / t.KW, kx = threadIdx.x - ky * t.KW;
+    int py, hy, px, hx;
+    tap_axis(ky - t.pad_top, t.stride, t.q0y, py, hy);
+    tap_axis(kx - t.pad_left, t.stride, t.q0x, px, hx);
+    tap_offset[threadIdx.x] = parity_index(t, py, px) * 4 * t.plane + (hy * t.BW + hx) * 16;
+  }
+  __syncthreads();
+
+  // Consumer warpgroup wg (warps 4 wg .. 4 wg + 3) takes the work items
+  // 2 block + wg, stepping by twice the grid; item i is MT spatial tiles
+  // (i / col_tiles) MT + m, all at column tile i % col_tiles.  Producer warp
+  // 8 + wg feeds it through its own rings.
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp < 10 && lane == 0) {
+      const int wg = warp - 8;
+      uint8_t* ring_a = base + wg * ring;
+      uint8_t* ring_b = ring_a + t.a_stages * A_BYTES;
+      uint64_t* a_full = bars + wg * 4 * W_MAX_STAGES;
+      uint64_t* a_empty = a_full + W_MAX_STAGES;
+      uint64_t* b_full = a_empty + W_MAX_STAGES;
+      uint64_t* b_empty = b_full + W_MAX_STAGES;
+      if (WRES && wg == 0) {
+        mbar_expect_tx(w_full, static_cast<uint32_t>(KT * B_BYTES));
+        for (int kt = 0; kt < KT; ++kt) tma_load_2d(wres + kt * B_BYTES, &wgt, kt * W_BK, 0, w_full);
+      }
+      const uint32_t a_tx = MT * t.n_par * 4 * t.BH * t.BW * 16;
+      int a_it = 0, b_it = 0;
+      for (int item = 2 * blockIdx.x + wg; item < t.items; item += 2 * gridDim.x) {
+        const int col = item % t.col_tiles, grp = item / t.col_tiles;
+        for (int c = 0; c < t.cin_chunks; ++c) {
+          const int s = a_it % t.a_stages;
+          mbar_wait(&a_empty[s], ((a_it / t.a_stages) & 1) ^ 1);
+          mbar_expect_tx(&a_full[s], a_tx);
+          for (int m = 0; m < MT; ++m) {
+            const TileAt at = tile_at(t, grp * MT + m);
+            uint8_t* dst = ring_a + s * A_BYTES + m * tile_bytes;
+            for (int py = 0; py < 2; ++py) {
+              if (!((t.par_y >> py) & 1)) continue;
+              for (int px = 0; px < 2; ++px) {
+                if (!((t.par_x >> px) & 1)) continue;
+                const CUtensorMap* map = &act.m[py * 2 + px];
+                uint8_t* pdst = dst + parity_index(t, py, px) * 4 * t.plane;
+                for (int j = 0; j < 4; ++j)
+                  tma_load_4d(pdst + j * t.plane, map, c * W_BK + 16 * j, at.ox0 + t.q0x,
+                              at.oy0 + t.q0y, at.n, &a_full[s]);
+              }
+            }
+          }
+          ++a_it;
+          if (!WRES)
+            for (int tap = 0; tap < taps; ++tap) {
+              const int sb = b_it % t.b_stages;
+              mbar_wait(&b_empty[sb], ((b_it / t.b_stages) & 1) ^ 1);
+              mbar_expect_tx(&b_full[sb], B_BYTES);
+              tma_load_2d(ring_b + sb * B_BYTES, &wgt, (tap * t.cin_chunks + c) * W_BK, col * BN,
+                          &b_full[sb]);
+              ++b_it;
+            }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp / 4, tid = threadIdx.x % 128;
+    const int g = lane / 4, q = lane % 4, row_w = (warp % 4) * 16;
+    uint8_t* ring_a = base + wg * ring;
+    uint8_t* ring_b = ring_a + t.a_stages * A_BYTES;
+    uint64_t* a_full = bars + wg * 4 * W_MAX_STAGES;
+    uint64_t* a_empty = a_full + W_MAX_STAGES;
+    uint64_t* b_full = a_empty + W_MAX_STAGES;
+    uint64_t* b_empty = b_full + W_MAX_STAGES;
+    uint8_t* my_staging = staging + wg * stage_rows * SROW;
+    const uint32_t lbo = t.plane, sbo = t.BW * 16;
+    if (WRES) mbar_wait(w_full, 0);
+    int acc[MT][BN / 2];
+    int a_it = 0, b_it = 0;
+    for (int item = 2 * blockIdx.x + wg; item < t.items; item += 2 * gridDim.x) {
+      const int col = item % t.col_tiles, grp = item / t.col_tiles;
+      int prev_a = -1, prev_b = -1;  // stages the group in flight still reads
+      for (int c = 0; c < t.cin_chunks; ++c) {
+        const int sa = a_it % t.a_stages;
+        mbar_wait(&a_full[sa], (a_it / t.a_stages) & 1);
+        ++a_it;
+        const uint32_t halo = smem_u32(ring_a + sa * A_BYTES);
+        for (int tap = 0; tap < taps; ++tap) {
+          const uint32_t a_addr = halo + tap_offset[tap];
+          int sb = 0;
+          uint32_t b_addr;
+          if (WRES) {
+            b_addr = smem_u32(wres + (tap * t.cin_chunks + c) * B_BYTES);
+          } else {
+            sb = b_it % t.b_stages;
+            mbar_wait(&b_full[sb], (b_it / t.b_stages) & 1);
+            ++b_it;
+            b_addr = smem_u32(ring_b + sb * B_BYTES);
+          }
+          const uint64_t db = desc_sw64(b_addr);
+          const int first = c == 0 && tap == 0;
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const uint64_t da = desc_plain(a_addr + m * tile_bytes, lbo, sbo);
+            wgmma_k32<BN>(acc[m], da, db, !first);
+            // The next 32 channels: two planes further in A, 32 bytes in B.
+            wgmma_k32<BN>(acc[m], da + ((2 * lbo) >> 4), db + 2, 1);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          // The previous group is done: release what only it still read.
+          if (lane == 0) {
+            if (prev_b >= 0) mbar_arrive(&b_empty[prev_b]);
+            if (prev_a >= 0) mbar_arrive(&a_empty[prev_a]);
+          }
+          prev_b = WRES ? -1 : sb;
+          prev_a = tap == taps - 1 ? sa : -1;
+        }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0) {
+        if (prev_b >= 0) mbar_arrive(&b_empty[prev_b]);
+        if (prev_a >= 0) mbar_arrive(&a_empty[prev_a]);
+      }
+
+      // Epilogue, one tile at a time, in passes of stage_rows rows through
+      // this warpgroup's staging rows.  The accumulator fragment of wgmma m64nN:
+      // warp w of the warpgroup holds rows 16 w + g and 16 w + g + 8;
+      // registers 4 j + {0, 1} are columns 8 j + 2 q + {0, 1} of the first
+      // row, 4 j + {2, 3} of the second.  Row r is pixel (r / 8, r % 8) of
+      // the tile.
+      const int col0 = col * BN;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const TileAt at = tile_at(t, grp * MT + m);
+#pragma unroll
+        for (int pass = 0; pass < HALVES; ++pass) {
+          named_sync(1 + wg, 128);  // the last stores have read the staging rows
+          if ((warp % 4) * 16 / stage_rows == pass) {
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+              const int cc = 8 * j + 2 * q;
+              const float s0 = __ldg(scale + col0 + cc), s1 = __ldg(scale + col0 + cc + 1);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const uint32_t v =
+                    pack_pair<STORE>(acc[m][4 * j + 2 * h], acc[m][4 * j + 2 * h + 1], s0, s1);
+                uint8_t* dst =
+                    my_staging + (row_w - stage_rows * pass + g + 8 * h) * SROW + cc * ES;
+                if (ES == 2)
+                  *reinterpret_cast<uint32_t*>(dst) = v;
+                else
+                  *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(v);
+              }
+            }
+          }
+          named_sync(1 + wg, 128);
+          constexpr int CHUNKS = BN * ES / 16;  // 16-byte pieces of one output row
+          for (int i = tid; i < stage_rows * CHUNKS; i += 128) {
+            const int srow = i / CHUNKS, ch = i % CHUNKS, row = stage_rows * pass + srow;
+            const int oy = at.oy0 + row / W_T, ox = at.ox0 + row % W_T;
+            if (at.n < t.N && oy < t.OH && ox < t.OW) {
+              const int64_t pix = (static_cast<int64_t>(at.n) * t.OH + oy) * t.OW + ox;
+              uint8_t* dst = static_cast<uint8_t*>(out) + (pix * t.Cout + col0) * ES + ch * 16;
+              *reinterpret_cast<uint4*>(dst) =
+                  *reinterpret_cast<const uint4*>(my_staging + srow * SROW + ch * 16);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------- the gather path
 
 constexpr int BM = 128;          // output pixels per block
 constexpr int BK = 64;           // depth per shared-memory stage
 constexpr int LDS = BK + 16;     // bytes between shared-memory rows
 constexpr int THREADS = 256;
-
-enum Store { kBf16 = 0, kF8 = 1, kI8 = 2 };
 
 struct Shape {
   int N, H, W, Cin, Cout, KH, KW, stride, pad_top, pad_left, OH, OW;
@@ -48,14 +504,12 @@ struct Shape {
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem),
                "r"(valid ? 4 : 0));
 }
 
@@ -73,44 +527,19 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One output element pair (columns c, c + 1 of row m) from its accumulators.
-template <int STORE>
-__device__ __forceinline__ void store_pair(void* out, int64_t off, int a0, int a1, float s0,
-                                           float s1) {
-  const float y0 = __fmul_rn(__int2float_rn(a0), s0);
-  const float y1 = __fmul_rn(__int2float_rn(a1), s1);
-  if (STORE == kBf16) {
-    __nv_bfloat162 v;
-    v.x = __float2bfloat16_rn(y0);
-    v.y = __float2bfloat16_rn(y1);
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + off) = v;
-  } else if (STORE == kF8) {
-    const __nv_fp8_storage_t q0 =
-        __nv_cvt_float_to_fp8(fminf(fmaxf(y0, -448.f), 448.f), __NV_SATFINITE, __NV_E4M3);
-    const __nv_fp8_storage_t q1 =
-        __nv_cvt_float_to_fp8(fminf(fmaxf(y1, -448.f), 448.f), __NV_SATFINITE, __NV_E4M3);
-    *reinterpret_cast<uint16_t*>(static_cast<uint8_t*>(out) + off) =
-        static_cast<uint16_t>(q0) | (static_cast<uint16_t>(q1) << 8);
-  } else {
-    const int q0 = static_cast<int>(fminf(fmaxf(rintf(y0), -127.f), 127.f));
-    const int q1 = static_cast<int>(fminf(fmaxf(rintf(y1), -127.f), 127.f));
-    *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(out) + off) =
-        static_cast<uint16_t>(q0 & 0xff) | static_cast<uint16_t>((q1 & 0xff) << 8);
-  }
-}
-
-// BN: output channels per block (64 or 128).  VEC: Cin % 64 == 0, so a K tile
-// lies inside one tap and is fetched in 16-byte copies.
-template <int BN, bool VEC, int STORE>
-__global__ void __launch_bounds__(256) qconv_kernel(const int8_t* __restrict__ act,
-                                                    const int8_t* __restrict__ wgt,
-                                                    const float* __restrict__ scale,
-                                                    void* __restrict__ out, Shape sh) {
+// BN: output channels per block (64 or 128).  The A tile is gathered in
+// 4-byte groups, each inside one tap because Cin % 4 == 0.
+template <int BN, int STORE>
+__global__ void __launch_bounds__(256) qconv_gather_kernel(const int8_t* __restrict__ act,
+                                                           const int8_t* __restrict__ wgt,
+                                                           const float* __restrict__ scale,
+                                                           void* __restrict__ out, Shape sh) {
   constexpr int WARPS_N = BN / 32;            // warps along the channels
   constexpr int WARPS_M = 8 / WARPS_N;        // warps along the pixels
   constexpr int WM = BM / WARPS_M;            // pixels per warp
   constexpr int MI = WM / 16;                 // m16 tiles per warp
   constexpr int NI = 4;                       // n8 tiles per warp (32 channels)
+  constexpr int ES = store_bytes<STORE>();
   __shared__ __align__(16) int8_t As[2][BM][LDS];
   __shared__ __align__(16) int8_t Bs[2][BN][LDS];
 
@@ -123,67 +552,35 @@ __global__ void __launch_bounds__(256) qconv_kernel(const int8_t* __restrict__ a
   const int KT = (sh.K + BK - 1) / BK;
   const int64_t HWC = static_cast<int64_t>(sh.H) * sh.W * sh.Cin;
 
-  // VEC: this thread's two rows (tid / 4 and tid / 4 + 64) and 16-byte chunk.
-  int row_n[2], row_iy[2], row_ix[2];
-  bool row_ok[2];
-  if (VEC) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = m0 + tid / 4 + 64 * j;
-      row_ok[j] = m < sh.M;
-      const int mm = row_ok[j] ? m : 0;
-      const int n = mm / (sh.OH * sh.OW), r = mm % (sh.OH * sh.OW);
-      row_n[j] = n;
-      row_iy[j] = (r / sh.OW) * sh.stride - sh.pad_top;
-      row_ix[j] = (r % sh.OW) * sh.stride - sh.pad_left;
-    }
-  }
-
   auto load_tile = [&](int kt, int stage) {
     const int k0 = kt * BK;
-    if (VEC) {
-      const int tap = k0 / sh.Cin, ci0 = k0 - tap * sh.Cin;
-      const int ky = tap / sh.KW, kx = tap % sh.KW;
-      const int chunk = tid % 4;
+    // 4-byte groups: row tid / 16 + 16 j, group tid % 16.
+    const int grp = tid % 16;
+    const int k = k0 + grp * 4;
+    const int tap = k / sh.Cin, ci = k - tap * sh.Cin;
+    const int ky = tap / sh.KW, kx = tap % sh.KW;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int iy = row_iy[j] + ky, ix = row_ix[j] + kx;
-        const bool ok = row_ok[j] && iy >= 0 && iy < sh.H && ix >= 0 && ix < sh.W;
-        const int8_t* src =
-            ok ? act + row_n[j] * HWC + (static_cast<int64_t>(iy) * sh.W + ix) * sh.Cin + ci0 +
-                     chunk * 16
-               : act;
-        cp_async16(&As[stage][tid / 4 + 64 * j][chunk * 16], src, ok);
-      }
-    } else {
-      // 4-byte groups: row tid / 16 + 16 j, group tid % 16.
-      const int grp = tid % 16;
-      const int k = k0 + grp * 4;
-      const int tap = k / sh.Cin, ci = k - tap * sh.Cin;
-      const int ky = tap / sh.KW, kx = tap % sh.KW;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int row = tid / 16 + 16 * j;
-        const int m = m0 + row;
-        bool ok = m < sh.M && k < sh.K;
-        const int mm = ok ? m : 0;
-        const int n = mm / (sh.OH * sh.OW), r = mm % (sh.OH * sh.OW);
-        const int iy = (r / sh.OW) * sh.stride - sh.pad_top + ky;
-        const int ix = (r % sh.OW) * sh.stride - sh.pad_left + kx;
-        ok = ok && iy >= 0 && iy < sh.H && ix >= 0 && ix < sh.W;
-        const int8_t* src =
-            ok ? act + n * HWC + (static_cast<int64_t>(iy) * sh.W + ix) * sh.Cin + ci : act;
-        cp_async4(&As[stage][row][grp * 4], src, ok);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const int row = tid / 16 + 16 * j;
+      const int m = m0 + row;
+      bool ok = m < sh.M && k < sh.K;
+      const int mm = ok ? m : 0;
+      const int n = mm / (sh.OH * sh.OW), r = mm % (sh.OH * sh.OW);
+      const int iy = (r / sh.OW) * sh.stride - sh.pad_top + ky;
+      const int ix = (r % sh.OW) * sh.stride - sh.pad_left + kx;
+      ok = ok && iy >= 0 && iy < sh.H && ix >= 0 && ix < sh.W;
+      const int8_t* src =
+          ok ? act + n * HWC + (static_cast<int64_t>(iy) * sh.W + ix) * sh.Cin + ci : act;
+      cp_async4(&As[stage][row][grp * 4], src, ok);
     }
     // Weights: BN rows of 4 chunks of 16 bytes.
 #pragma unroll
     for (int j = 0; j < BN / 64; ++j) {
       const int q = tid + THREADS * j;
       const int row = q / 4, chunk = q % 4;
-      const int co = n0 + row, k = k0 + chunk * 16;
-      const bool ok = co < sh.Cout && k < sh.K;
-      const int8_t* src = ok ? wgt + static_cast<int64_t>(co) * sh.K + k : wgt;
+      const int co = n0 + row, kk = k0 + chunk * 16;
+      const bool ok = co < sh.Cout && kk < sh.K;
+      const int8_t* src = ok ? wgt + static_cast<int64_t>(co) * sh.K + kk : wgt;
       cp_async16(&Bs[stage][row][chunk * 16], src, ok);
     }
   };
@@ -240,27 +637,226 @@ __global__ void __launch_bounds__(256) qconv_kernel(const int8_t* __restrict__ a
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + warp_m * WM + i * 16 + g + 8 * h;
-        if (m < sh.M)
-          store_pair<STORE>(out, static_cast<int64_t>(m) * sh.Cout + co, acc[i][j][2 * h],
-                            acc[i][j][2 * h + 1], s0, s1);
+        if (m >= sh.M) continue;
+        const uint32_t v = pack_pair<STORE>(acc[i][j][2 * h], acc[i][j][2 * h + 1], s0, s1);
+        uint8_t* dst = static_cast<uint8_t*>(out) + (static_cast<int64_t>(m) * sh.Cout + co) * ES;
+        if (ES == 2)
+          *reinterpret_cast<uint32_t*>(dst) = v;
+        else
+          *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(v);
       }
     }
   }
 }
 
-template <int BN, bool VEC>
-cudaError_t launch_store(const int8_t* a, const int8_t* w, const float* scale, void* out,
-                         const Shape& sh, int store, cudaStream_t stream) {
+template <int BN>
+cudaError_t launch_gather(const int8_t* a, const int8_t* w, const float* scale, void* out,
+                          const Shape& sh, int store, cudaStream_t stream) {
   const int64_t blocks = static_cast<int64_t>((sh.M + BM - 1) / BM) * ((sh.Cout + BN - 1) / BN);
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const dim3 grid(static_cast<unsigned>(blocks));
   if (store == kBf16)
-    qconv_kernel<BN, VEC, kBf16><<<grid, THREADS, 0, stream>>>(a, w, scale, out, sh);
+    qconv_gather_kernel<BN, kBf16><<<grid, THREADS, 0, stream>>>(a, w, scale, out, sh);
   else if (store == kF8)
-    qconv_kernel<BN, VEC, kF8><<<grid, THREADS, 0, stream>>>(a, w, scale, out, sh);
+    qconv_gather_kernel<BN, kF8><<<grid, THREADS, 0, stream>>>(a, w, scale, out, sh);
   else
-    qconv_kernel<BN, VEC, kI8><<<grid, THREADS, 0, stream>>>(a, w, scale, out, sh);
+    qconv_gather_kernel<BN, kI8><<<grid, THREADS, 0, stream>>>(a, w, scale, out, sh);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- host side
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library links no
+// driver library of its own.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+bool encode(EncodeTiled fn, CUtensorMap* map, cuuint32_t rank, const void* base,
+            const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+            CUtensorMapSwizzle swizzle) {
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), dims, strides, box,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+int floor_div(int a, int b) { return a >= 0 ? a / b : -((-a + b - 1) / b); }
+
+// Ring depths for one launch, or false if two halo stages (and min_b
+// weight stages) per warpgroup do not fit.
+template <int BN, int STORE, int MT, bool WRES, int HALVES>
+bool plan_stages(Tiling& t, int min_b) {
+  // A halo stage serves every tap of its 64 channels, a weight stage one
+  // tap: deepen the weight ring first, then the halo ring.
+  t.a_stages = 2;
+  t.b_stages = WRES ? 0 : min_b;
+  if (smem_bytes<BN, STORE, MT, WRES, HALVES>(t) > W_SMEM) return false;
+  auto deepen = [&t](int& depth) {
+    while (depth < W_MAX_STAGES) {
+      ++depth;
+      if (smem_bytes<BN, STORE, MT, WRES, HALVES>(t) > W_SMEM) {
+        --depth;
+        break;
+      }
+    }
+  };
+  if (!WRES) deepen(t.b_stages);
+  deepen(t.a_stages);
+  return true;
+}
+
+// `t` comes with its rings planned by plan_stages.
+template <int BN, int STORE, int MT, bool WRES, int HALVES>
+cudaError_t launch_wgmma_kernel(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
+                                void* out, Tiling t, cudaStream_t stream) {
+  const int smem = smem_bytes<BN, STORE, MT, WRES, HALVES>(t);
+  const int64_t items = (static_cast<int64_t>(t.spatial) + MT - 1) / MT * t.col_tiles;
+  if (items > 0x7ffffffe) return cudaErrorInvalidConfiguration;
+  t.items = static_cast<int>(items);
+  auto kernel = qconv_wgmma_kernel<BN, STORE, MT, WRES, HALVES>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (t.items + 1) / 2;
+  const int grid = blocks < sm_count() ? blocks : sm_count();
+  kernel<<<grid, W_THREADS, smem, stream>>>(maps, wmap, scale, out, t);
+  return cudaGetLastError();
+}
+
+// The configuration, first that fits: MT = 256 / BN tiles per warpgroup (as
+// many as 128 accumulator registers hold) with the weights resident, the
+// epilogue in one pass, then in two (a smaller staging tile); MT tiles with
+// at least four weight stages; one tile with the weights resident; one tile
+// with the weights streamed (the four parity halos of a stride-2 tap are
+// large).  Resident weights need the conv to have one column tile.
+template <int BN, int STORE>
+cudaError_t launch_wgmma_store(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
+                               void* out, const Tiling& t, cudaStream_t stream) {
+  constexpr int MT = 256 / BN;
+  Tiling p = t;
+  const bool one_col = t.col_tiles == 1;
+  if constexpr (MT > 1) {
+    if (one_col && plan_stages<BN, STORE, MT, true, 1>(p, 0))
+      return launch_wgmma_kernel<BN, STORE, MT, true, 1>(maps, wmap, scale, out, p, stream);
+    if (one_col && plan_stages<BN, STORE, MT, true, 2>(p, 0))
+      return launch_wgmma_kernel<BN, STORE, MT, true, 2>(maps, wmap, scale, out, p, stream);
+    if (plan_stages<BN, STORE, MT, false, 1>(p, 4))
+      return launch_wgmma_kernel<BN, STORE, MT, false, 1>(maps, wmap, scale, out, p, stream);
+  }
+  if (one_col && plan_stages<BN, STORE, 1, true, 1>(p, 0))
+    return launch_wgmma_kernel<BN, STORE, 1, true, 1>(maps, wmap, scale, out, p, stream);
+  if (plan_stages<BN, STORE, 1, false, 1>(p, 2))
+    return launch_wgmma_kernel<BN, STORE, 1, false, 1>(maps, wmap, scale, out, p, stream);
+  return cudaErrorInvalidConfiguration;
+}
+
+template <int BN>
+cudaError_t launch_wgmma_bn(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
+                            void* out, const Tiling& t, int store, cudaStream_t stream) {
+  if (store == kBf16) return launch_wgmma_store<BN, kBf16>(maps, wmap, scale, out, t, stream);
+  if (store == kF8) return launch_wgmma_store<BN, kF8>(maps, wmap, scale, out, t, stream);
+  return launch_wgmma_store<BN, kI8>(maps, wmap, scale, out, t, stream);
+}
+
+// The halo along one axis: the first and last index (relative to the
+// tile's first output) that a tap reads in a parity view, and the parities
+// read.
+void halo_axis(int k, int pad, int s, int* q0, int* extent, int* parities) {
+  int lo = 0, hi = 0;
+  *parities = 0;
+  for (int i = 0; i < k; ++i) {
+    const int o = i - pad, p = ((o % s) + s) % s, qq = floor_div(o - p, s);
+    if (i == 0 || qq < lo) lo = qq;
+    if (i == 0 || qq > hi) hi = qq;
+    *parities |= 1 << p;
+  }
+  *q0 = lo;
+  *extent = W_T + hi - lo;
+}
+
+// The wgmma path: tensor maps over the activations (one per parity read)
+// and the weights, the tiling, then the launch.
+cudaError_t launch_wgmma(const int8_t* act, const int8_t* wgt, const float* scale, void* out,
+                         const Shape& sh, int store, cudaStream_t stream) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  Tiling t;
+  t.N = sh.N, t.OH = sh.OH, t.OW = sh.OW, t.Cout = sh.Cout;
+  t.KH = sh.KH, t.KW = sh.KW, t.stride = sh.stride, t.pad_top = sh.pad_top,
+  t.pad_left = sh.pad_left, t.cin_chunks = sh.Cin / W_BK;
+  halo_axis(sh.KH, sh.pad_top, sh.stride, &t.q0y, &t.BH, &t.par_y);
+  halo_axis(sh.KW, sh.pad_left, sh.stride, &t.q0x, &t.BW, &t.par_x);
+  t.n_par = __builtin_popcount(t.par_y) * __builtin_popcount(t.par_x);
+  t.plane = (t.BH * t.BW * 16 + 127) / 128 * 128;
+  t.tiles_x = ceil_div(sh.OW, W_T);
+  t.tiles_y = ceil_div(sh.OH, W_T);
+  const int BN = sh.Cout % 256 == 0 ? 256 : (sh.Cout % 128 == 0 ? 128 : 64);
+  t.col_tiles = sh.Cout / BN;
+  const int64_t spatial = static_cast<int64_t>(sh.N) * t.tiles_y * t.tiles_x;
+  if (spatial * t.col_tiles > 0x7ffffffe || t.BH > 256 || t.BW > 256)
+    return cudaErrorInvalidConfiguration;
+  t.spatial = static_cast<int>(spatial);
+  t.items = t.a_stages = t.b_stages = 0;
+
+  ActMaps maps = {};
+  const int s = sh.stride;
+  const cuuint32_t abox[4] = {16, static_cast<cuuint32_t>(t.BW), static_cast<cuuint32_t>(t.BH), 1};
+  for (int py = 0; py < s; ++py)
+    for (int px = 0; px < s; ++px) {
+      if (!((t.par_y >> py) & 1) || !((t.par_x >> px) & 1)) continue;
+      const cuuint64_t dims[4] = {static_cast<cuuint64_t>(sh.Cin),
+                                  static_cast<cuuint64_t>(ceil_div(sh.W - px, s)),
+                                  static_cast<cuuint64_t>(ceil_div(sh.H - py, s)),
+                                  static_cast<cuuint64_t>(sh.N)};
+      const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s) * sh.Cin,
+                                     static_cast<cuuint64_t>(s) * sh.W * sh.Cin,
+                                     static_cast<cuuint64_t>(sh.H) * sh.W * sh.Cin};
+      const int8_t* origin = act + (static_cast<int64_t>(py) * sh.W + px) * sh.Cin;
+      if (!encode(fn, &maps.m[py * 2 + px], 4, origin, dims, strides, abox,
+                  CU_TENSOR_MAP_SWIZZLE_NONE))
+        return cudaErrorInvalidValue;
+    }
+  CUtensorMap wmap;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(sh.K), static_cast<cuuint64_t>(sh.Cout)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(sh.K)};
+  const cuuint32_t wbox[2] = {static_cast<cuuint32_t>(W_BK), static_cast<cuuint32_t>(BN)};
+  if (!encode(fn, &wmap, 2, wgt, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+
+  if (BN == 256) return launch_wgmma_bn<256>(maps, wmap, scale, out, t, store, stream);
+  if (BN == 128) return launch_wgmma_bn<128>(maps, wmap, scale, out, t, store, stream);
+  return launch_wgmma_bn<64>(maps, wmap, scale, out, t, store, stream);
 }
 
 }  // namespace
@@ -271,8 +867,10 @@ extern "C" {
 // (the dequant scale s, or s / t for the int8 store); out (N, OH, OW, Cout)
 // in the store's dtype (0 bf16, 1 float8_e4m3fn, 2 int8).  Padding is given
 // at the top and left; the bottom and right follow from OH and OW.  Needs
-// Cin % 4 == 0, Cout % 64 == 0 and KH * KW * Cin % 16 == 0.
-// Returns the cudaError_t of the launch (0 = success).
+// Cin % 4 == 0, Cout % 64 == 0 and KH * KW * Cin % 16 == 0.  Convs with
+// Cin % 64 == 0, stride 1 or 2 (and H, W >= 2 at stride 2) take the wgmma
+// path, the rest the gather path.  Returns the cudaError_t of the launch
+// (0 = success).
 int qconv_i8(const int8_t* act, const int8_t* wgt, const float* scale, void* out, int N, int H,
              int W, int Cin, int Cout, int KH, int KW, int stride, int pad_top, int pad_left,
              int OH, int OW, int store, void* stream) {
@@ -283,14 +881,15 @@ int qconv_i8(const int8_t* act, const int8_t* wgt, const float* scale, void* out
   const Shape sh{N, H, W, Cin, Cout, KH, KW, stride, pad_top, pad_left, OH, OW,
                  static_cast<int>(M), KH * KW * Cin};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = Cin % BK == 0;
+  const bool wgmma = Cin % W_BK == 0 && KH * KW <= W_MAX_TAPS &&
+                     (stride == 1 || (stride == 2 && H >= 2 && W >= 2));
   cudaError_t err;
-  if (Cout % 128 == 0)
-    err = vec ? launch_store<128, true>(act, wgt, scale, out, sh, store, s)
-              : launch_store<128, false>(act, wgt, scale, out, sh, store, s);
+  if (wgmma)
+    err = launch_wgmma(act, wgt, scale, out, sh, store, s);
+  else if (Cout % 128 == 0)
+    err = launch_gather<128>(act, wgt, scale, out, sh, store, s);
   else
-    err = vec ? launch_store<64, true>(act, wgt, scale, out, sh, store, s)
-              : launch_store<64, false>(act, wgt, scale, out, sh, store, s);
+    err = launch_gather<64>(act, wgt, scale, out, sh, store, s);
   return static_cast<int>(err);
 }
 

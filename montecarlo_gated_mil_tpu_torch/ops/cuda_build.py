@@ -54,7 +54,7 @@ DEVICE_FUNCTIONS: dict[str, tuple[str, ...]] = {
         "bwd_gate_kernel", "bwd_dz_kernel", "bwd_dh_kernel", "bwd_dw_kernel", "bwd_reduce_kernel",
     ),
     "gather.cu": ("gather_tiles_kernel",),
-    "qconv.cu": ("qconv_kernel",),
+    "qconv.cu": ("qconv_wgmma_kernel", "qconv_gather_kernel"),
     "bn_quant.cu": (
         "bn_stats_kernel", "bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel",
     ),

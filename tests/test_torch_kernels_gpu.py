@@ -251,7 +251,8 @@ def test_device_function_names_cover_every_kernel():
 
     for source in {k.source for k in cuda_build.KERNELS.values()}:
         text = (cuda_build.CSRC / source).read_text()
-        defined = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\(\w+\)\s+)?(\w+)\(", text)
+        defined = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([\w, ]+\)\s+)?(\w+)\(",
+                             text)
         assert tuple(defined) == cuda_build.DEVICE_FUNCTIONS[source], source
 
 
@@ -307,6 +308,12 @@ QCONV_CASES = {
     "1x1_s1_2048_512": (2, 4, 5, 2048, 512, 1, 1, (0, 0, 0, 0)),
     "1x1_s2_1024_2048": (2, 7, 7, 1024, 2048, 1, 2, (0, 0, 0, 0)),
     "3x3_s1_512_n6144": (6144, 3, 3, 512, 512, 3, 1, (1, 1, 1, 1)),  # an extended bucket
+    # Layer 1's 3x3 at the extended bucket: the bf16 output passes 2^31 bytes.
+    "layer1_3x3_n6144": (6144, 56, 56, 64, 64, 3, 1, (1, 1, 1, 1)),
+    # Output 7 x 6, not a multiple of the 8 x 8 tile, at stride 2.
+    "3x3_s2_out_7x6": (5, 13, 11, 64, 128, 3, 2, (1, 1, 1, 1)),
+    # M = 5 * 9 * 7, not a multiple of the tile's 64 rows; an odd tile count.
+    "3x3_s1_m_315": (5, 9, 7, 128, 128, 3, 1, (1, 1, 1, 1)),
     "s2d_stem_4x4": (3, 20, 18, 12, 64, 4, 1, (2, 1, 2, 1)),
 }
 
@@ -341,6 +348,61 @@ def test_qconv_kernel_bit_exact(cuda, case, store):
     assert got.dtype == want.dtype == qk.STORE_DTYPES[store] and got.shape == want.shape
     assert torch.equal(got.view(torch.int8) if store == "f8" else got,
                        want.view(torch.int8) if store == "f8" else want)
+
+
+def _k6_device_launches(fn) -> dict:
+    """Launches of each of K6's device functions while ``fn`` runs, by the
+    kernel names the profiler records: ``qconv_i8`` alone picks the path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # built and warm
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {f: sum(e.count for e in events if f in e.key)
+            for f in cuda_build.DEVICE_FUNCTIONS["qconv.cu"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone, stem, convs", [
+    ("r18", "bf16", 19), ("r34", "bf16", 35), ("r50", "bf16", 52), ("r18", "s2d_i8", 20),
+])
+def test_qconv_plan_convs_run_the_wgmma_kernel(cuda, backbone, stem, convs):
+    """Every int8 conv of an r18, r34 or r50 embed at 224 px runs
+    ``qconv_wgmma_kernel``; with the s2d stem (Cin = 12) the stem alone runs
+    ``qconv_gather_kernel``."""
+    from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
+    from montecarlo_gated_mil_tpu_torch.ops import quantized
+
+    torch.manual_seed(0)
+    plan = quantized.quantize_backbone_static(make_backbone(backbone).to(cuda), backbone,
+                                              stem=stem)
+    g = torch.Generator().manual_seed(1)
+    patches = torch.clamp(torch.randn(2, 224, 224, 3, generator=g), -2.0, 2.5).to(cuda)
+
+    def embed():
+        with torch.inference_mode():
+            quantized.quantized_embed_static(plan, patches, backbone=backbone)
+
+    kernel = cuda_build.KERNELS["qconv_i8"]
+    before = kernel.launches
+    got = _k6_device_launches(embed)
+    assert kernel.launches - before == 2 * convs
+    gathers = 1 if stem == "s2d_i8" else 0
+    wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
+    assert got == {wgmma_fn: convs - gathers, gather_fn: gathers}
+
+
+@pytest.mark.gpu
+def test_qconv_extended_bucket_runs_the_wgmma_kernel(cuda):
+    """Layer 1's 3x3 at the extended bucket of 6144 instances, whose bf16
+    output passes 2^31 bytes, runs ``qconv_wgmma_kernel``."""
+    a, w, scale, stride, pad = _qconv_inputs(cuda, "layer1_3x3_n6144")
+    got = _k6_device_launches(lambda: qk.qconv(a, w, scale, stride, pad, "bf16"))
+    wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
+    assert got == {wgmma_fn: 1, gather_fn: 0}
 
 
 @pytest.mark.gpu
