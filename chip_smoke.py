@@ -10,12 +10,14 @@ Phases, each of which raises on failure:
    all at once) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes, dropout off and on, and times both with CUDA events;
-   K1 at three shapes: (a) N=3072, 2400 valid at random positions, T=50,
+   K1 at four shapes: (a) N=3072, 2400 valid at random positions, T=50,
    beside a ``torch.matmul`` of its dense gate product as a yardstick;
    (b) the same with the valid rows first, as serving lays a bag out;
-   (c) training's N=1024, 650 valid first, T=1.  Each prints the kernel
-   time, its tensor-core (3xTF32) bound, its FP32-core bound and both
-   shares, and holds the forward's logits against an f64 product;
+   (c) training's N=1024, 650 valid first, T=1; (d) the extended bucket
+   N=6144, 4800 valid first, T=50; K3 at 3072 and at 6144 starts.  Each
+   prints the kernel time, its tensor-core (3xTF32) bound, its FP32-core
+   bound and both shares, and holds the forward's logits against an f64
+   product;
 4. serves: ``MCDOPredictor.from_config(Config(), seeded weights)``,
    ``warmup()``, then requests on full-size 7036x2800 synthetic mammograms
    (float and uint16, both lateralities, a repeated seed that must reproduce
@@ -32,9 +34,10 @@ Phases, each of which raises on failure:
    r18 at N=3072 for each conv store, bit for bit against its plain version
    on 256 instances (on all 3072 at layer 1's 3x3, the shape launched
    most), timed beside ``torch._int_mm`` and a cuDNN bf16 conv as
-   yardsticks; K7/K8 (BN statistics, normalize + requantize) at the stem, a
-   layer-1 and a layer-4 shape; then ``MCDOPredictor.from_config`` with
-   ``tpu.quantized_inference`` serving phase 4's five requests beside their
+   yardsticks; K7/K8 (BN statistics, normalize + requantize) at every
+   distinct shape, mode and residual that one request launches, with the
+   per-request sums weighted by launches; then
+   ``MCDOPredictor.from_config`` with ``tpu.quantized_inference`` serving phase 4's five requests beside their
    float results (a profile of one int8 embed shows each of its 19 convs
    on K6's wgmma kernel), ``cli serve`` on a quantized YAML, and a small
    quantized request held against the CPU plain path;
@@ -60,9 +63,10 @@ times the MC head kernels (K1, K2, K4, K5) of the port found under DIR,
 another checkout such as the parent commit or ``.``, at phases 3 and 6's
 shapes and inputs with this script's timer, and prints them as one JSON
 line: run it for both trees on one card, one after the other, to compare
-them.  ``python3 chip_smoke.py --kernels-from DIR`` does the same for K6
-(the int8 conv) at every ``QCONV_SHAPES`` shape, with the per-request sum
-and SHA-256 digests of K6's outputs and of a seeded int8 embed, which two
+them.  ``python3 chip_smoke.py --kernels-from DIR`` does the same for the
+int8 embed's kernels: K6 at every ``QCONV_SHAPES`` shape, K7 and K8 at
+every ``K7_SHAPES``/``K8_SHAPES`` launch, with each kernel's per-request sum
+and SHA-256 digests of every output and of a seeded int8 embed, which two
 bit-exact trees share.
 
 Imports nothing of JAX.  TF32 is off throughout: the shipped configuration
@@ -100,6 +104,7 @@ HEAD_SHAPES = (
     ("K1 (a)", "mc_head_sep", False, 3072, 2400, "random", 50, 1),
     ("K1 (b)", "mc_head_sep", False, 3072, 2400, "first", 50, 1),
     ("K1 (c)", "mc_head_sep", False, 1024, 650, "first", 1, 1),
+    ("K1 (d)", "mc_head_sep", False, 6144, 4800, "first", 50, 1),  # the extended bucket
     ("K2", "mc_head_shared", True, 256, 256, "random", 30, 2),
 )
 BWD_SHAPES = (
@@ -481,6 +486,10 @@ def main() -> int:
     starts = torch.from_numpy(grid.tiles_array()[:, :2]).long()
     starts = starts[torch.randperm(grid.num_tiles, generator=g)[:3072]].cuda()
     rows["gather_tiles"] = check_gather(image, starts, d.patch_size)
+    # The extended bucket: starts drawn with repeats, as many as an oversized bag holds.
+    starts = torch.from_numpy(grid.tiles_array()[:, :2]).long()
+    check_gather(image, starts[torch.randint(grid.num_tiles, (6144,), generator=g)].cuda(),
+                 d.patch_size)
 
     u16 = np.random.default_rng(0).integers(0, 65536, (d.H, d.W), dtype=np.uint16)
     on_card = torch.from_numpy(u16).cuda().to(torch.float32).cpu().numpy()
@@ -1269,60 +1278,99 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -
     return out
 
 
-def check_bn_epilogues(g) -> tuple[dict, dict]:
-    """K7 and K8 at the stem, a layer-1 and a layer-4 shape at QUANT_N,
-    against their plain versions and timed.  Returns the rows of the
-    ``kernels`` line (the stem's)."""
-    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+# One r18 int8 request's BN epilogues at 224 px, each distinct launch:
+# label, (H, W, C), launches per request; K8 adds its mode and residual.
+K7_SHAPES = (
+    ("stem", (112, 112, 64), 1),
+    ("layer1", (56, 56, 64), 4),
+    ("layer2", (28, 28, 128), 5),
+    ("layer3", (14, 14, 256), 5),
+    ("layer4", (7, 7, 512), 5),
+)
+K8_SHAPES = (
+    ("stem pool", (112, 112, 64), "pool_i8", None, 1),
+    ("layer1", (56, 56, 64), "i8", None, 2),
+    ("layer1 identity", (56, 56, 64), "i8", "identity", 2),
+    ("layer2", (28, 28, 128), "i8", None, 2),
+    ("layer2 identity", (28, 28, 128), "i8", "identity", 1),
+    ("layer2 downsample", (28, 28, 128), "i8", "downsample", 1),
+    ("layer3", (14, 14, 256), "i8", None, 2),
+    ("layer3 identity", (14, 14, 256), "i8", "identity", 1),
+    ("layer3 downsample", (14, 14, 256), "i8", "downsample", 1),
+    ("layer4", (7, 7, 512), "i8", None, 2),
+    ("layer4 downsample", (7, 7, 512), "i8", "downsample", 1),
+    ("layer4 mean", (7, 7, 512), "mean", "identity", 1),
+)
 
-    n = QUANT_N
+
+def _bn_stored(shape, g) -> torch.Tensor:
+    """A seeded bf16 conv output."""
+    return (torch.randn(shape, generator=g, device="cuda") * 3.0).to(torch.bfloat16)
+
+
+def _k8_inputs(shape, res, g):
+    """Seeded inputs of one K8 launch: the stored ``t``, its affine and the
+    residual, and the bytes the launch reads."""
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
 
     def affine(c):
         return ((torch.rand(c, generator=g, device="cuda") + 0.5) * 20.0,
                 torch.randn(c, generator=g, device="cuda") * 10.0)
 
-    def stored(shape):
-        return (torch.randn(shape, generator=g, device="cuda") * 3.0).to(torch.bfloat16)
+    t = _bn_stored(shape, g)
+    A, B = affine(shape[-1])
+    residual, nbytes = None, t.numel() * 2
+    if res == "identity":
+        residual = qk.Residual(_int8(shape, g), None, affine(shape[-1])[0] / 100.0, None)
+        nbytes += t.numel()
+    elif res == "downsample":
+        residual = qk.Residual(_bn_stored(shape, g), None, *affine(shape[-1]))
+        nbytes += t.numel() * 2
+    return t, A, B, residual, nbytes
 
+
+def _k8_out_bytes(t, mode) -> int:
+    n, h, w, c = t.shape
+    if mode == "mean":
+        return n * c * 4
+    if mode == "pool_i8":
+        return n * ((h - 1) // 2 + 1) * ((w - 1) // 2 + 1) * c
+    return t.numel()
+
+
+def check_bn_epilogues(g) -> tuple[dict, dict]:
+    """K7 and K8 at every distinct shape, mode and residual of one r18 int8
+    request at QUANT_N, bf16 store: each against its plain version and
+    timed beside its byte bound, then the per-request sums weighted by
+    launches.  Returns the rows of the ``kernels`` line (the stem's)."""
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+
+    n = QUANT_N
     rows = {}
-    cases = (
-        ("stem", (n, 112, 112, 64), "pool_i8", None),
-        ("layer1", (n, 56, 56, 64), "i8", None),
-        ("layer1", (n, 56, 56, 64), "i8", "identity"),
-        ("layer4", (n, 7, 7, 512), "mean", "identity"),
-        ("layer4", (n, 7, 7, 512), "i8", "downsample"),
-    )
-    stats_done = set()
-    for label, shape, mode, res in cases:
-        t = stored(shape)
-        c = shape[-1]
-        tb = t.numel() * 2
-        if label not in stats_done:
-            stats_done.add(label)
-            s1, s2 = qk.bn_stats(t)
-            r1, r2 = qk.bn_stats_reference(t)
-            torch.cuda.synchronize()
-            err = max(float((s1 - r1).abs().max() / r1.abs().max()),
-                      float((s2 - r2).abs().max() / r2.abs().max()))
-            del r1, r2
-            ms = _time_ms(lambda: qk.bn_stats(t), iters=5, what=f"K7 {label}")
-            plain = _time_ms(lambda: qk.bn_stats_reference(t), iters=2, what="plain K7").ms
-            bound, by = _bound(tb + 2 * n * c * 4)
-            print(f"  K7 bn_stats {label} {tuple(shape)} bf16: max|d| / max|plain| {err:.2e} "
-                  f"(limit 1e-6); kernel {ms}; plain {plain:.3f} ms; bound {bound:.4f} ms "
-                  f"({by}), share {bound / ms.ms:.1%}", flush=True)
-            if err > 1e-6:
-                raise RuntimeError(f"K7 {label}: {err:.2e} from its plain version")
-            rows.setdefault("bn_stats", dict(max_abs_err=err, ms=ms.ms, plain_ms=plain,
-                                             bound_ms=bound, bound_by=by, library_ms=None))
-        A, B = affine(c)
-        residual, rb = None, 0
-        if res == "identity":
-            residual = qk.Residual(_int8(shape, g), None, affine(c)[0] / 100.0, None)
-            rb = t.numel()
-        elif res == "downsample":
-            residual = qk.Residual(stored(shape), None, *affine(c))
-            rb = tb
+    sums = {"K7": [0.0, 0.0], "K8": [0.0, 0.0]}  # launch-weighted ms and bound per request
+    for label, hwc, launches in K7_SHAPES:
+        t = _bn_stored((n, *hwc), g)
+        s1, s2 = qk.bn_stats(t)
+        r1, r2 = qk.bn_stats_reference(t)
+        torch.cuda.synchronize()
+        err = max(float((s1 - r1).abs().max() / r1.abs().max()),
+                  float((s2 - r2).abs().max() / r2.abs().max()))
+        del s1, s2, r1, r2
+        ms = _time_ms(lambda: qk.bn_stats(t), iters=5, what=f"K7 {label}")
+        plain = _time_ms(lambda: qk.bn_stats_reference(t), iters=2, what="plain K7").ms
+        bound, by = _bound(t.numel() * 2 + 2 * n * hwc[-1] * 4)
+        print(f"  K7 bn_stats {label} {tuple(t.shape)} bf16, {launches} per request: "
+              f"max|d| / max|plain| {err:.2e} (limit 1e-6); kernel {ms}; plain {plain:.3f} ms; "
+              f"bound {bound:.4f} ms ({by}), share {bound / ms.ms:.1%}", flush=True)
+        if err > 1e-6:
+            raise RuntimeError(f"K7 {label}: {err:.2e} from its plain version")
+        rows.setdefault("bn_stats", dict(max_abs_err=err, ms=ms.ms, plain_ms=plain,
+                                         bound_ms=bound, bound_by=by, library_ms=None))
+        sums["K7"][0] += launches * ms.ms
+        sums["K7"][1] += launches * bound
+        del t
+    for label, hwc, mode, res, launches in K8_SHAPES:
+        t, A, B, residual, in_bytes = _k8_inputs((n, *hwc), res, g)
 
         def kernel():
             return qk.bn_relu_quant(t, None, A, B, residual, mode=mode)
@@ -1344,18 +1392,22 @@ def check_bn_epilogues(g) -> tuple[dict, dict]:
                        f"codes above 0: {float((got > 0).float().mean()):.1%}")
             bad = err > 1 or flips > K8_FLIP_LIMIT * got.numel()
         del got, want
-        ms = _time_ms(kernel, iters=5, what=f"K8 {label} {mode}")
+        ms = _time_ms(kernel, iters=5, what=f"K8 {label}")
         plain = _time_ms(plain_fn, iters=2, what="plain K8").ms
-        out_b = n * c * 4 if mode == "mean" else (t.numel() // 4 if mode == "pool_i8" else t.numel())
-        bound, by = _bound(tb + rb + out_b)
-        print(f"  K8 bn_relu_quant {label} {tuple(shape)} mode {mode}, residual {res}: {verdict}; "
-              f"kernel {ms}; plain {plain:.3f} ms; bound {bound:.4f} ms ({by}), share "
-              f"{bound / ms.ms:.1%}", flush=True)
+        bound, by = _bound(in_bytes + _k8_out_bytes(t, mode))
+        print(f"  K8 bn_relu_quant {label} {tuple(t.shape)} mode {mode}, residual {res}, "
+              f"{launches} per request: {verdict}; kernel {ms}; plain {plain:.3f} ms; bound "
+              f"{bound:.4f} ms ({by}), share {bound / ms.ms:.1%}", flush=True)
         if bad:
-            raise RuntimeError(f"K8 {label} {mode} {res}: disagrees with its plain version")
+            raise RuntimeError(f"K8 {label}: disagrees with its plain version")
         rows.setdefault("bn_relu_quant", dict(max_abs_err=err, ms=ms.ms, plain_ms=plain,
                                               bound_ms=bound, bound_by=by, library_ms=None))
+        sums["K8"][0] += launches * ms.ms
+        sums["K8"][1] += launches * bound
         del t, residual
+    for name, (ms, bound) in sums.items():
+        print(f"  {name} per request (launch-weighted, N={n}): {ms:.4f} ms against a bound of "
+              f"{bound:.4f} ms ({bound / ms:.1%})", flush=True)
     return rows["bn_stats"], rows["bn_relu_quant"]
 
 
@@ -1617,16 +1669,17 @@ def time_heads(root: str) -> int:
 EMBED_N = 64  # instances of the bag whose int8 embed is hashed by --kernels-from
 
 
-def time_qconv(root: str) -> int:
-    """Times K6 of the port under ``root`` at every ``QCONV_SHAPES`` shape
-    at N=QUANT_N with the bf16 store, on the same seeded inputs, with this
-    script's timer, and prints one JSON line: ms per shape, the sum over a
-    request's convs weighted by their launches, a SHA-256 of each shape's
-    output on QUANT_CHECK_N instances, and a SHA-256 of the bytes of the
-    int8 embed (``quantized_embed_static``) of one seeded 64-instance bag at
-    224 px under a plan from seeded r18 weights.  It calls only what the
-    port has had since the int8 path began: ``qconv`` and the plan and
-    embed of ``ops/quantized.py``."""
+def time_int8_kernels(root: str) -> int:
+    """Times the int8 embed's kernels of the port under ``root`` on seeded
+    inputs with this script's timer, and prints one JSON line: K6 at every
+    ``QCONV_SHAPES`` shape and K7/K8 at every ``K7_SHAPES``/``K8_SHAPES``
+    launch, at N=QUANT_N with the bf16 store; ms per shape, each kernel's
+    sum over a request weighted by launches, a SHA-256 of each output (K6's
+    on QUANT_CHECK_N instances), and a SHA-256 of the bytes of the int8
+    embed (``quantized_embed_static``) of one seeded 64-instance bag at 224
+    px under a plan from seeded r18 weights.  It calls only what the port
+    has had since the int8 path began: ``qconv``, ``bn_stats``,
+    ``bn_relu_quant`` and the plan and embed of ``ops/quantized.py``."""
     import hashlib
 
     if not torch.cuda.is_available():
@@ -1641,25 +1694,45 @@ def time_qconv(root: str) -> int:
         quantized_embed_static,
     )
 
+    def sha(x: torch.Tensor) -> str:
+        return hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True  # the bf16 stem conv, for the embed's digest
     print(f"card: {_gpu_line()}; port {Path(port.__file__).parent}", flush=True)
     cuda_build.build_all()
     g = torch.Generator(device="cuda").manual_seed(21)
-    times, digests, per_request = {}, {}, 0.0
+    times, digests, per_request = {}, {}, {"K6": 0.0, "K7": 0.0, "K8": 0.0}
     for label, h, w, cin, cout, k, stride, pad, launches in QCONV_SHAPES:
         a = _int8((QUANT_N, h, w, cin), g)
         wt = _int8((cout, k, k, cin), g)
         scale = (torch.rand(cout, generator=g, device="cuda") + 0.5) * (
             2.0 / ((k * k * cin) ** 0.5 * 127**2 / 3))
-        out = qk.qconv(a[:QUANT_CHECK_N], wt, scale, stride, pad, "bf16")
-        digests[label] = hashlib.sha256(out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
-        del out
+        digests[f"K6 {label}"] = sha(qk.qconv(a[:QUANT_CHECK_N], wt, scale, stride, pad, "bf16"))
         t = _time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, "bf16"), iters=10, what=label)
-        times[label] = t.ms
-        per_request += launches * t.ms
+        times[f"K6 {label}"] = t.ms
+        per_request["K6"] += launches * t.ms
         print(f"  K6 {label}: {t}", flush=True)
         del a, wt
+        torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for label, hwc, launches in K7_SHAPES:
+        x = _bn_stored((QUANT_N, *hwc), g)
+        digests[f"K7 {label}"] = sha(torch.cat(qk.bn_stats(x)))
+        t = _time_ms(lambda: qk.bn_stats(x), iters=10, what=f"K7 {label}")
+        times[f"K7 {label}"] = t.ms
+        per_request["K7"] += launches * t.ms
+        print(f"  K7 {label}: {t}", flush=True)
+        del x
+    for label, hwc, mode, res, launches in K8_SHAPES:
+        x, A, B, residual, _ = _k8_inputs((QUANT_N, *hwc), res, g)
+        digests[f"K8 {label}"] = sha(qk.bn_relu_quant(x, None, A, B, residual, mode=mode))
+        t = _time_ms(lambda: qk.bn_relu_quant(x, None, A, B, residual, mode=mode), iters=10,
+                     what=f"K8 {label}")
+        times[f"K8 {label}"] = t.ms
+        per_request["K8"] += launches * t.ms
+        print(f"  K8 {label}: {t}", flush=True)
+        del x, residual
         torch.cuda.empty_cache()
     torch.manual_seed(0)
     backbone = make_backbone("r18").to("cuda")
@@ -1669,10 +1742,11 @@ def time_qconv(root: str) -> int:
     with torch.inference_mode():
         h = quantized_embed_static(plan, patches.to("cuda"))
     embed = hashlib.sha256(h.cpu().numpy().tobytes()).hexdigest()
-    print(f"  K6 per request (launch-weighted): {per_request:.4f} ms; int8 embed of "
-          f"{EMBED_N} instances: sha256 {embed}", flush=True)
-    print(json.dumps({"port": str(Path(port.__file__).parent), "qconv_ms": times,
-                      "per_request_ms": per_request, "qconv_sha256": digests,
+    print("  per request (launch-weighted): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in per_request.items())
+        + f"; int8 embed of {EMBED_N} instances: sha256 {embed}", flush=True)
+    print(json.dumps({"port": str(Path(port.__file__).parent), "ms": times,
+                      "per_request_ms": per_request, "sha256": digests,
                       "embed_sha256": embed}))
     return 0
 
@@ -1682,8 +1756,9 @@ if __name__ == "__main__":
     ap.add_argument("--heads-from", metavar="DIR",
                     help="only time the MC head kernels of the port under DIR")
     ap.add_argument("--kernels-from", metavar="DIR",
-                    help="only time K6 (int8 conv) of the port under DIR and hash its int8 embed")
+                    help="only time K6-K8 (the int8 embed's kernels) of the port under DIR and "
+                    "hash their outputs and its int8 embed")
     args = ap.parse_args()
     if args.heads_from:
         sys.exit(time_heads(args.heads_from))
-    sys.exit(time_qconv(args.kernels_from) if args.kernels_from else main())
+    sys.exit(time_int8_kernels(args.kernels_from) if args.kernels_from else main())

@@ -204,6 +204,56 @@ def bn_stats(t: torch.Tensor, tq: torch.Tensor | None = None):
 # --------------------------------------------------------------------- K8
 
 MODES = ("i8", "mean", "pool_i8")
+K8_THREADS = 256  # threads per block (THREADS in csrc/bn_quant.cu)
+K8_BLOCKS_PER_SM = 3  # elementwise blocks per SM
+STEM_SMEM_BYTES = 76800  # the stem's ring and barriers per block: three blocks fit an SM's 228 KB
+STEM_LOOKAHEAD = 1  # row pairs in flight while a block pools one output row
+
+
+class K8Geometry(NamedTuple):
+    """How K8's elementwise and mean modes cut the work: ``vec`` channels a
+    thread and ``blocks`` of K8_THREADS."""
+
+    vec: int
+    blocks: int
+
+
+def bn_relu_quant_geometry(n: int, hw: int, c: int, itemsize: int, mode: str,
+                           sms: int) -> K8Geometry:
+    """The grid of K8's ``i8`` and ``mean`` modes.  A thread's channels are
+    one 16-byte load of the stored ``t``: 8 bf16, or 16 one-byte values
+    where ``c % 16 == 0`` (else 8).  ``i8``: a block's threads take ``c /
+    vec`` channel groups times ``K8_THREADS // (c / vec)`` pixel rows and
+    stride over the ``n * hw`` pixels, so K8_BLOCKS_PER_SM blocks an SM
+    cover any size.  ``mean``: one thread per (instance, group)."""
+    vec = 16 if itemsize == 1 and c % 16 == 0 else 8
+    groups = c // vec
+    if mode == "mean":
+        return K8Geometry(vec, max(1, -(-n * groups // K8_THREADS)))
+    rows = K8_THREADS // groups
+    return K8Geometry(vec, max(1, min(-(-n * hw // rows), sms * K8_BLOCKS_PER_SM)))
+
+
+class StemGeometry(NamedTuple):
+    """How K8's stem mode cuts the work: a block per (instance, ``slab``
+    channels), ``lookahead`` row pairs in flight through a ring of ``3 + 2 *
+    lookahead`` input rows."""
+
+    slab: int
+    lookahead: int
+
+
+def stem_pool_geometry(w: int, c: int) -> StemGeometry:
+    """The widest slab (a multiple of 8 dividing ``c``) whose ring of input
+    rows and its 128 bytes of barriers fit STEM_SMEM_BYTES; the stem's 112 x
+    64 rows take all 64 channels.  Raises where no slab fits (rows wider
+    than 958 pixels)."""
+    rows = 3 + 2 * STEM_LOOKAHEAD
+    for slab in range(c - c % 8, 7, -8):
+        if c % slab == 0 and 128 + rows * w * slab * 2 <= STEM_SMEM_BYTES:
+            return StemGeometry(slab, STEM_LOOKAHEAD)
+    raise ValueError(f"bn_relu_quant: a stem row of {w} pixels does not fit the ring "
+                     f"({STEM_SMEM_BYTES} bytes for {rows} rows of 8 channels)")
 
 
 def bn_relu_quant_reference(t, tq, scale, shift, residual: Residual | None = None,
@@ -255,30 +305,35 @@ def _bn_relu_quant_cuda(t, tq, scale, shift, residual, mode):
                          f"{None if residual is None else (residual.x.dtype, tuple(residual.x.shape))}")
     for v in (scale, shift) + (() if tq is None else (tq,)):
         _vec(kernel.name, v, c)
-    lib = cuda_build.load(kernel.source)
-    i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    stream = cuda_build.stream_handle(t.device)
     if mode == "pool_i8":
         oh, ow = (h - 1) // 2 + 1, (w - 1) // 2 + 1
         out = torch.empty((n, oh, ow, c), dtype=torch.int8, device=t.device)
-        fn = lib.stem_pool_quant
-        fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
-        args = (t.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w, oh,
-                ow, c, stream)
+        geo = stem_pool_geometry(w, c)
     else:
         if mode == "mean":
             out = torch.empty((n, c), dtype=torch.float32, device=t.device)
         else:
             out = torch.empty((n, h, w, c), dtype=torch.int8, device=t.device)
+        sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+        geo = bn_relu_quant_geometry(n, h * w, c, t.element_size(), mode, sms)
+    if out.numel() == 0:
+        return out
+    lib = cuda_build.load(kernel.source)
+    i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    stream = cuda_build.stream_handle(t.device)
+    if mode == "pool_i8":
+        fn = lib.stem_pool_quant
+        fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+        args = (t.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w, oh,
+                ow, c, geo.slab, geo.lookahead, stream)
+    else:
         r = residual or Residual(None, None, None, None)
         fn = lib.bn_relu_quant
         fn.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, i32, i64, i32,
-                       ptr]
+                       i32, i32, ptr]
         args = (t.data_ptr(), _DTYPE_CODE[t.dtype], _ptr(tq), scale.data_ptr(), shift.data_ptr(),
                 res_kind, _ptr(r.x), _ptr(r.tq), _ptr(r.scale), _ptr(r.shift),
-                int(mode == "mean"), out.data_ptr(), n, h * w, c, stream)
-    if out.numel() == 0:
-        return out
+                int(mode == "mean"), out.data_ptr(), n, h * w, c, geo.vec, geo.blocks, stream)
     fn.restype = ctypes.c_int
     cuda_build.check(fn(*args), kernel.name)
     kernel.launches += 1

@@ -133,6 +133,7 @@ FULL_CASES = {
     "valid_first_T1": (1024, 650, "first", 1, 512),
     "padded_tiles_T50": (1031, 600, "gap", 50, 512),
     "random_T50": (3072, 2400, "random", 50, 512),
+    "random_T50_n6144": (6144, 4800, "random", 50, 512),  # the extended bucket
     "r50_L2048_T4": (600, 450, "random", 4, 2048),
 }
 
@@ -270,6 +271,24 @@ def test_gather_kernel_bit_exact(cuda):
 
 
 @pytest.mark.gpu
+def test_gather_kernel_extended_bucket(cuda):
+    """K3 with 6144 starts, an oversized bag's extended bucket, on a
+    full-size 7036 x 2800 image: starts drawn with repeats from the serving
+    grid, and two that leave the image."""
+    g = torch.Generator().manual_seed(1)
+    grid = tp.compute_tile_grid(7036, 2800, 224, 0.75)
+    img = torch.rand(7036, 2800, generator=g).to(cuda)
+    starts = torch.from_numpy(grid.tiles_array()[:, :2]).long()
+    starts = starts[torch.randint(grid.num_tiles, (6142,), generator=g)]
+    starts = torch.cat([starts, torch.tensor([[6900, 0], [0, 2700]])]).to(cuda)
+    got = tp.gather_selected(img, starts, 224)
+    want = tp.gather_tiles_reference(img, starts, 224)
+    torch.cuda.synchronize()
+    assert got.shape == (6144, 224, 224) and torch.equal(got, want)
+    assert torch.all(got[-2:] == 0)
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_wrong_inputs(cuda):
     with pytest.raises(ValueError, match="float32"):
         tp.gather_selected(torch.zeros(300, 300, dtype=torch.float64, device=cuda),
@@ -350,19 +369,21 @@ def test_qconv_kernel_bit_exact(cuda, case, store):
                        want.view(torch.int8) if store == "f8" else want)
 
 
-def _k6_device_launches(fn) -> dict:
-    """Launches of each of K6's device functions while ``fn`` runs, by the
-    kernel names the profiler records: ``qconv_i8`` alone picks the path."""
+def _device_launches(fn, source: str = "qconv.cu") -> dict:
+    """Launches of each device function of ``source`` while ``fn`` runs, by
+    the kernel names the profiler records: ``qconv_i8`` alone picks K6's
+    path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # built and warm
+    torch.cuda.synchronize()  # a launch still running as tracing starts can go unrecorded
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return {f: sum(e.count for e in events if f in e.key)
-            for f in cuda_build.DEVICE_FUNCTIONS["qconv.cu"]}
+            for f in cuda_build.DEVICE_FUNCTIONS[source]}
 
 
 @pytest.mark.gpu
@@ -388,7 +409,7 @@ def test_qconv_plan_convs_run_the_wgmma_kernel(cuda, backbone, stem, convs):
 
     kernel = cuda_build.KERNELS["qconv_i8"]
     before = kernel.launches
-    got = _k6_device_launches(embed)
+    got = _device_launches(embed)
     assert kernel.launches - before == 2 * convs
     gathers = 1 if stem == "s2d_i8" else 0
     wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
@@ -400,7 +421,7 @@ def test_qconv_extended_bucket_runs_the_wgmma_kernel(cuda):
     """Layer 1's 3x3 at the extended bucket of 6144 instances, whose bf16
     output passes 2^31 bytes, runs ``qconv_wgmma_kernel``."""
     a, w, scale, stride, pad = _qconv_inputs(cuda, "layer1_3x3_n6144")
-    got = _k6_device_launches(lambda: qk.qconv(a, w, scale, stride, pad, "bf16"))
+    got = _device_launches(lambda: qk.qconv(a, w, scale, stride, pad, "bf16"))
     wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
     assert got == {wgmma_fn: 1, gather_fn: 0}
 
@@ -533,3 +554,111 @@ def test_quant_kernels_refuse_wrong_inputs(cuda):
         qk.bn_stats(t)  # an int8 store without its tq
     with pytest.raises(ValueError, match="bn_relu_quant"):
         qk.bn_relu_quant(t, tq, *_affine(cuda, 64, 1), mode="pool_i8")
+
+
+def _chip_smoke():
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    if "chip_smoke" not in sys.modules:
+        path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = module
+        spec.loader.exec_module(module)
+    return sys.modules["chip_smoke"]
+
+
+# K8 at every launch of an r18 request (chip_smoke.K8_SHAPES), at 3
+# instances, for each store of the conv output (the stem's is bf16 only).
+K8_SHAPES = {label: rest for label, *rest in _chip_smoke().K8_SHAPES}
+K8_LAUNCH_CASES = [(label, dtype) for label, (_, mode, *_) in K8_SHAPES.items()
+                   for dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.int8)
+                   if mode != "pool_i8" or dtype == torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label, dtype", K8_LAUNCH_CASES)
+def test_bn_relu_quant_every_r18_launch_shape(cuda, label, dtype):
+    """K8's codes equal the plain version's at each r18 launch shape, mode
+    and residual, with scales of both signs; the mean mode within 1e-6 of
+    the features' size."""
+    hwc, mode, res, _ = K8_SHAPES[label]
+    shape = (3, *hwc)
+    t, tq = _stored(cuda, dtype, shape, 20)
+    scale, shift = _affine(cuda, hwc[-1], 21)
+    residual = None
+    if res == "identity":
+        x, _ = _stored(cuda, torch.int8, shape, 22)
+        residual = qk.Residual(x, None, _affine(cuda, hwc[-1], 23)[0].abs() / 10, None)
+    elif res == "downsample":
+        d, dtq = _stored(cuda, dtype, shape, 24)
+        residual = qk.Residual(d, dtq, *_affine(cuda, hwc[-1], 25))
+    before = cuda_build.KERNELS["bn_relu_quant"].launches
+    got = qk.bn_relu_quant(t, tq, scale, shift, residual, mode=mode)
+    want = qk.bn_relu_quant_reference(t, tq, scale, shift, residual, mode=mode)
+    torch.cuda.synchronize()
+    assert cuda_build.KERNELS["bn_relu_quant"].launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if mode == "mean":
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    else:
+        assert torch.equal(got, want)
+        assert 0 < int((got != 0).sum()) < got.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(17, 15), (1, 3), (112, 112)])
+def test_stem_pool_quant_negative_and_zero_scales(cuda, hw):
+    """The stem kernel pools max where A > 0 and min where A < 0; at A = 0
+    (either sign) every tap gives the same code.  Odd sizes pad the last
+    row and column."""
+    t, _ = _stored(cuda, torch.bfloat16, (2, *hw, 64), 26)
+    scale, shift = _affine(cuda, 64, 27)
+    scale[::7] = 0.0
+    scale[3::7] = -0.0
+    assert int((scale < 0).sum()) > 10 and int((scale > 0).sum()) > 10
+    got = qk.bn_relu_quant(t, None, scale, shift, mode="pool_i8")
+    want = qk.bn_relu_quant_reference(t, None, scale, shift, mode="pool_i8")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_stem_pool_quant_input_past_2_31_elements(cuda):
+    """At 2675 instances the stem's input passes 2^31 elements: the last
+    instances, past it, equal the plain version's codes (which runs on a
+    few instances, each independent of the others)."""
+    n = 2675
+    assert n * 112 * 112 * 64 > 2**31
+    g = torch.Generator(device=cuda).manual_seed(28)
+    t = torch.randn(n, 112, 112, 64, generator=g, device=cuda, dtype=torch.bfloat16) * 3
+    scale, shift = _affine(cuda, 64, 29)
+    got = qk.bn_relu_quant(t, None, scale, shift, mode="pool_i8")
+    torch.cuda.synchronize()
+    for part in (slice(0, 2), slice(n - 3, n)):
+        want = qk.bn_relu_quant_reference(t[part], None, scale, shift, mode="pool_i8")
+        assert torch.equal(got[part], want)
+
+
+@pytest.mark.gpu
+def test_int8_embed_runs_k7_and_k8_by_device_function(cuda):
+    """The profiled r18 int8 embed at 224 px launches K8's device functions
+    17 times (the stem pool once, the mean once, the elementwise mode 15
+    times) and K7's 20 times."""
+    from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
+    from montecarlo_gated_mil_tpu_torch.ops import quantized
+
+    torch.manual_seed(0)
+    plan = quantized.quantize_backbone_static(make_backbone("r18").to(cuda), "r18")
+    g = torch.Generator().manual_seed(1)
+    patches = torch.clamp(torch.randn(2, 224, 224, 3, generator=g), -2.0, 2.5).to(cuda)
+
+    def embed():
+        with torch.inference_mode():
+            quantized.quantized_embed_static(plan, patches)
+
+    got = _device_launches(embed, "bn_quant.cu")
+    assert got == {"bn_stats_kernel": 20, "bn_relu_quant_kernel": 15,
+                   "bn_relu_mean_kernel": 1, "stem_pool_quant_kernel": 1}
