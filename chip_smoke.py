@@ -48,13 +48,26 @@ Phases, each of which raises on failure:
    on, and their products against the f64 plain version, and times all
    three;
 7. trains: ``run_training`` on the shipped configuration with 8 full-size
-   synthetic mammograms and 2 epochs (train bags at bucket 1024, val/test
+   synthetic mammograms and 1 epoch (train bags at bucket 1024, val/test
    at about 3072), and checks that every train step went through K1 and K5,
    that the losses are finite, the weights moved and the saved best reloads;
 8. one full-size training bag from ``BagLoader``: the step's breakdown
    (CUDA events, ``torch.profiler``), two shared-gate steps through K2/K4,
    and a small training step on the card against the CPU plain path;
-9. prints the ``kernels`` JSON line, then the result line.
+9. the bench: each K6-K8 launch of ``bench.run_bench``'s int8 embed (256
+   patches at 224 px) against its plain version, the bf16 float embed's
+   statistics dtype and a few of its patches against the CPU, then
+   ``bench.run_bench_both()`` (int8 headline, bf16 float path, bf16 train
+   step), its JSON record printed on its own line and its launches counted
+   (K6-K8 per int8 bag, K2 per bag and train step, K4 per train step);
+10. cross-validation at the shipped configuration's widths: ``cli cv``,
+   ``cli cv-eval --ensemble`` and ``cli cv --resume`` after a crash in fold
+   2, cut to 2 folds of 10 synthetic records and 1 epoch: the manifest,
+   accuracies, K1 launched for every train, val and test bag, K5 for every
+   train step, fold 1 reused and fold 2 retrained on resume, and the
+   ensemble's peak memory on one test bag;
+11. prints the ``kernels`` JSON line, the total seconds, the card's line and
+   the result line.
 
 Every timed call prints three numbers (``Timing``): its device time, the
 back-to-back time of the timer of earlier versions of this script, and the
@@ -461,6 +474,7 @@ def main() -> int:
     from montecarlo_gated_mil_tpu_torch.ops.patching import compute_tile_grid
     from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = _gpu_line()
@@ -569,7 +583,7 @@ def main() -> int:
         print(f"  {label}: N={n}, {n_valid} valid ({layout}), T={T}", flush=True)
         rows.setdefault(name, check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed))
 
-    print("[7] training: run_training(Config(synthetic_count=8, epochs=2)), shipped widths",
+    print("[7] training: run_training(Config(synthetic_count=8, epochs=1)), shipped widths",
           flush=True)
     train_launches = check_run_training()
 
@@ -577,8 +591,16 @@ def main() -> int:
     shared_train_launches = check_train_bag_paths()
     check_small_train_step_against_cpu()
 
+    print("[9] bench: run_bench_both() at the JAX package's workload (256x224 bag, r18, T=30)",
+          flush=True)
+    bench_launches = check_bench()
+
+    print("[10] cross-validation: cli cv, cv-eval --ensemble, cv --resume at Config()'s widths",
+          flush=True)
+    cv_launches = check_cv()
+
     # Serving kernels: phase 4's direct requests, phase 4b's front-ends and
-    # phase 4q's quantized requests.
+    # phase 4q's quantized requests; then the bench's and CV's runs.
     launches = dict(
         {k: n + front_launches.get(k, 0) + quant_launches.get(k, 0)
          for k, n in serve_launches.items()},
@@ -586,6 +608,7 @@ def main() -> int:
         mc_head_bwd_sep=train_launches["mc_head_bwd_sep"],
         mc_head_bwd_shared=shared_train_launches["mc_head_bwd_shared"],
     )
+    launches = {k: n + bench_launches[k] + cv_launches[k] for k, n in launches.items()}
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in cuda_build.KERNELS.values():
@@ -594,6 +617,7 @@ def main() -> int:
             replaces=k.replaces, launches=launches[k.name], **{x: rows[k.name][x] for x in keys},
         ))
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -616,7 +640,7 @@ def check_run_training() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         cfg = replace(
             base, model_path=tmp, data=replace(base.data, synthetic_count=8),
-            training_plan=replace(tp, parameters=replace(tp.parameters, epochs=2)),
+            training_plan=replace(tp, parameters=replace(tp.parameters, epochs=1)),
         )
         sink = MemorySink()
         torch.cuda.synchronize()
@@ -657,7 +681,7 @@ def check_run_training() -> dict:
           f"finite {finite}", flush=True)
     if not (launches["mc_head_bwd_sep"] >= len(steps) and launches["mc_head_sep"] >= len(steps)):
         raise RuntimeError(f"training steps did not all go through K1 and K5: {launches}")
-    if not (finite and all(moved.values()) and reloads and len(train_loss) == 2):
+    if not (finite and all(moved.values()) and reloads and len(train_loss) == 1):
         raise RuntimeError("run_training: a loss is not finite, the params did not move, "
                            "or the saved best did not reload")
     return launches
@@ -1627,6 +1651,344 @@ def check_small_quantized_request_against_cpu() -> None:
           flush=True)
     if a.num_instances != b.num_instances or a.prediction != b.prediction or err > 5e-3:
         raise RuntimeError("the card's int8 request disagrees with the CPU plain path")
+
+
+BENCH_CHECK_BN = 1e-6  # K7's sums and K8's mean against the plain version, relative to max|plain|
+
+
+def check_bench_kernels() -> None:
+    """Each K6-K8 launch of the bench's int8 embed (``bench.run_bench``'s
+    bag: 256 patches at 224 px, bf16, all valid) against its plain version
+    on the same inputs: K6 bit for bit, K7 and K8's mean within
+    BENCH_CHECK_BN of max|plain|, K8's codes with at most K8_FLIP_LIMIT of
+    them one off.  Then the bench's bf16 float embed: masked BN keeps its
+    statistics in f32, and 8 of its patches embed on the card as on the
+    CPU (per-instance cosine >= 0.999)."""
+    from montecarlo_gated_mil_tpu_torch import bench
+    from montecarlo_gated_mil_tpu_torch.models import resnet
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+    from montecarlo_gated_mil_tpu_torch.ops import quantized
+
+    model = bench._seeded(lambda: MultiHeadGatedAttentionMIL(dtype=torch.bfloat16)).cuda()
+    plan = quantized.quantize_backbone_static(model.feature_extractor, "r18")
+    patches, mask = bench._workload(256, 224, torch.bfloat16, torch.device("cuda"))
+    worst = {"qconv_i8": [0, 0.0], "bn_stats": [0, 0.0], "bn_relu_quant": [0, 0.0]}
+    flips = [0, 0]  # K8 codes one off, codes compared
+    orig = quantized.qconv, quantized.bn_stats, quantized.bn_relu_quant
+
+    def seen(name, err):
+        worst[name][0] += 1
+        worst[name][1] = max(worst[name][1], err)
+
+    def qconv(a, w, scale, stride, pad, store):
+        got = orig[0](a, w, scale, stride, pad, store)
+        want = qk.qconv_reference(a, w, scale, stride, pad, store)
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise RuntimeError(f"K6 at N=256, a {tuple(a.shape)}, w {tuple(w.shape)}: differs "
+                               "from its plain version")
+        seen("qconv_i8", 0.0)
+        return got
+
+    def bn_stats(t, tq=None):
+        got = orig[1](t, tq)
+        want = qk.bn_stats_reference(t, tq)
+        seen("bn_stats", max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)))
+        return got
+
+    def bn_relu_quant(t, tq, scale, shift, residual=None, mode="i8"):
+        got = orig[2](t, tq, scale, shift, residual, mode)
+        want = qk.bn_relu_quant_reference(t, tq, scale, shift, residual, mode)
+        if mode == "mean":
+            seen("bn_relu_quant", float((got - want).abs().max() / want.abs().max()))
+        else:
+            d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+            if float(d.max()) > 1:
+                raise RuntimeError(f"K8 at N=256, {tuple(t.shape)} {mode}: a code is off by more "
+                                   "than one")
+            flips[0] += int((d > 0).sum())
+            flips[1] += d.numel()
+            seen("bn_relu_quant", 0.0)
+        return got
+
+    quantized.qconv, quantized.bn_stats, quantized.bn_relu_quant = qconv, bn_stats, bn_relu_quant
+    try:
+        with torch.inference_mode():
+            quantized.quantized_embed_static(plan, patches, mask)
+        torch.cuda.synchronize()
+    finally:
+        quantized.qconv, quantized.bn_stats, quantized.bn_relu_quant = orig
+    print(f"  int8 embed of the bench bag (N=256), every launch against its plain version: K6 "
+          f"{worst['qconv_i8'][0]} launches bit-exact; K7 {worst['bn_stats'][0]} launches, max|d| "
+          f"/ max|plain| {worst['bn_stats'][1]:.2e} (limit {BENCH_CHECK_BN:g}); K8 "
+          f"{worst['bn_relu_quant'][0]} launches, codes one off {flips[0]} of {flips[1]} (limit "
+          f"{K8_FLIP_LIMIT:g} of them), the mean's max|d| / max|plain| "
+          f"{worst['bn_relu_quant'][1]:.2e} (limit {BENCH_CHECK_BN:g})", flush=True)
+    if [worst[k][0] for k in worst] != [19, 20, 17] or max(
+            worst["bn_stats"][1], worst["bn_relu_quant"][1]) > BENCH_CHECK_BN or (
+            flips[0] > K8_FLIP_LIMIT * flips[1]):
+        raise RuntimeError(f"the bench's int8 embed: launches {worst}, flips {flips}")
+
+    dtypes = []
+    stats_dtype = resnet._stats_dtype
+
+    def recording(dtype):
+        dtypes.append(stats_dtype(dtype))
+        return dtypes[-1]
+
+    resnet._stats_dtype = recording
+    try:
+        with torch.inference_mode():
+            model.embed(patches, mask)
+    finally:
+        resnet._stats_dtype = stats_dtype
+    cpu = bench._seeded(lambda: MultiHeadGatedAttentionMIL(dtype=torch.bfloat16))
+    with torch.inference_mode():
+        hk = model.embed(patches[:8], mask[:8]).cpu()
+        hc = cpu.embed(patches[:8].cpu(), mask[:8].cpu())
+    cos = float(torch.nn.functional.cosine_similarity(hk, hc, dim=-1).min())
+    print(f"  bf16 float embed: masked BN statistics in {sorted({str(d) for d in dtypes})} over "
+          f"{len(dtypes)} BNs; 8 patches on the card against the CPU: per-instance cosine min "
+          f"{cos:.6f} (limit 0.999)", flush=True)
+    if set(dtypes) != {torch.float32} or cos < 0.999:
+        raise RuntimeError("the bf16 embed: statistics not in f32, or the card disagrees with "
+                           "the CPU")
+
+
+def check_bench() -> dict:
+    """``bench.run_bench_both()`` at the JAX package's workload (int8 headline,
+    the bf16 float path, the bf16 train step), its K6-K8 launches held against
+    their plain versions first.  Prints the record on its own line; returns
+    the launch counts of ``run_bench_both``."""
+    from montecarlo_gated_mil_tpu_torch import bench
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    check_bench_kernels()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = bench.run_bench_both()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    print("  run_bench_both() record:", flush=True)
+    print(json.dumps(rec), flush=True)
+    for quantized in (True, False):
+        profile_bench_bag(quantized)
+    bags = 1 + bench.TRIALS * 20  # the warm-up bag, then TRIALS runs of repeats=20
+    steps = 1 + bench.TRIALS * bench.TRAIN_STEPS
+    want = dict(qconv_i8=19 * bags, bn_stats=20 * bags, bn_relu_quant=17 * bags,
+                mc_head_shared=2 * bags + steps, mc_head_bwd_shared=steps, mc_head_sep=0,
+                mc_head_bwd_sep=0, gather_tiles=0)
+    print(f"  run_bench_both: {wall:.1f} s; {rec['value']} bags/s int8, "
+          f"{rec['value_exact_bf16']} bags/s bf16, train step {rec['train_step_ms']} ms; launches "
+          f"{launches} (need {want}: {bags} bags in each of the int8 and bf16 runs, {steps} train "
+          f"steps); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    numbers = [rec["value"], rec["value_exact_bf16"], rec["train_step_ms"], rec["vs_baseline"]]
+    if not all(isinstance(v, float) and np.isfinite(v) and v > 0 for v in numbers):
+        raise RuntimeError(f"bench: a number is not finite and positive: {rec}")
+    if launches != want or rec["device"] != _gpu_line() or "int8" not in rec["metric"]:
+        raise RuntimeError(f"bench: launches {launches} (need {want}) or device line wrong")
+    return launches
+
+
+def profile_bench_bag(quantized: bool, bags: int = 5) -> None:
+    """Where a bench bag's time goes: CUDA events around ``bags`` bags queued
+    back to back as ``run_bench`` queues them, beside the device time of
+    their kernels by ``torch.profiler``; the difference is time the device
+    waits for the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from montecarlo_gated_mil_tpu_torch import bench
+    from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn, mc_head
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
+
+    model = bench._seeded(lambda: MultiHeadGatedAttentionMIL(dtype=torch.bfloat16)).cuda()
+    params = GatedAttentionParams.from_module(model)
+    patches, mask = bench._workload(256, 224, torch.bfloat16, torch.device("cuda"))
+    embed = make_embed_fn(model, quantized)
+
+    def run():
+        carry = torch.zeros((), device="cuda")
+        for i in range(bags):
+            H = embed(patches + carry * 1e-6, mask)
+            carry = mc_head(model, H, mask, 30, i, params).predictions.sum()
+
+    with torch.inference_mode():
+        run()
+        wall = _time_ms(run, iters=1, warm=0, what="bench bags").b2b_ms / bags
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def dev_ms(e):
+        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3 / bags
+
+    total = sum(dev_ms(e) for e in kernels)
+    launches = sum(e.count for e in kernels) / bags
+    top = sorted(kernels, key=dev_ms, reverse=True)[:6]
+    print(f"  bench bag, {'int8' if quantized else 'bf16 float'} embed: {wall:.3f} ms a bag back "
+          f"to back (CUDA events); device kernels {total:.3f} ms in {launches:.0f} launches a bag "
+          f"(torch.profiler); device idle {max(0.0, 1 - total / wall):.1%} of the bag; largest:",
+          flush=True)
+    for e in top:
+        print(f"    {dev_ms(e):8.3f} ms a bag  x{e.count // bags:<4d} {e.key[:90]}", flush=True)
+
+
+class _Capture:
+    """stdout kept in a buffer while a CLI run prints its metrics lines."""
+
+    def __init__(self):
+        import io
+
+        self.buf = io.StringIO()
+
+    def __enter__(self):
+        import contextlib
+
+        self._redirect = contextlib.redirect_stdout(self.buf)
+        self._redirect.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._redirect.__exit__(*exc)
+        if exc[0] is not None:  # show what the run printed before it failed
+            print(self.buf.getvalue()[-6000:], flush=True)
+        return False
+
+    def lines(self, *starts: str) -> list[str]:
+        return [ln for ln in self.buf.getvalue().splitlines() if ln.startswith(starts)]
+
+
+def check_cv() -> dict:
+    """``cli cv`` then ``cli cv-eval --ensemble`` at the shipped ``Config()``
+    (r18, 7036x2800, patch 224), depth cut to 2 folds of 10 synthetic
+    records, 1 epoch; then ``cli cv --resume`` after a crash in fold 2.
+    Checks the manifest, accuracies and launch counts, and the ensemble's
+    peak memory on one test bag.  Returns the launch counts of the three
+    CLI runs."""
+    import os
+    import shutil
+
+    import yaml
+
+    from montecarlo_gated_mil_tpu_torch import cli
+    from montecarlo_gated_mil_tpu_torch.core.config import Config, config_to_dict
+    from montecarlo_gated_mil_tpu_torch.experiment import build_model, get_fold_dataloaders
+    from montecarlo_gated_mil_tpu_torch.mcdo.ensemble import (
+        ensemble_mc_inference,
+        load_fold_ensemble,
+    )
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    base = Config()
+    tp = base.training_plan
+    totals: dict = {}
+
+    def count(into: dict) -> dict:
+        got = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+        for k, v in got.items():
+            into[k] = into.get(k, 0) + v
+        return got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = replace(
+            base, model_path=os.path.join(tmp, "models"),
+            data=replace(base.data, cv_folds=2, synthetic_count=10),
+            training_plan=replace(tp, parameters=replace(tp.parameters, epochs=1)),
+        )
+        yml = os.path.join(tmp, "config.yml")
+        Path(yml).write_text(yaml.safe_dump(config_to_dict(cfg)))
+        print(f"  Config() cut in depth only: data.cv_folds {base.data.cv_folds} -> 2, "
+              f"data.synthetic_count {base.data.synthetic_count} -> 10, epochs "
+              f"{tp.parameters.epochs} -> 1, model_path a temporary directory; r18, "
+              f"{cfg.data.H}x{cfg.data.W}, patch {cfg.data.patch_size}, T={cfg.N}, weighted "
+              f"sampler {tp.weighted_sampler}", flush=True)
+        split = [get_fold_dataloaders(cfg, f, device="cuda") for f in range(2)]
+        n = [(len(b.train), len(b.val), len(b.test)) for b in split]
+        n_test = n[0][2]
+        del split
+        print(f"  bags per fold (train, val, test): {n}", flush=True)
+
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _Capture() as out:
+            rc = cli.main(["cv", "--config", yml])
+        cv_s = time.perf_counter() - t0
+        cv = count(totals)
+        manifest = json.loads(Path(cfg.model_path, "cv_manifest.json").read_text())
+        for ln in out.lines("Fold ", "CV accuracy"):
+            print(f"  | {ln}", flush=True)
+        folds = manifest["folds"]
+        ok = (rc == 0 and [f["fold"] for f in folds] == [1, 2]
+              and all(os.path.exists(f["checkpoint"]) and 0 <= f["accuracy"] <= 1 for f in folds))
+        k1_cv = sum(tr + va + te for tr, va, te in n)  # a train step, a val and a test bag each
+        print(f"  cli cv: exit {rc}, {cv_s:.1f} s; accuracies {[f['accuracy'] for f in folds]}; "
+              f"launches K1 {cv['mc_head_sep']} (need {k1_cv}: every train, val and test bag), "
+              f"K5 {cv['mc_head_bwd_sep']} (need {sum(x[0] for x in n)}), K3 "
+              f"{cv['gather_tiles']}", flush=True)
+        if not ok or cv["mc_head_sep"] != k1_cv or cv["mc_head_bwd_sep"] != sum(
+                x[0] for x in n) or cv["gather_tiles"] < k1_cv:
+            raise RuntimeError(f"cli cv: bad manifest or launches {cv}")
+
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _Capture() as out:
+            rc = cli.main(["cv-eval", "--config", yml, "--ensemble"])
+        eval_s = time.perf_counter() - t0
+        ev = count(totals)
+        for ln in out.lines("fold ", "MC-ACC", "ENS-ACC"):
+            print(f"  | {ln}", flush=True)
+        k1_eval = 2 * 2 * n_test + 2 * n_test  # MC and deterministic test per fold, 2 members
+        print(f"  cli cv-eval --ensemble: exit {rc}, {eval_s:.1f} s; launches K1 "
+              f"{ev['mc_head_sep']} (need {k1_eval}: each test bag's MC and deterministic test "
+              f"per fold, and each ensemble member), K3 {ev['gather_tiles']}", flush=True)
+        if rc != 0 or not out.lines("ENS-ACC") or ev["mc_head_sep"] != k1_eval:
+            raise RuntimeError(f"cli cv-eval --ensemble: exit {rc} or launches {ev}")
+
+        members = load_fold_ensemble(cfg, manifest)
+        model = build_model(cfg).cuda()
+        bag, _ = next(iter(get_fold_dataloaders(cfg, 0, device="cuda").test.epoch(0)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        outs = ensemble_mc_inference(model, members, bag.patches, bag.mask, cfg.N, 1)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+        print(f"  ensemble of {len(members)} members on one test bag (bucket "
+              f"{bag.mask.shape[0]}, {int(bag.mask.sum())} valid): peak {peak:.3f} GiB above "
+              f"its start; samples {tuple(outs.predictions.shape)}", flush=True)
+        if not bool(torch.isfinite(outs.predictions).all()):
+            raise RuntimeError("ensemble: logits not finite")
+        del model, members, bag, outs
+
+        # A crash in fold 2: fold 1 in the progress file, fold 2's epochs gone.
+        Path(cfg.model_path, "cv_manifest.json").unlink()
+        shutil.rmtree(os.path.join(cfg.model_path, "fold_2"))
+        Path(cfg.model_path, "cv_progress.json").write_text(json.dumps([folds[0]]))
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _Capture() as out:
+            rc = cli.main(["cv", "--config", yml, "--resume"])
+        resume_s = time.perf_counter() - t0
+        rs = count(totals)
+        resumed = json.loads(Path(cfg.model_path, "cv_manifest.json").read_text())["folds"]
+        print(f"  cli cv --resume after a crash in fold 2: exit {rc}, {resume_s:.1f} s; fold 1 "
+              f"reused {resumed[0] == folds[0]}, fold 2 retrained to a new checkpoint "
+              f"{resumed[1]['checkpoint'] != folds[1]['checkpoint']} (accuracy "
+              f"{resumed[1]['accuracy']}, before {folds[1]['accuracy']}); launches K5 "
+              f"{rs['mc_head_bwd_sep']} (need {n[1][0]}: fold 2's train steps alone)", flush=True)
+        if (rc != 0 or resumed[0] != folds[0] or resumed[1]["fold"] != 2
+                or resumed[1]["checkpoint"] == folds[1]["checkpoint"]
+                or not os.path.exists(resumed[1]["checkpoint"])
+                or rs["mc_head_bwd_sep"] != n[1][0] or not out.lines("Resuming CV: folds [1]")):
+            raise RuntimeError(f"cli cv --resume: fold 1 not reused or fold 2 not retrained: {rs}")
+    print(f"  phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
 
 
 def time_heads(root: str) -> int:

@@ -4,15 +4,20 @@ Counterpart of ``montecarlo_gated_mil_tpu/cli.py``, with the same
 subcommands and flags:
 
     python -m montecarlo_gated_mil_tpu_torch.cli train --config config.yml
+    python -m montecarlo_gated_mil_tpu_torch.cli cv --config config.yml [--resume]
+    python -m montecarlo_gated_mil_tpu_torch.cli cv-eval --config config.yml \
+        [--manifest M] [--ensemble]
+    python -m montecarlo_gated_mil_tpu_torch.cli bench --config config.yml [--samples T]
     python -m montecarlo_gated_mil_tpu_torch.cli serve --config config.yml \
         [--checkpoint NAME] [--input requests.jsonl | --port 8000 --data-root DIR]
 
-``train`` runs ``runners.run_training`` and ``serve`` the JSONL or HTTP
-front-end of ``server.py``, on the CUDA card.  What is not ported yet
-(``cv``, ``cv-eval``, ``infer``, ``bench``, ``--aot-cache``,
-``--tensorboard``, a multi-process ``tpu.coordinator_address``) exits
-non-zero with a message naming its ROADMAP.md item, never doing something
-else instead.
+``train`` runs ``runners.run_training``, ``cv`` ``run_cross_validation``,
+``cv-eval`` ``run_cv_eval``, ``bench`` ``bench.run_bench`` (one JSON line)
+and ``serve`` the JSONL or HTTP front-end of ``server.py``, on the CUDA card.
+What is not ported yet (``infer``, ``--aot-cache``, ``--tensorboard``, the
+Neptune sink, a multi-process ``tpu.coordinator_address``) exits non-zero
+with a message naming its ROADMAP.md item, never doing something else
+instead.
 """
 
 from __future__ import annotations
@@ -111,10 +116,7 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 # What the port does not do yet, and where ROADMAP.md lists it.
 _UNPORTED_COMMANDS = {
-    "cv": "cross-validation (ROADMAP.md, 'What is left' item 6)",
-    "cv-eval": "cross-validation re-evaluation (ROADMAP.md, 'What is left' item 6)",
-    "infer": "figure inference, viz/infer.py (ROADMAP.md, 'What is left' item 6)",
-    "bench": "the port's bench.py (ROADMAP.md, 'What is left' item 7)",
+    "infer": "figure inference, viz/infer.py (ROADMAP.md queue 1, item 4)",
 }
 
 
@@ -130,17 +132,17 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
     if args.command in _UNPORTED_COMMANDS:
         raise _unported(_UNPORTED_COMMANDS[args.command])
     if args.tensorboard:
-        raise _unported("--tensorboard, the TensorBoard sink (ROADMAP.md, 'What is left' item 7)")
+        raise _unported("--tensorboard, the TensorBoard sink (ROADMAP.md queue 1, item 3)")
     if args.command == "serve" and args.aot_cache:
         raise _unported("--aot-cache, the JAX package's executable cache (ROADMAP.md queue 1, "
-                        "item 9: CUDA needs no compile cache)")
+                        "'Never to be ported': CUDA needs no compile cache)")
     from montecarlo_gated_mil_tpu_torch.core.config import load_config
     from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics, StdoutSink
 
     cfg = load_config(args.config)
     if cfg.tpu.coordinator_address:
-        raise _unported("multi-process runs, tpu.coordinator_address (ROADMAP.md, 'What is "
-                        "left' item 5: parallel/distributed.py)")
+        raise _unported("multi-process runs, tpu.coordinator_address (ROADMAP.md queue 1, "
+                        "item 5: parallel/distributed.py)")
     metrics = Metrics([StdoutSink()])
     if cfg.neptune:
         try:
@@ -148,12 +150,26 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
         except ImportError:
             print("neptune not installed; continuing with stdout metrics")
         else:
-            raise _unported("the Neptune sink (ROADMAP.md, 'What is left' item 7)")
+            raise _unported("the Neptune sink (ROADMAP.md queue 1, item 3)")
 
     if args.command == "train":
         from montecarlo_gated_mil_tpu_torch.runners import run_training
 
         run_training(cfg, metrics, resume=args.resume, device=device)
+    elif args.command == "cv":
+        from montecarlo_gated_mil_tpu_torch.runners import run_cross_validation
+
+        run_cross_validation(cfg, metrics, resume=args.resume, device=device)
+    elif args.command == "cv-eval":
+        from montecarlo_gated_mil_tpu_torch.runners import run_cv_eval
+
+        run_cv_eval(cfg, args.manifest, metrics, ensemble=args.ensemble, device=device)
+    elif args.command == "bench":
+        import json
+
+        from montecarlo_gated_mil_tpu_torch.bench import run_bench
+
+        print(json.dumps(run_bench(cfg, num_samples=args.samples, device=device)))
     elif args.command == "serve":
         from montecarlo_gated_mil_tpu_torch.server import build_predictor, run_server, serve_jsonl
 

@@ -6,7 +6,9 @@ both packages.  The ``tpu:`` section keeps its name for that reason.  The
 port's predictor reads ``buckets``, ``compute_dtype``, ``oversized_bags``
 and ``quantized_inference`` (the int8 embed of ``ops/quantized.py``);
 training reads ``buckets``, ``adaptive_buckets``,
-``compute_dtype``, ``oversized_bags`` and ``checkpoint_every``.  The other
+``compute_dtype``, ``oversized_bags``, ``checkpoint_every`` and
+``debug_nans`` / ``debug_infs`` (a NaN / Inf check of every step's loss and
+gradients, ``train/state.py::make_train_step``).  The other
 knobs are parsed and validated only.  ``use_pallas_train`` in particular has
 no effect in the port: on the card a training step's head always runs the
 forward kernel and its backward kernel (K1/K5, or K2/K4 for a shared gate),

@@ -1,4 +1,4 @@
-"""Classification report, in numpy.
+"""Classification report and its fold aggregates, in numpy.
 
 Counterpart of ``montecarlo_gated_mil_tpu/evaluation/report.py``, which
 calls scikit-learn's ``classification_report`` (target names
@@ -99,3 +99,29 @@ def classification_report(
         else:
             text += row_fmt.format(name, *avg, total, width=width, digits=digits)
     return Report(text, data)
+
+
+def aggregate_fold_accuracies(accs: Sequence[float]) -> dict:
+    """Mean and std (ddof=0) across folds in float64, and the per-fold list
+    (reference ``cross_val_eval.py:145-153``)."""
+    a = np.asarray(list(accs), dtype=np.float64)
+    return {
+        "mean": float(a.mean()) if a.size else float("nan"),
+        "std": float(a.std()) if a.size else float("nan"),
+        "per_fold": [float(x) for x in a],
+    }
+
+
+def aggregate_classification_reports(reports: Sequence[dict]) -> dict:
+    """Per-class precision/recall/F1 (and every other entry of a report's
+    dict form) averaged across folds (reference ``cross_val_eval.py:37-56``)."""
+    if not reports:
+        return {}
+    out: dict = {}
+    for k in reports[0].keys():
+        vals = [r[k] for r in reports if k in r]
+        if isinstance(vals[0], dict):
+            out[k] = {m: float(np.mean([v[m] for v in vals])) for m in vals[0].keys()}
+        else:
+            out[k] = float(np.mean(vals))
+    return out

@@ -1,9 +1,10 @@
 """Experiment assembly: Config -> model, criterion, optimizer, loaders.
 
 Counterpart of ``montecarlo_gated_mil_tpu/experiment.py`` (reference
-``main.py:56-81``, ``utils.py:36-243``) for the single-split path.  Records
-come from the synthetic generator (``data.synthetic_count > 0``); DICOM
-records and the cross-validation loaders are not ported yet (ROADMAP.md).
+``main.py:56-81``, ``utils.py:36-243``): the loaders of a single random
+split or of one cross-validation fold.  Records come from the synthetic
+generator (``data.synthetic_count > 0``); DICOM records are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ from montecarlo_gated_mil_tpu_torch.core.bag import BucketSpec
 from montecarlo_gated_mil_tpu_torch.core.config import Config
 from montecarlo_gated_mil_tpu_torch.data.pipeline import BagLoader, PipelineConfig, torch_dtype
 from montecarlo_gated_mil_tpu_torch.data.records import BagRecord, class_weights
-from montecarlo_gated_mil_tpu_torch.data.splits import random_split
+from montecarlo_gated_mil_tpu_torch.data.splits import (
+    kfold_split,
+    random_split,
+    stratified_test_split,
+)
 from montecarlo_gated_mil_tpu_torch.data.synthetic import make_synthetic_reader, synthetic_records
 from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
 from montecarlo_gated_mil_tpu_torch.ops.patching import compute_tile_grid
@@ -107,19 +112,22 @@ def load_records(cfg: Config) -> tuple[list[BagRecord], Callable]:
     if not d.synthetic_count:
         raise NotImplementedError(
             "the port reads synthetic records only (data.synthetic_count > 0); "
-            "DICOM records are not ported yet (ROADMAP.md queue 1, item 13)"
+            "DICOM records are not ported yet (ROADMAP.md queue 1, item 2)"
         )
     return synthetic_records(d.synthetic_count, seed=cfg.seed), make_synthetic_reader(d.H, d.W)
 
 
-def get_dataloaders(cfg: Config, *, device: str | torch.device = "cuda") -> DataBundle:
-    """Single random split (reference ``utils.get_dataloaders``), the bags
-    built on ``device``."""
-    recs, reader = load_records(cfg)
-    s = random_split(len(recs), cfg.data.fraction_train_rest, cfg.data.fraction_val_test, cfg.seed)
+def _bundle(cfg: Config, recs: list[BagRecord], reader, train_idx, val_idx, test_idx, *,
+            weighted: bool, device) -> DataBundle:
+    """Train, val and test loaders over the given record indices, the bags
+    built on ``device``.  With ``weighted`` the train loader draws each
+    epoch's order with replacement by the inverse-frequency sample weights
+    (reference ``WeightedRandomSampler``, ``utils.py:217``)."""
     train_cfg, eval_cfg = _pipeline_cfgs(cfg)
-    train_recs, val_recs, test_recs = ([recs[i] for i in idx] for idx in (s.train, s.val, s.test))
+    train_recs, val_recs, test_recs = ([recs[i] for i in idx] for idx in (train_idx, val_idx,
+                                                                          test_idx))
     print_class_counts(train_recs, val_recs, test_recs)
+    sample_w = class_weights(train_recs)[1] if weighted and train_recs else None
     spec = BucketSpec(cfg.tpu.buckets) if cfg.tpu.adaptive_buckets else None
     mm = cfg.data.multimodal and not cfg.data.synthetic_count
 
@@ -128,8 +136,30 @@ def get_dataloaders(cfg: Config, *, device: str | torch.device = "cuda") -> Data
                          oversized=cfg.tpu.oversized_bags, device=device, **kw)
 
     return DataBundle(
-        train=loader(train_recs, train_cfg, shuffle=True),
+        train=loader(train_recs, train_cfg, shuffle=True, sample_weights=sample_w),
         val=loader(val_recs, eval_cfg),
         test=loader(test_recs, eval_cfg),
         records=recs,
     )
+
+
+def get_dataloaders(cfg: Config, *, device: str | torch.device = "cuda") -> DataBundle:
+    """Single random split (reference ``utils.get_dataloaders``), the bags
+    built on ``device``."""
+    recs, reader = load_records(cfg)
+    s = random_split(len(recs), cfg.data.fraction_train_rest, cfg.data.fraction_val_test, cfg.seed)
+    return _bundle(cfg, recs, reader, s.train, s.val, s.test, weighted=False, device=device)
+
+
+def get_fold_dataloaders(cfg: Config, fold: int, *,
+                         device: str | torch.device = "cuda") -> DataBundle:
+    """Fold ``fold`` (0-based) of cross-validation (reference
+    ``utils.get_fold_dataloaders``): a stratified test split held out first,
+    the same for every fold, then k-fold train/val over the rest; the train
+    loader samples by class weight when ``training_plan.weighted_sampler``."""
+    recs, reader = load_records(cfg)
+    train_val, test_idx = stratified_test_split([r.label for r in recs], cfg.data.fraction_test,
+                                                cfg.seed)
+    tr, va = kfold_split(len(train_val), cfg.data.cv_folds, fold, cfg.seed)
+    return _bundle(cfg, recs, reader, train_val[tr], train_val[va], test_idx,
+                   weighted=cfg.training_plan.weighted_sampler, device=device)

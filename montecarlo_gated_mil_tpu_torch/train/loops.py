@@ -16,7 +16,13 @@ Counterpart of ``montecarlo_gated_mil_tpu/train/loops.py`` (reference
 - ``test`` (``net_utils.py:160-192``): accuracy and the classification
   report;
 - ``mc_test`` (``net_utils.py:195-230``): T MC samples per bag, prediction =
-  argmax of the mean **softmax** over T, optionally through the int8 embed.
+  argmax of the mean **softmax** over T, optionally through the int8 embed;
+- ``ensemble_mc_test``: the ``mc_test`` reduction over the M*T samples of a
+  fold ensemble (``mcdo/ensemble.py``).
+
+With ``fold=k`` the epoch metrics carry the reference's fold prefix
+(``k/train/epoch_loss``) and the test metrics its suffix
+(``test/accuracy_fold{k}``).
 
 A loader is anything with ``epoch(e)`` yielding ``(Bag, record)``, or a
 plain iterable of such pairs.
@@ -85,10 +91,11 @@ def train_epoch(
     accumulation_steps: int,
     key: int,
     metrics: Metrics | None = None,
+    fold: int | None = None,
 ) -> TrainState:
     """One epoch of gradient-accumulated training.  Bag ``i`` of epoch ``e``
     draws its dropout from ``fold_in(fold_in(key, e), i)`` (``core/rng.py``)."""
-    m = metrics or Metrics([])
+    m = (metrics or Metrics([])).scoped(fold)
     running_loss = running_aux = correct = total = 0.0
     for batch_idx, ((bag, _rec), is_last) in enumerate(_with_last_flag(_items(loader, epoch))):
         seed = rng.fold_in(rng.fold_in(key, epoch), batch_idx)
@@ -119,6 +126,7 @@ def validate(
     *,
     epoch: int,
     metrics: Metrics | None = None,
+    fold: int | None = None,
 ) -> float:
     running_loss = correct = total = 0.0
     with torch.no_grad():
@@ -128,7 +136,7 @@ def validate(
             correct += float(torch.argmax(y) == bag.label)
             total += 1
     epoch_loss = running_loss / max(total, 1)
-    m = metrics or Metrics([])
+    m = (metrics or Metrics([])).scoped(fold)
     m.log("val/epoch_loss", epoch_loss, step=epoch)
     m.log("val/epoch_acc", correct / max(total, 1), step=epoch)
     print(f"Epoch {epoch} - Val Loss: {epoch_loss:.4f}, Accuracy: {correct / max(total, 1):.4f}")
@@ -155,6 +163,7 @@ def mc_validate(
     num_samples: int = 50,
     key: int,
     metrics: Metrics | None = None,
+    fold: int | None = None,
 ) -> float:
     """MC validation; bag ``i`` of epoch ``e`` samples with seed
     ``fold_in(fold_in(key, e), i)``."""
@@ -172,7 +181,7 @@ def mc_validate(
             correct += float(pred == bag.label)
             total += 1
     epoch_loss = running_loss / max(total, 1)
-    m = metrics or Metrics([])
+    m = (metrics or Metrics([])).scoped(fold)
     m.log("val/epoch_loss", epoch_loss, step=epoch)
     m.log("val/epoch_acc", correct / max(total, 1), step=epoch)
     m.log("val/aux_loss", running_aux / max(total, 1), step=epoch)
@@ -180,14 +189,15 @@ def mc_validate(
     return epoch_loss
 
 
-def _finish_test(all_targets, all_preds, metrics):
+def _finish_test(all_targets, all_preds, metrics, fold=None, prefix="test"):
     from montecarlo_gated_mil_tpu_torch.evaluation.report import classification_report
 
     acc = float(np.mean(np.asarray(all_preds) == np.asarray(all_targets)))
     report = classification_report(all_targets, all_preds)
     m = metrics or Metrics([])
-    m.log("test/accuracy", acc)
-    m.log("test/classification_report", report)
+    suffix = "" if fold is None else f"_fold{fold}"
+    m.log(f"{prefix}/accuracy{suffix}", acc)
+    m.log(f"{prefix}/classification_report{suffix}", report)
     print(f"Test Accuracy: {acc:.4f}")
     print("Classification Report:\n", report)
     return acc, report
@@ -198,6 +208,7 @@ def test(
     loader: Iterable,
     *,
     metrics: Metrics | None = None,
+    fold: int | None = None,
 ):
     """Deterministic test pass: ``(accuracy, Report)``."""
     preds, targets = [], []
@@ -206,7 +217,7 @@ def test(
             y, _ = model(bag.patches, bag.mask)
             preds.append(int(torch.argmax(y)))
             targets.append(int(bag.label))
-    return _finish_test(targets, preds, metrics)
+    return _finish_test(targets, preds, metrics, fold)
 
 
 def mc_test(
@@ -216,6 +227,7 @@ def mc_test(
     num_samples: int = 50,
     seed: int,
     metrics: Metrics | None = None,
+    fold: int | None = None,
     quantized: bool = False,
 ):
     """MC test pass: ``(accuracy, Report)`` from the argmax of the MC-mean
@@ -231,4 +243,31 @@ def mc_test(
             probs = torch.softmax(out.predictions, dim=-1)
             preds.append(int(torch.argmax(probs.mean(0))))
             targets.append(int(bag.label))
-    return _finish_test(targets, preds, metrics)
+    return _finish_test(targets, preds, metrics, fold)
+
+
+def ensemble_mc_test(
+    model,
+    members,
+    loader: Iterable,
+    *,
+    num_samples: int = 50,
+    seed: int,
+    metrics: Metrics | None = None,
+):
+    """MC test of a fold ensemble: ``(accuracy, Report)`` from the argmax
+    of the softmax mean over all members' pooled M*T samples.  Bag ``i``
+    samples with seed ``fold_in(seed, i)``; ``members`` is
+    ``mcdo/ensemble.py::stack_params``'s list, run one after another in
+    ``model`` on the float embed.  Logged as ``ensemble_test/accuracy``, so a
+    shared metrics stream keeps it apart from a single model's."""
+    from montecarlo_gated_mil_tpu_torch.mcdo.ensemble import ensemble_mc_inference
+
+    preds, targets = [], []
+    for i, (bag, _rec) in enumerate(_items(loader, 0)):
+        out = ensemble_mc_inference(model, members, bag.patches, bag.mask, num_samples,
+                                    rng.fold_in(seed, i))
+        probs = torch.softmax(out.predictions, dim=-1)
+        preds.append(int(torch.argmax(probs.mean(0))))
+        targets.append(int(bag.label))
+    return _finish_test(targets, preds, metrics, prefix="ensemble_test")

@@ -46,6 +46,9 @@ def make_train_step(
     criterion: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     optimizer: torch.optim.Optimizer,
     accumulation_steps: int,
+    *,
+    debug_nans: bool = False,
+    debug_infs: bool = False,
 ):
     """The one-bag training step ``step(state, bag, seed, do_update)``.
 
@@ -54,13 +57,19 @@ def make_train_step(
     and when ``do_update`` (every k-th bag or at epoch end, decided by the
     loop) steps the optimizer and the scheduler and clears the gradients.
     Returns ``(state, {"loss", "aux_loss", "correct"})`` as detached
-    scalars, like the JAX step.
+    scalars, like the JAX step.  ``debug_nans`` / ``debug_infs`` (the
+    config's ``tpu.debug_nans`` / ``debug_infs``, which turn on JAX's NaN and
+    Inf checks) raise ``FloatingPointError`` when the loss or an accumulated
+    gradient holds a NaN / an Inf, before the optimizer steps; each costs a
+    host sync per step.
     """
 
     def step(state: TrainState, bag: Bag, seed: int, do_update: bool):
         y, _, aux = model(bag.patches, bag.mask, bag.label, train=True, seed=seed)
         loss = criterion(y[None, :], bag.label[None]) + aux
         (loss / accumulation_steps).backward()
+        if debug_nans or debug_infs:
+            _check_finite(model, loss, debug_nans, debug_infs)
         state.acc_count += 1
         if do_update:
             optimizer.step()
@@ -73,6 +82,17 @@ def make_train_step(
         return state, {"loss": loss.detach(), "aux_loss": aux.detach(), "correct": correct}
 
     return step
+
+
+def _check_finite(model: torch.nn.Module, loss: torch.Tensor, nans: bool, infs: bool) -> None:
+    named = [("loss", loss.detach())] + [
+        (f"gradient of {k}", p.grad) for k, p in model.named_parameters() if p.grad is not None
+    ]
+    for what, t in named:
+        if nans and bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"NaN in the training step's {what} (tpu.debug_nans)")
+        if infs and bool(torch.isinf(t).any()):
+            raise FloatingPointError(f"Inf in the training step's {what} (tpu.debug_infs)")
 
 
 def _copy_weights(params) -> dict[str, torch.Tensor]:

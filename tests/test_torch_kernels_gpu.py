@@ -662,3 +662,77 @@ def test_int8_embed_runs_k7_and_k8_by_device_function(cuda):
     got = _device_launches(embed, "bn_quant.cu")
     assert got == {"bn_stats_kernel": 20, "bn_relu_quant_kernel": 15,
                    "bn_relu_mean_kernel": 1, "stem_pool_quant_kernel": 1}
+
+
+@pytest.mark.gpu
+def test_bench_int8_embed_at_256_runs_the_wgmma_kernel(cuda):
+    """The bench's int8 embed: the bag of 256 patches at 224 px, bf16, of
+    ``bench.run_bench`` runs each of r18's 19 convs on ``qconv_wgmma_kernel``
+    and its epilogues on K7 and K8."""
+    from montecarlo_gated_mil_tpu_torch import bench
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.ops import quantized
+
+    model = bench._seeded(lambda: MultiHeadGatedAttentionMIL(dtype=torch.bfloat16)).to(cuda)
+    plan = quantized.quantize_backbone_static(model.feature_extractor, "r18")
+    patches, mask = bench._workload(256, 224, torch.bfloat16, cuda)
+
+    def embed():
+        with torch.inference_mode():
+            quantized.quantized_embed_static(plan, patches, mask)
+
+    wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
+    assert _device_launches(embed) == {wgmma_fn: 19, gather_fn: 0}
+    assert _device_launches(embed, "bn_quant.cu") == {
+        "bn_stats_kernel": 20, "bn_relu_quant_kernel": 15, "bn_relu_mean_kernel": 1,
+        "stem_pool_quant_kernel": 1}
+
+
+@pytest.mark.gpu
+def test_bench_head_runs_mc_head_shared(cuda):
+    """The bench's head (the model's default shared gate) launches K2,
+    ``mc_head_shared``, once per bag, never K1, and its device functions run."""
+    from montecarlo_gated_mil_tpu_torch import bench
+
+    repeats = 2
+
+    def run():
+        return bench.run_bench(bag_size=16, patch=64, num_samples=4, repeats=repeats,
+                               quantized=False, device=cuda)
+
+    cuda_build.reset_launch_counts()
+    rec = run()
+    assert rec["value"] > 0 and rec["device"] != "cpu"
+    k = cuda_build.KERNELS
+    assert k["mc_head_shared"].launches == 1 + bench.TRIALS * repeats
+    assert k["mc_head_sep"].launches == 0
+    got = _device_launches(run, "mc_head.cu")
+    assert got["mc_fwd_tile_kernel"] >= 1 + bench.TRIALS * repeats
+
+
+@pytest.mark.gpu
+def test_ensemble_on_the_card_matches_cpu(cuda):
+    """At dropout 0 the fold ensemble on the card (cuDNN f32 convs with TF32
+    off, K1) equals its CPU plain path within 1e-4 on the pooled logits and
+    attention, member-major."""
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.experiment import build_model
+    from montecarlo_gated_mil_tpu_torch.mcdo.ensemble import ensemble_mc_inference, stack_params
+
+    cfg = Config(feature_dropout=0.0, attention_dropout=0.0)
+    members = stack_params([build_model(cfg, seed=s).state_dict() for s in (1, 2)])
+    g = torch.Generator().manual_seed(3)
+    mask = torch.arange(16) < 12
+    patches = torch.randn(16, 64, 64, 3, generator=g) * mask[:, None, None, None]
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = cuda_build.KERNELS["mc_head_sep"].launches
+        got = ensemble_mc_inference(build_model(cfg).to(cuda), members, patches.to(cuda),
+                                    mask.to(cuda), 4, 9)
+        assert cuda_build.KERNELS["mc_head_sep"].launches - before == 2
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    want = ensemble_mc_inference(build_model(cfg), members, patches, mask, 4, 9)
+    torch.testing.assert_close(got.predictions.cpu(), want.predictions, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.attention.cpu(), want.attention, atol=1e-4, rtol=0)
