@@ -66,7 +66,18 @@ Phases, each of which raises on failure:
    accuracies, K1 launched for every train, val and test bag, K5 for every
    train step, fold 1 reused and fold 2 retrained on resume, and the
    ensemble's peak memory on one test bag;
-11. prints the ``kernels`` JSON line, the total seconds, the card's line and
+11. DICOM and ``infer``: four full-size 7036x2800 16-bit DICOM files (a
+   CC+MLO pair per side, uncompressed and RLE Lossless) written here and
+   read exactly through the port's native reader; their records
+   (``select_records``) through ``BagLoader`` with two read workers, each
+   CC+MLO bag equal bit for bit to the bag of the same pixels given as
+   arrays, then ``mc_inference`` at T=50 (K3 and K1 once per bag); ``cli
+   infer`` per fold and ``--ensemble`` on phase 10's models (K1 once per
+   fold or member and item, the maps and statistics checked, the
+   ensemble's peak one member's), the figures drawn where matplotlib
+   imports; and a small ``run_inference`` item on the card against the
+   CPU;
+12. prints the ``kernels`` JSON line, the total seconds, the card's line and
    the result line.
 
 Every timed call prints three numbers (``Timing``): its device time, the
@@ -597,7 +608,11 @@ def main() -> int:
 
     print("[10] cross-validation: cli cv, cv-eval --ensemble, cv --resume at Config()'s widths",
           flush=True)
-    cv_launches = check_cv()
+    with tempfile.TemporaryDirectory() as cv_tmp:
+        cv_launches, cv_cfg, cv_peak = check_cv(cv_tmp)
+        print("[11] DICOM and infer: full-size DICOM files, DICOM bags, cli infer per fold and "
+              "--ensemble", flush=True)
+        infer_launches = check_dicom_and_infer(cv_cfg, cv_peak)
 
     # Serving kernels: phase 4's direct requests, phase 4b's front-ends and
     # phase 4q's quantized requests; then the bench's and CV's runs.
@@ -608,7 +623,8 @@ def main() -> int:
         mc_head_bwd_sep=train_launches["mc_head_bwd_sep"],
         mc_head_bwd_shared=shared_train_launches["mc_head_bwd_shared"],
     )
-    launches = {k: n + bench_launches[k] + cv_launches[k] for k, n in launches.items()}
+    launches = {k: n + bench_launches[k] + cv_launches[k] + infer_launches[k]
+                for k, n in launches.items()}
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in cuda_build.KERNELS.values():
@@ -1863,13 +1879,14 @@ class _Capture:
         return [ln for ln in self.buf.getvalue().splitlines() if ln.startswith(starts)]
 
 
-def check_cv() -> dict:
+def check_cv(tmp: str) -> tuple[dict, object, float]:
     """``cli cv`` then ``cli cv-eval --ensemble`` at the shipped ``Config()``
     (r18, 7036x2800, patch 224), depth cut to 2 folds of 10 synthetic
     records, 1 epoch; then ``cli cv --resume`` after a crash in fold 2.
     Checks the manifest, accuracies and launch counts, and the ensemble's
-    peak memory on one test bag.  Returns the launch counts of the three
-    CLI runs."""
+    peak memory on one test bag.  The models stay under ``tmp`` for phase
+    11.  Returns the launch counts of the three CLI runs, the config and
+    the ensemble's peak GiB."""
     import os
     import shutil
 
@@ -1895,100 +1912,495 @@ def check_cv() -> dict:
             into[k] = into.get(k, 0) + v
         return got
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = replace(
-            base, model_path=os.path.join(tmp, "models"),
-            data=replace(base.data, cv_folds=2, synthetic_count=10),
-            training_plan=replace(tp, parameters=replace(tp.parameters, epochs=1)),
-        )
-        yml = os.path.join(tmp, "config.yml")
-        Path(yml).write_text(yaml.safe_dump(config_to_dict(cfg)))
-        print(f"  Config() cut in depth only: data.cv_folds {base.data.cv_folds} -> 2, "
-              f"data.synthetic_count {base.data.synthetic_count} -> 10, epochs "
-              f"{tp.parameters.epochs} -> 1, model_path a temporary directory; r18, "
-              f"{cfg.data.H}x{cfg.data.W}, patch {cfg.data.patch_size}, T={cfg.N}, weighted "
-              f"sampler {tp.weighted_sampler}", flush=True)
-        split = [get_fold_dataloaders(cfg, f, device="cuda") for f in range(2)]
-        n = [(len(b.train), len(b.val), len(b.test)) for b in split]
-        n_test = n[0][2]
-        del split
-        print(f"  bags per fold (train, val, test): {n}", flush=True)
+    cfg = replace(
+        base, model_path=os.path.join(tmp, "models"),
+        data=replace(base.data, cv_folds=2, synthetic_count=10),
+        training_plan=replace(tp, parameters=replace(tp.parameters, epochs=1)),
+    )
+    yml = os.path.join(tmp, "config.yml")
+    Path(yml).write_text(yaml.safe_dump(config_to_dict(cfg)))
+    print(f"  Config() cut in depth only: data.cv_folds {base.data.cv_folds} -> 2, "
+          f"data.synthetic_count {base.data.synthetic_count} -> 10, epochs "
+          f"{tp.parameters.epochs} -> 1, model_path a temporary directory; r18, "
+          f"{cfg.data.H}x{cfg.data.W}, patch {cfg.data.patch_size}, T={cfg.N}, weighted "
+          f"sampler {tp.weighted_sampler}", flush=True)
+    split = [get_fold_dataloaders(cfg, f, device="cuda") for f in range(2)]
+    n = [(len(b.train), len(b.val), len(b.test)) for b in split]
+    n_test = n[0][2]
+    del split
+    print(f"  bags per fold (train, val, test): {n}", flush=True)
 
-        cuda_build.reset_launch_counts()
-        t0 = time.perf_counter()
-        with _Capture() as out:
-            rc = cli.main(["cv", "--config", yml])
-        cv_s = time.perf_counter() - t0
-        cv = count(totals)
-        manifest = json.loads(Path(cfg.model_path, "cv_manifest.json").read_text())
-        for ln in out.lines("Fold ", "CV accuracy"):
-            print(f"  | {ln}", flush=True)
-        folds = manifest["folds"]
-        ok = (rc == 0 and [f["fold"] for f in folds] == [1, 2]
-              and all(os.path.exists(f["checkpoint"]) and 0 <= f["accuracy"] <= 1 for f in folds))
-        k1_cv = sum(tr + va + te for tr, va, te in n)  # a train step, a val and a test bag each
-        print(f"  cli cv: exit {rc}, {cv_s:.1f} s; accuracies {[f['accuracy'] for f in folds]}; "
-              f"launches K1 {cv['mc_head_sep']} (need {k1_cv}: every train, val and test bag), "
-              f"K5 {cv['mc_head_bwd_sep']} (need {sum(x[0] for x in n)}), K3 "
-              f"{cv['gather_tiles']}", flush=True)
-        if not ok or cv["mc_head_sep"] != k1_cv or cv["mc_head_bwd_sep"] != sum(
-                x[0] for x in n) or cv["gather_tiles"] < k1_cv:
-            raise RuntimeError(f"cli cv: bad manifest or launches {cv}")
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _Capture() as out:
+        rc = cli.main(["cv", "--config", yml])
+    cv_s = time.perf_counter() - t0
+    cv = count(totals)
+    manifest = json.loads(Path(cfg.model_path, "cv_manifest.json").read_text())
+    for ln in out.lines("Fold ", "CV accuracy"):
+        print(f"  | {ln}", flush=True)
+    folds = manifest["folds"]
+    ok = (rc == 0 and [f["fold"] for f in folds] == [1, 2]
+          and all(os.path.exists(f["checkpoint"]) and 0 <= f["accuracy"] <= 1 for f in folds))
+    k1_cv = sum(tr + va + te for tr, va, te in n)  # a train step, a val and a test bag each
+    print(f"  cli cv: exit {rc}, {cv_s:.1f} s; accuracies {[f['accuracy'] for f in folds]}; "
+          f"launches K1 {cv['mc_head_sep']} (need {k1_cv}: every train, val and test bag), "
+          f"K5 {cv['mc_head_bwd_sep']} (need {sum(x[0] for x in n)}), K3 "
+          f"{cv['gather_tiles']}", flush=True)
+    if not ok or cv["mc_head_sep"] != k1_cv or cv["mc_head_bwd_sep"] != sum(
+            x[0] for x in n) or cv["gather_tiles"] < k1_cv:
+        raise RuntimeError(f"cli cv: bad manifest or launches {cv}")
 
-        cuda_build.reset_launch_counts()
-        t0 = time.perf_counter()
-        with _Capture() as out:
-            rc = cli.main(["cv-eval", "--config", yml, "--ensemble"])
-        eval_s = time.perf_counter() - t0
-        ev = count(totals)
-        for ln in out.lines("fold ", "MC-ACC", "ENS-ACC"):
-            print(f"  | {ln}", flush=True)
-        k1_eval = 2 * 2 * n_test + 2 * n_test  # MC and deterministic test per fold, 2 members
-        print(f"  cli cv-eval --ensemble: exit {rc}, {eval_s:.1f} s; launches K1 "
-              f"{ev['mc_head_sep']} (need {k1_eval}: each test bag's MC and deterministic test "
-              f"per fold, and each ensemble member), K3 {ev['gather_tiles']}", flush=True)
-        if rc != 0 or not out.lines("ENS-ACC") or ev["mc_head_sep"] != k1_eval:
-            raise RuntimeError(f"cli cv-eval --ensemble: exit {rc} or launches {ev}")
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _Capture() as out:
+        rc = cli.main(["cv-eval", "--config", yml, "--ensemble"])
+    eval_s = time.perf_counter() - t0
+    ev = count(totals)
+    for ln in out.lines("fold ", "MC-ACC", "ENS-ACC"):
+        print(f"  | {ln}", flush=True)
+    k1_eval = 2 * 2 * n_test + 2 * n_test  # MC and deterministic test per fold, 2 members
+    print(f"  cli cv-eval --ensemble: exit {rc}, {eval_s:.1f} s; launches K1 "
+          f"{ev['mc_head_sep']} (need {k1_eval}: each test bag's MC and deterministic test "
+          f"per fold, and each ensemble member), K3 {ev['gather_tiles']}", flush=True)
+    if rc != 0 or not out.lines("ENS-ACC") or ev["mc_head_sep"] != k1_eval:
+        raise RuntimeError(f"cli cv-eval --ensemble: exit {rc} or launches {ev}")
 
-        members = load_fold_ensemble(cfg, manifest)
-        model = build_model(cfg).cuda()
-        bag, _ = next(iter(get_fold_dataloaders(cfg, 0, device="cuda").test.epoch(0)))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.memory_allocated()
-        outs = ensemble_mc_inference(model, members, bag.patches, bag.mask, cfg.N, 1)
-        torch.cuda.synchronize()
-        peak = (torch.cuda.max_memory_allocated() - start) / 2**30
-        print(f"  ensemble of {len(members)} members on one test bag (bucket "
-              f"{bag.mask.shape[0]}, {int(bag.mask.sum())} valid): peak {peak:.3f} GiB above "
-              f"its start; samples {tuple(outs.predictions.shape)}", flush=True)
-        if not bool(torch.isfinite(outs.predictions).all()):
-            raise RuntimeError("ensemble: logits not finite")
-        del model, members, bag, outs
+    members = load_fold_ensemble(cfg, manifest)
+    model = build_model(cfg).cuda()
+    bag, _ = next(iter(get_fold_dataloaders(cfg, 0, device="cuda").test.epoch(0)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    outs = ensemble_mc_inference(model, members, bag.patches, bag.mask, cfg.N, 1)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+    print(f"  ensemble of {len(members)} members on one test bag (bucket "
+          f"{bag.mask.shape[0]}, {int(bag.mask.sum())} valid): peak {peak:.3f} GiB above "
+          f"its start; samples {tuple(outs.predictions.shape)}", flush=True)
+    if not bool(torch.isfinite(outs.predictions).all()):
+        raise RuntimeError("ensemble: logits not finite")
+    del model, members, bag, outs
 
-        # A crash in fold 2: fold 1 in the progress file, fold 2's epochs gone.
-        Path(cfg.model_path, "cv_manifest.json").unlink()
-        shutil.rmtree(os.path.join(cfg.model_path, "fold_2"))
-        Path(cfg.model_path, "cv_progress.json").write_text(json.dumps([folds[0]]))
-        cuda_build.reset_launch_counts()
-        t0 = time.perf_counter()
-        with _Capture() as out:
-            rc = cli.main(["cv", "--config", yml, "--resume"])
-        resume_s = time.perf_counter() - t0
-        rs = count(totals)
-        resumed = json.loads(Path(cfg.model_path, "cv_manifest.json").read_text())["folds"]
-        print(f"  cli cv --resume after a crash in fold 2: exit {rc}, {resume_s:.1f} s; fold 1 "
-              f"reused {resumed[0] == folds[0]}, fold 2 retrained to a new checkpoint "
-              f"{resumed[1]['checkpoint'] != folds[1]['checkpoint']} (accuracy "
-              f"{resumed[1]['accuracy']}, before {folds[1]['accuracy']}); launches K5 "
-              f"{rs['mc_head_bwd_sep']} (need {n[1][0]}: fold 2's train steps alone)", flush=True)
-        if (rc != 0 or resumed[0] != folds[0] or resumed[1]["fold"] != 2
-                or resumed[1]["checkpoint"] == folds[1]["checkpoint"]
-                or not os.path.exists(resumed[1]["checkpoint"])
-                or rs["mc_head_bwd_sep"] != n[1][0] or not out.lines("Resuming CV: folds [1]")):
-            raise RuntimeError(f"cli cv --resume: fold 1 not reused or fold 2 not retrained: {rs}")
+    # A crash in fold 2: fold 1 in the progress file, fold 2's epochs gone.
+    Path(cfg.model_path, "cv_manifest.json").unlink()
+    shutil.rmtree(os.path.join(cfg.model_path, "fold_2"))
+    Path(cfg.model_path, "cv_progress.json").write_text(json.dumps([folds[0]]))
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _Capture() as out:
+        rc = cli.main(["cv", "--config", yml, "--resume"])
+    resume_s = time.perf_counter() - t0
+    rs = count(totals)
+    resumed = json.loads(Path(cfg.model_path, "cv_manifest.json").read_text())["folds"]
+    print(f"  cli cv --resume after a crash in fold 2: exit {rc}, {resume_s:.1f} s; fold 1 "
+          f"reused {resumed[0] == folds[0]}, fold 2 retrained to a new checkpoint "
+          f"{resumed[1]['checkpoint'] != folds[1]['checkpoint']} (accuracy "
+          f"{resumed[1]['accuracy']}, before {folds[1]['accuracy']}); launches K5 "
+          f"{rs['mc_head_bwd_sep']} (need {n[1][0]}: fold 2's train steps alone)", flush=True)
+    if (rc != 0 or resumed[0] != folds[0] or resumed[1]["fold"] != 2
+            or resumed[1]["checkpoint"] == folds[1]["checkpoint"]
+            or not os.path.exists(resumed[1]["checkpoint"])
+            or rs["mc_head_bwd_sep"] != n[1][0] or not out.lines("Resuming CV: folds [1]")):
+        raise RuntimeError(f"cli cv --resume: fold 1 not reused or fold 2 not retrained: {rs}")
     print(f"  phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals, cfg, peak
+
+
+# Phase 11's DICOM files: (view, side, transfer syntax, BitsStored, image
+# seed).  One CC+MLO pair per side; the left pair uncompressed, the right
+# pair RLE Lossless.
+DICOM_FILES = (
+    ("CC", "L", "1.2.840.10008.1.2.1", 12, 20),
+    ("MLO", "L", "1.2.840.10008.1.2.1", 12, 21),
+    ("CC", "R", "1.2.840.10008.1.2.5", 14, 22),
+    ("MLO", "R", "1.2.840.10008.1.2.5", 14, 23),
+)
+AGES = {"L": "061Y", "R": "062Y"}
+
+
+def _dicom_element(group: int, elem: int, vr: bytes, value: bytes) -> bytes:
+    """One explicit VR little endian element (PS3.5 7.1.2)."""
+    import struct
+
+    if len(value) % 2:
+        value += b"\x00" if vr in (b"OB", b"UI") else b" "
+    head = struct.pack("<HH", group, elem) + vr
+    if vr in (b"OB", b"OW"):
+        return head + b"\x00\x00" + struct.pack("<I", len(value)) + value
+    return head + struct.pack("<H", len(value)) + value
+
+
+def _packbits_rows(plane: np.ndarray) -> bytes:
+    """PackBits (PS3.5 G.3.1) of a byte plane, row by row: each row's zero
+    background at either end as replicate runs, the rest as literal runs of
+    at most 128 bytes."""
+    out = []
+    for row in plane:
+        nz = np.flatnonzero(row)
+        lead, tail = (int(nz[0]), int(len(row) - 1 - nz[-1])) if len(nz) else (len(row), 0)
+        mid = row[lead:len(row) - tail]
+        for zeros in (lead, None, tail):
+            if zeros is None:
+                m = len(mid)
+                if m:
+                    heads = np.minimum(128, m - np.arange(0, m, 128)) - 1
+                    out.append(np.insert(mid, np.arange(0, m, 128), heads.astype(np.uint8))
+                               .tobytes())
+                continue
+            while zeros >= 2:
+                r = min(zeros, 128)
+                out.append(bytes([257 - r, 0]))
+                zeros -= r
+            if zeros == 1:
+                out.append(b"\x00\x00")  # a literal run of one zero byte
+    return b"".join(out)
+
+
+def _dicom_bytes(px: np.ndarray, bits: int, syntax: str, patient: str, age: str,
+                 side: str) -> bytes:
+    """A Part 10 file of one 16-bit grayscale frame with the header fields
+    the reader returns: uncompressed, or RLE Lossless (two byte-plane
+    segments, the most significant first)."""
+    import struct
+
+    rows, cols = px.shape
+    out = b"\x00" * 128 + b"DICM" + _dicom_element(0x0002, 0x0010, b"UI", syntax.encode())
+    for group, elem, vr, value in (
+        (0x0010, 0x0020, b"LO", patient.encode()),
+        (0x0010, 0x1010, b"AS", age.encode()),
+        (0x0020, 0x0062, b"CS", side.encode()),
+        (0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+        (0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+        (0x0028, 0x0100, b"US", struct.pack("<H", 16)),
+        (0x0028, 0x0101, b"US", struct.pack("<H", bits)),
+        (0x0028, 0x0103, b"US", struct.pack("<H", 0)),
+    ):
+        out += _dicom_element(group, elem, vr, value)
+    if syntax != "1.2.840.10008.1.2.5":
+        return out + _dicom_element(0x7FE0, 0x0010, b"OW", px.astype("<u2").tobytes())
+    msb = _packbits_rows((px >> 8).astype(np.uint8))
+    lsb = _packbits_rows((px & 0xFF).astype(np.uint8))
+    msb += b"\x00" * (len(msb) % 2)
+    lsb += b"\x00" * (len(lsb) % 2)
+    frame = struct.pack("<16I", 2, 64, 64 + len(msb), *([0] * 13)) + msb + lsb
+    out += struct.pack("<HH", 0x7FE0, 0x0010) + b"OB\x00\x00" + struct.pack("<I", 0xFFFFFFFF)
+    out += struct.pack("<HHI", 0xFFFE, 0xE000, 0)  # empty basic offset table
+    out += struct.pack("<HHI", 0xFFFE, 0xE000, len(frame)) + frame
+    return out + struct.pack("<HHI", 0xFFFE, 0xE0DD, 0)
+
+
+def _peak_gib(fn):
+    """``fn()`` and its peak device memory above its start, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - start) / 2**30
+
+
+def check_dicom_and_infer(cv_cfg, cv_peak: float) -> dict:
+    """Phase 11: full-size DICOM files through the port's reader, their
+    CC+MLO records through ``BagLoader`` and the MC head, then ``cli infer``
+    per fold and ``--ensemble`` on phase 10's models, and a small item on
+    the card against the CPU.  Returns the launch counts of the phase's
+    main paths."""
+    from montecarlo_gated_mil_tpu_torch.core.bag import BucketSpec
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.data.dicom_native import (
+        library_path,
+        load_library,
+        make_native_dicom_reader,
+        read_dicom_native,
+    )
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import BagLoader
+    from montecarlo_gated_mil_tpu_torch.data.dicom import split_cc_mlo
+    from montecarlo_gated_mil_tpu_torch.data.records import select_records
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.experiment import _pipeline_cfgs, build_model
+    from montecarlo_gated_mil_tpu_torch.mcdo.sampling import mc_inference
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    totals: dict = {k: 0 for k in cuda_build.KERNELS}
+
+    def count() -> dict:
+        got = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+        for k, v in got.items():
+            totals[k] += v
+        return got
+
+    built = not library_path().exists()
+    t0 = time.perf_counter()
+    load_library()
+    print(f"  DICOM reader (csrc/dicom.cc): {'g++ build and load' if built else 'loaded'} in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{library_path().relative_to(Path(__file__).resolve().parent)}", flush=True)
+    cfg = Config()
+    d = cfg.data
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) full-size files, read back exactly
+        root = Path(tmp, "dicom")
+        (root / "Malignant").mkdir(parents=True)
+        pixels, names = {}, {}
+        for view, side, syntax, bits, seed in DICOM_FILES:
+            img = synthetic_image(d.H, d.W, positive=True, seed=seed)
+            if side == "R":
+                img = img[:, ::-1]  # a right breast, anchored at the right edge
+            px = np.round(img * (2**bits - 1)).astype(np.uint16)
+            name = f"P{side}_{side}_{view}.dcm"
+            t0 = time.perf_counter()
+            data = _dicom_bytes(px, bits, syntax, f"PAT-{side}", AGES[side], side)
+            Path(root, "Malignant", name).write_bytes(data)
+            pixels[name], names[(side, view)] = (px, bits, syntax), name
+            print(f"  wrote {name}: {syntax}, BitsStored {bits}, {len(data) / 2**20:.1f} MiB "
+                  f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        read_ms: dict = {}
+        for name, (px, bits, syntax) in pixels.items():
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                img, meta = read_dicom_native(root / "Malignant" / name)
+                times.append((time.perf_counter() - t0) * 1e3)
+            side = name[1]
+            exact = np.array_equal(img, px.astype(np.float32) / np.float32(2**bits - 1))
+            header = (meta.patient_id, f"{meta.age:03d}Y", meta.laterality) == (
+                f"PAT-{side}", AGES[side], side)
+            read_ms.setdefault(syntax, []).extend(times)
+            print(f"  read {name} ({syntax}): {img.shape}, exact {exact}, header {header}; "
+                  f"{times[0]:.1f} / {times[1]:.1f} ms", flush=True)
+            if not (exact and header and img.shape == (d.H, d.W)):
+                raise RuntimeError(f"DICOM read of {name} is not exact: pixels {exact}, "
+                                   f"header {meta}")
+        for syntax, times in read_ms.items():
+            print(f"  host ms per full-size file, {syntax}: "
+                  + ", ".join(f"{t:.1f}" for t in times), flush=True)
+
+        # (b) the records through the loader (2 read workers) and the head
+        table = [{"view": [f"{s}{v}" for s, v in names], "class": ["Malignant"] * 4,
+                  "filename": [names[k] for k in names]}]
+        recs = select_records(table, d.view, multimodal=True)
+        # The table claims L for both sides: the right pair's header must win.
+        recs = [replace(r, laterality="L") for r in recs]
+        _, eval_cfg = _pipeline_cfgs(cfg)
+        spec = BucketSpec(cfg.tpu.buckets) if cfg.tpu.adaptive_buckets else None
+        kw = dict(multimodal=True, seed=cfg.seed, bucket_spec=spec,
+                  oversized=cfg.tpu.oversized_bags, device="cuda")
+        model = build_model(cfg, seed=0).cuda().eval()
+        cuda_build.reset_launch_counts()
+        bags, outs = [], []
+        for bag, rec in BagLoader(recs, make_native_dicom_reader(str(root)), eval_cfg,
+                                  io_workers=2, **kw).epoch(0):
+            bags.append((bag, rec))
+            outs.append(mc_inference(model, bag.patches, bag.mask, cfg.N, 11))
+        torch.cuda.synchronize()
+        got = count()
+        lats = [r.laterality for _, r in bags]
+        pids = [(r.patient_id, r.age) for _, r in bags]
+        print(f"  {len(bags)} CC+MLO records (select_records, multimodal): lateralities "
+              f"{lats} from the headers (the table said L, L); patient ids and ages "
+              f"{pids}; buckets "
+              f"{[b.mask.shape[0] for b, _ in bags]}, valid "
+              f"{[int(b.mask.sum()) for b, _ in bags]}; launches K3 {got['gather_tiles']}, K1 "
+              f"{got['mc_head_sep']} (need {len(bags)} each)", flush=True)
+        if (lats != ["L", "R"] or pids != [("PAT-L", 61), ("PAT-R", 62)]
+                or got["gather_tiles"] != len(bags)
+                or got["mc_head_sep"] != len(bags) or len(bags) != 2):
+            raise RuntimeError(f"DICOM bags: lateralities {lats}, launches {got}")
+        for out, (bag, _) in zip(outs, bags):
+            n = bag.mask.shape[0]
+            if (tuple(out.attention.shape) != (cfg.N, 2, n)
+                    or not bool(torch.isfinite(out.predictions).all())):
+                raise RuntimeError("DICOM bags: the head's outputs are not K1's at the bucket")
+
+        def as_arrays(rec):
+            return tuple(pixels[p][0].astype(np.float32) / np.float32(2 ** pixels[p][1] - 1)
+                         for p in split_cc_mlo(rec.paths))
+
+        ref_loader = BagLoader([r for _, r in bags], as_arrays, eval_cfg, io_workers=1, **kw)
+        for (bag, rec), (ref, _) in zip(bags, ref_loader.epoch(0), strict=True):
+            same = all(torch.equal(a, b) for a, b in zip(
+                (bag.patches, bag.mask, bag.tile_indices), (ref.patches, ref.mask,
+                                                            ref.tile_indices)))
+            if not same:
+                raise RuntimeError(f"the DICOM bag of {rec.paths} differs from the array bag")
+        print("  each DICOM bag (2 read workers) equals the bag of its pixels given as arrays "
+              "(1 worker) bit for bit", flush=True)
+        loader = BagLoader(recs, make_native_dicom_reader(str(root)), eval_cfg, **kw)
+        reader = loader.reader
+        for i, rec in enumerate(recs):
+            t0 = time.perf_counter()
+            raw = reader(rec)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            torch.cuda.synchronize()
+            start.record()
+            bag, _ = loader._make_bag(i, 0, raw)
+            mid.record()
+            _, peak = _peak_gib(lambda: mc_inference(model, bag.patches, bag.mask, cfg.N, 11))
+            end.record()
+            torch.cuda.synchronize()
+            print(f"  {rec.view} pair: host read {host_ms:.1f} ms, bag (upload, resize "
+                  f"{2 * d.H}x{d.W} -> {d.H}x{d.W}, K3) {start.elapsed_time(mid):.1f} ms, "
+                  f"request (embed, K1, T={cfg.N}) {mid.elapsed_time(end):.1f} ms; bucket "
+                  f"{bag.mask.shape[0]} ({int(bag.mask.sum())} valid); peak {peak:.3f} GiB",
+                  flush=True)
+        del model, bags, outs, bag
+
+    check_infer_cli(cv_cfg, cv_peak, count)
+    check_small_infer_against_cpu()
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return totals
+
+
+def check_infer_cli(cfg, cv_peak: float, count) -> None:
+    """``cli infer --max-items 2`` per fold and ``--ensemble`` on phase 10's
+    models and manifest.  Where matplotlib does not import, the figure is
+    the one step not run (a line says so); the arrays and statistics it
+    would draw are checked either way: maps finite, mean maps in [0, 1],
+    statistics equal to ``predictive_stats`` of the same outputs."""
+    import os
+
+    import yaml
+
+    from montecarlo_gated_mil_tpu_torch import cli
+    from montecarlo_gated_mil_tpu_torch.core.config import config_to_dict
+    from montecarlo_gated_mil_tpu_torch.mcdo.sampling import predictive_stats
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.viz import infer as infer_mod
+
+    real_plot = infer_mod.plot_attention_and_density
+    try:
+        import matplotlib  # noqa: F401
+
+        draw = real_plot
+        print("  matplotlib imports: cli infer draws every figure", flush=True)
+    except ImportError as e:
+        draw = None
+        print(f"  figures not drawn: {e.name} does not import on this machine; everything "
+              "before the figure runs and is checked", flush=True)
+    real_mc, real_ens = infer_mod.mc_inference, infer_mod.ensemble_mc_inference
+    calls, peaks = [], {"fold": [], "ensemble": []}
+
+    def spy(kind, fn):
+        def run(*args, **kw):
+            out, peak = _peak_gib(lambda: fn(*args, **kw))
+            peaks[kind].append(peak)
+            calls.append({"out": out})
+            return out
+        return run
+
+    def figure(image, pos_att, pos_std, neg_att, neg_std, stats, **kw):
+        calls[-1].update(image=image, maps=(pos_att, pos_std, neg_att, neg_std), stats=stats,
+                         kw=kw)
+        if draw is not None:
+            draw(image, pos_att, pos_std, neg_att, neg_std, stats, **kw)
+        return kw["save_path"]
+
+    infer_mod.mc_inference = spy("fold", real_mc)
+    infer_mod.ensemble_mc_inference = spy("ensemble", real_ens)
+    infer_mod.plot_attention_and_density = figure
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            yml = os.path.join(tmp, "config.yml")
+            Path(yml).write_text(yaml.safe_dump(config_to_dict(cfg)))
+            folds = 2  # phase 10's, each an ensemble member
+            for flag, kind in (([], "fold"), (["--ensemble"], "ensemble")):
+                calls.clear()
+                out_dir = os.path.join(tmp, "figures" + "".join(flag))
+                cuda_build.reset_launch_counts()
+                t0 = time.perf_counter()
+                with _Capture() as out:
+                    rc = cli.main(["infer", "--config", yml, "--out", out_dir, "--max-items", "2",
+                                   *flag])
+                secs = time.perf_counter() - t0
+                got = count()
+                items = len(calls)
+                need = folds * 2  # K1 per fold (or member) and item
+                print(f"  cli infer {' '.join(flag) or '(per fold)'}: exit {rc}, {secs:.1f} s, "
+                      f"{items} items ({secs / max(items, 1):.2f} s per item); launches K1 "
+                      f"{got['mc_head_sep']} (need {need}), K3 {got['gather_tiles']}; peak per "
+                      f"item {', '.join(f'{p:.3f}' for p in peaks[kind])} GiB", flush=True)
+                for ln in out.lines("done:"):
+                    print(f"  | {ln}", flush=True)
+                if rc != 0 or got["mc_head_sep"] != need or got["gather_tiles"] < items:
+                    raise RuntimeError(f"cli infer {flag}: exit {rc}, launches {got}")
+                for c in calls:
+                    maps = [torch.as_tensor(m) for m in c["maps"]]
+                    want = predictive_stats(c["out"].predictions)
+                    finite = all(bool(torch.isfinite(m).all()) for m in maps)
+                    unit = all(0.0 <= float(m.min()) and float(m.max()) <= 1.0
+                               for m in (maps[0], maps[2]))
+                    same = all(torch.equal(getattr(c["stats"], f).cpu(), getattr(want, f).cpu())
+                               for f in vars(want))
+                    if not (finite and unit and same):
+                        raise RuntimeError(f"cli infer {flag}: maps finite {finite}, in [0, 1] "
+                                           f"{unit}, statistics as recomputed {same}")
+                    if draw is not None and not all(
+                            os.path.exists(c["kw"]["save_path"] + e) for e in (".pdf", ".png")):
+                        raise RuntimeError(f"cli infer {flag}: a figure was not written")
+                if kind == "ensemble" and c["kw"]["num_samples"] != folds * cfg.N:
+                    raise RuntimeError("cli infer --ensemble: not M * T samples")
+        one, ens = max(peaks["fold"]), max(peaks["ensemble"])
+        print(f"  the ensemble's peak on one item {ens:.3f} GiB against one member's "
+              f"{one:.3f} GiB (phase 10's ensemble on one bag: {cv_peak:.3f} GiB)", flush=True)
+        if ens > 1.1 * one + 0.5:
+            raise RuntimeError("cli infer --ensemble holds more than one member's memory")
+    finally:
+        infer_mod.mc_inference, infer_mod.ensemble_mc_inference = real_mc, real_ens
+        infer_mod.plot_attention_and_density = real_plot
+
+
+def check_small_infer_against_cpu() -> None:
+    """One ``run_inference`` item per fold at the CPU tests' geometry
+    (128x128, patch 64, buckets (8, 16), 10 synthetic records, 2 folds,
+    T=3, dropout 0), seeded weights: the statistics and maps of the card
+    equal the CPU's within 1e-4."""
+    import os
+
+    from montecarlo_gated_mil_tpu_torch.core.config import config_from_dict
+    from montecarlo_gated_mil_tpu_torch.experiment import build_model
+    from montecarlo_gated_mil_tpu_torch.train.state import Checkpointer
+    from montecarlo_gated_mil_tpu_torch.viz import infer as infer_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_from_dict({
+            "seed": 7, "model_path": tmp, "model": "r18", "N": 3, "feature_dropout": 0.0,
+            "attention_dropout": 0.0, "shared_att": False,
+            "data": {"H": 128, "W": 128, "patch_size": 64, "overlap_train": 0.0,
+                     "overlap_val_test": 0.0, "empty_threshold": 0.05, "cv_folds": 2,
+                     "fraction_test": 0.3, "synthetic_count": 10},
+            "tpu": {"buckets": [8, 16]},
+        })
+        ck = Checkpointer(tmp)
+        folds = [{"fold": k, "checkpoint": ck.save_params(
+            f"fold_{k}", build_model(cfg, seed=k).state_dict()), "accuracy": 0.0} for k in (1, 2)]
+        Path(tmp, "cv_manifest.json").write_text(json.dumps({"folds": folds}))
+        real = infer_mod.plot_attention_and_density
+        runs = {}
+        try:
+            for dev in ("cuda", "cpu"):
+                got = []
+                infer_mod.plot_attention_and_density = (
+                    lambda *a, save_path, **k: got.append(a) or save_path)
+                with _Capture():
+                    infer_mod.run_inference(cfg, out_dir=os.path.join(tmp, dev), max_items=1,
+                                            device=dev)
+                runs[dev] = got
+        finally:
+            infer_mod.plot_attention_and_density = real
+    err = 0.0
+    for a, b in zip(runs["cuda"], runs["cpu"], strict=True):
+        for x, y in zip(a[:5], b[:5]):
+            err = max(err, float(np.abs(np.asarray(x) - np.asarray(y)).max()))
+        for f in vars(a[5]):
+            err = max(err, float((getattr(a[5], f).double() - getattr(b[5], f).double()).abs()
+                                 .max()))
+    print(f"  small run_inference (2 folds x 1 item, 128x128, T=3, dropout 0), card against "
+          f"CPU: max |d| {err:.2e} over the maps, display image and statistics", flush=True)
+    if len(runs["cuda"]) != 2 or err > 1e-4:
+        raise RuntimeError(f"small run_inference: the card differs from the CPU by {err}")
 
 
 def time_heads(root: str) -> int:

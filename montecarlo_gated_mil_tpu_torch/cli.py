@@ -7,17 +7,19 @@ subcommands and flags:
     python -m montecarlo_gated_mil_tpu_torch.cli cv --config config.yml [--resume]
     python -m montecarlo_gated_mil_tpu_torch.cli cv-eval --config config.yml \
         [--manifest M] [--ensemble]
+    python -m montecarlo_gated_mil_tpu_torch.cli infer --config config.yml --out DIR \
+        [--manifest M] [--max-items K] [--ensemble]
     python -m montecarlo_gated_mil_tpu_torch.cli bench --config config.yml [--samples T]
     python -m montecarlo_gated_mil_tpu_torch.cli serve --config config.yml \
         [--checkpoint NAME] [--input requests.jsonl | --port 8000 --data-root DIR]
 
 ``train`` runs ``runners.run_training``, ``cv`` ``run_cross_validation``,
-``cv-eval`` ``run_cv_eval``, ``bench`` ``bench.run_bench`` (one JSON line)
+``cv-eval`` ``run_cv_eval``, ``infer`` ``viz.infer.run_inference`` (the
+figures need matplotlib), ``bench`` ``bench.run_bench`` (one JSON line)
 and ``serve`` the JSONL or HTTP front-end of ``server.py``, on the CUDA card.
-What is not ported yet (``infer``, ``--aot-cache``, ``--tensorboard``, the
-Neptune sink, a multi-process ``tpu.coordinator_address``) exits non-zero
-with a message naming its ROADMAP.md item, never doing something else
-instead.
+What is not ported yet (``--aot-cache``, ``--tensorboard``, the Neptune
+sink, a multi-process ``tpu.coordinator_address``) exits non-zero with a
+message naming its ROADMAP.md item, never doing something else instead.
 """
 
 from __future__ import annotations
@@ -114,12 +116,6 @@ def get_args_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# What the port does not do yet, and where ROADMAP.md lists it.
-_UNPORTED_COMMANDS = {
-    "infer": "figure inference, viz/infer.py (ROADMAP.md queue 1, item 4)",
-}
-
-
 def _unported(what: str) -> SystemExit:
     return SystemExit(f"montecarlo_gated_mil_tpu_torch: {what} is not ported yet")
 
@@ -129,10 +125,8 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
     a test, passes ``"cpu"``).  Raises ``SystemExit`` with a message for
     what is not ported."""
     args = get_args_parser().parse_args(argv)
-    if args.command in _UNPORTED_COMMANDS:
-        raise _unported(_UNPORTED_COMMANDS[args.command])
     if args.tensorboard:
-        raise _unported("--tensorboard, the TensorBoard sink (ROADMAP.md queue 1, item 3)")
+        raise _unported("--tensorboard, the TensorBoard sink (ROADMAP.md queue 1, item 1)")
     if args.command == "serve" and args.aot_cache:
         raise _unported("--aot-cache, the JAX package's executable cache (ROADMAP.md queue 1, "
                         "'Never to be ported': CUDA needs no compile cache)")
@@ -142,7 +136,7 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
     cfg = load_config(args.config)
     if cfg.tpu.coordinator_address:
         raise _unported("multi-process runs, tpu.coordinator_address (ROADMAP.md queue 1, "
-                        "item 5: parallel/distributed.py)")
+                        "item 2: parallel/distributed.py)")
     metrics = Metrics([StdoutSink()])
     if cfg.neptune:
         try:
@@ -150,7 +144,7 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
         except ImportError:
             print("neptune not installed; continuing with stdout metrics")
         else:
-            raise _unported("the Neptune sink (ROADMAP.md queue 1, item 3)")
+            raise _unported("the Neptune sink (ROADMAP.md queue 1, item 1)")
 
     if args.command == "train":
         from montecarlo_gated_mil_tpu_torch.runners import run_training
@@ -164,6 +158,11 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
         from montecarlo_gated_mil_tpu_torch.runners import run_cv_eval
 
         run_cv_eval(cfg, args.manifest, metrics, ensemble=args.ensemble, device=device)
+    elif args.command == "infer":
+        from montecarlo_gated_mil_tpu_torch.viz.infer import run_inference
+
+        run_inference(cfg, out_dir=args.out, manifest_path=args.manifest,
+                      max_items=args.max_items, ensemble=args.ensemble, device=device)
     elif args.command == "bench":
         import json
 

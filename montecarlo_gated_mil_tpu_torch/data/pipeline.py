@@ -15,6 +15,8 @@ import math
 import queue
 import threading
 import warnings
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from typing import Callable, Iterator, Sequence
 
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 
 from montecarlo_gated_mil_tpu_torch.core import rng
 from montecarlo_gated_mil_tpu_torch.core.bag import Bag, BucketSpec
-from montecarlo_gated_mil_tpu_torch.data.records import BagRecord
+from montecarlo_gated_mil_tpu_torch.data.records import BagRecord, PixelData
 from montecarlo_gated_mil_tpu_torch.data.splits import weighted_sample_order
 from montecarlo_gated_mil_tpu_torch.ops.patching import (
     TileGrid,
@@ -135,6 +137,12 @@ def canonicalize_image(
     if tuple(img.shape) != tuple(out_hw):
         img = resize_bilinear_antialias(img, tuple(out_hw))
     return img
+
+
+def stack_multimodal(img_cc, img_mlo) -> np.ndarray:
+    """Vertical MLO-over-CC composite of two host images (reference
+    ``dataset.py:101``)."""
+    return np.concatenate([np.asarray(img_mlo), np.asarray(img_cc)], axis=0)
 
 
 def draw_flips(bucket: int, generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
@@ -285,6 +293,16 @@ class BagLoader:
     kept) or is cut to it under ``'truncate'`` (counted and warned once).
     Augmentation flips come from ``core/rng.generator(seed, "augment",
     epoch, index)``.
+
+    A reader may return :class:`PixelData`: the header's ImageLaterality
+    then supersedes the record's and its ``patient_id`` and ``age`` fill
+    the yielded record (reference ``dataset.py:51-64``).  ``io_workers > 1``
+    runs the raw reads (file IO and DICOM decode, C code that releases the
+    GIL) in a pool of that many threads with exactly ``io_workers`` reads
+    in flight, the counterpart of the reference's DataLoader
+    ``num_workers``; uploads and bag building stay on the one producer
+    thread, in record order, so the bags are the same for any
+    ``io_workers``.
     """
 
     def __init__(
@@ -298,10 +316,13 @@ class BagLoader:
         shuffle: bool = False,
         sample_weights: Sequence[float] | None = None,
         prefetch: int = 2,
+        io_workers: int = 1,
         bucket_spec: BucketSpec | None = None,
         oversized: str = "extend",
         device: str | torch.device = "cuda",
     ):
+        if io_workers < 1:
+            raise ValueError(f"io_workers must be >= 1, got {io_workers}")
         if oversized not in ("extend", "truncate"):
             raise ValueError(f"oversized must be 'extend' or 'truncate', got {oversized!r}")
         self.records = list(records)
@@ -312,6 +333,7 @@ class BagLoader:
         self.shuffle = shuffle
         self.sample_weights = sample_weights
         self.prefetch = prefetch
+        self.io_workers = io_workers
         self.bucket_spec = bucket_spec
         self.oversized = oversized
         self.device = torch.device(device)
@@ -332,12 +354,22 @@ class BagLoader:
             np.random.default_rng(self.seed + epoch).shuffle(order)
         return order
 
-    def _make_bag(self, i: int, epoch: int) -> tuple[Bag, BagRecord]:
+    def _make_bag(self, i: int, epoch: int, raw=None) -> tuple[Bag, BagRecord]:
         rec = self.records[i]
-        raw = self.reader(rec)
+        if raw is None:
+            raw = self.reader(rec)
+        if isinstance(raw, PixelData):
+            meta = raw.meta
+            if meta is not None:
+                rec = replace(
+                    rec,
+                    laterality=getattr(meta, "laterality", "") or rec.laterality,
+                    patient_id=getattr(meta, "patient_id", "") or rec.patient_id,
+                    age=meta.age if getattr(meta, "age", -1) >= 0 else rec.age,
+                )
+            raw = raw.images if len(raw.images) > 1 else raw.images[0]
         if self.multimodal:
-            cc, mlo = raw
-            image = np.concatenate([np.asarray(mlo), np.asarray(cc)], axis=0)
+            image = stack_multimodal(*raw)
         else:
             image = np.asarray(raw)
         image = np.ascontiguousarray(image, dtype=np.float32)
@@ -392,6 +424,32 @@ class BagLoader:
             return min(self.bucket_spec.bucket_for(n), cfg.bucket), False
         return cfg.bucket, False
 
+    def _reads(self, order: np.ndarray, cancel: threading.Event) -> Iterator[tuple[int, object]]:
+        """``(index, raw pixels)`` in ``order``: read here, or with
+        ``io_workers > 1`` by a thread pool holding exactly ``io_workers``
+        reads in flight (each a whole decoded image, so the window bounds
+        the host memory)."""
+        if self.io_workers == 1:
+            for i in order:
+                yield int(i), self.reader(self.records[int(i)])
+            return
+        with ThreadPoolExecutor(self.io_workers) as pool:
+            pending: deque = deque()
+            it = iter(order)
+
+            def submit_next() -> None:
+                i = next(it, None)
+                if i is not None and not cancel.is_set():
+                    pending.append((int(i), pool.submit(self.reader, self.records[int(i)])))
+
+            for _ in range(self.io_workers):
+                submit_next()
+            while pending:
+                i, fut = pending.popleft()
+                raw = fut.result()
+                submit_next()
+                yield i, raw
+
     def epoch(self, epoch: int = 0) -> Iterator[tuple[Bag, BagRecord]]:
         """Yield ``(Bag, record)`` in the epoch's order, built one ahead by
         a producer thread.  A producer error is raised here; leaving the
@@ -411,13 +469,16 @@ class BagLoader:
             return False
 
         def produce():
+            reads = self._reads(order, cancel)
             try:
-                for i in order:
-                    if not put(self._make_bag(int(i), epoch)):
+                for i, raw in reads:
+                    if not put(self._make_bag(i, epoch, raw)):
                         return
             except Exception as e:  # handed to the consumer, which raises it
                 put(e)
                 return
+            finally:
+                reads.close()
             put(done)
 
         t = threading.Thread(target=produce, daemon=True)

@@ -1,9 +1,10 @@
-"""Bag records and class weights (the port's own copy of the numpy-only
-parts of ``montecarlo_gated_mil_tpu/data/records.py``).
+"""Bag records, their selection from the metadata table, and class
+weights (the port's own copy of ``montecarlo_gated_mil_tpu/data/records.py``).
 
-Labels: 1 iff the class is Malignant or Lymph_nodes (reference
-``dataset.py:48``).  Reading records from the metadata table and DICOM
-headers is not ported yet (ROADMAP.md).
+The reference reads a pickled pandas DataFrame with per-patient
+``view``/``filename``/``class`` lists and selects either unimodal view
+records or paired CC+MLO records per laterality (``dataset.py:114-160``).
+Labels: 1 iff the class is Malignant or Lymph_nodes (``dataset.py:48``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,13 @@ CLASS_TO_GROUP = {"Normal": 0, "Benign": 0, "Malignant": 1, "Lymph_nodes": 1}
 
 @dataclass(frozen=True)
 class BagRecord:
-    """One bag-to-be: file path(s), class name, laterality, view."""
+    """One bag-to-be: file path(s), class name, laterality, view.
+
+    ``laterality`` starts as the table's view heuristic; the loader yields
+    the record with the DICOM header's ImageLaterality, ``patient_id`` and
+    ``age`` in place once the pixels are read (reference
+    ``dataset.py:51-64``).
+    """
 
     paths: tuple[str, ...]  # 1 file (unimodal) or (CC, MLO) pair (multimodal)
     class_name: str
@@ -29,6 +36,57 @@ class BagRecord:
     @property
     def label(self) -> int:
         return 1 if self.class_name in POSITIVE_CLASSES else 0
+
+
+@dataclass(frozen=True)
+class PixelData:
+    """A reader's pixels with the file's DICOM metadata: ``images`` is
+    ``(img,)`` or ``(cc, mlo)``, ``meta`` a ``DicomMeta`` or None.  Plain
+    arrays and ``(cc, mlo)`` tuples stay valid reader outputs."""
+
+    images: tuple
+    meta: object | None = None
+
+
+def select_records(
+    patients: Sequence[dict], view: Sequence[str], multimodal: bool
+) -> list[BagRecord]:
+    """Flatten the patient table (``df.to_dict("records")``: dicts of
+    parallel ``view``/``filename``/``class`` lists) into records.
+
+    Multimodal: per patient, the left CC+MLO files make one record and the
+    right pair another; a side without both views, or without exactly two
+    files tagged ``{side}_C`` / ``{side}_M``, is skipped (reference
+    ``dataset.py:122-143``).  Unimodal: one record per file whose view
+    contains any of ``view`` (``dataset.py:145-151``).
+    """
+    records: list[BagRecord] = []
+    if multimodal:
+        for p in patients:
+            views, files, classes = p["view"], p["filename"], p["class"]
+            for side, cc_tag, mlo_tag in (("L", "L_C", "L_M"), ("R", "R_C", "R_M")):
+                if f"{side}CC" in views and f"{side}MLO" in views:
+                    flist = tuple(f for f in files if cc_tag in f or mlo_tag in f)
+                    if len(flist) != 2:
+                        continue
+                    records.append(BagRecord(
+                        paths=flist,
+                        class_name=classes[0] if side == "L" else classes[-1],
+                        view="Left" if side == "L" else "Right",
+                        laterality=side,
+                    ))
+    else:
+        for p in patients:
+            for i in range(len(p["class"])):
+                for v in view:
+                    if v in p["view"][i]:
+                        records.append(BagRecord(
+                            paths=(p["filename"][i],),
+                            class_name=p["class"][i],
+                            view=p["view"][i],
+                            laterality="R" if "R" in p["view"][i][:1] else "L",
+                        ))
+    return records
 
 
 def class_weights(records: Sequence[BagRecord]) -> tuple[dict[int, float], list[float]]:

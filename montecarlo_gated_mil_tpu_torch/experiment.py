@@ -3,8 +3,9 @@
 Counterpart of ``montecarlo_gated_mil_tpu/experiment.py`` (reference
 ``main.py:56-81``, ``utils.py:36-243``): the loaders of a single random
 split or of one cross-validation fold.  Records come from the synthetic
-generator (``data.synthetic_count > 0``); DICOM records are not ported yet
-(ROADMAP.md).
+generator (``data.synthetic_count > 0``) or from the metadata pickle and
+its DICOM files: pandas reads the pickle, and pydicom, where installed, or
+the port's native reader (``data/dicom_native.py``) reads the files.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from montecarlo_gated_mil_tpu_torch.core.bag import BucketSpec
 from montecarlo_gated_mil_tpu_torch.core.config import Config
 from montecarlo_gated_mil_tpu_torch.data.pipeline import BagLoader, PipelineConfig, torch_dtype
-from montecarlo_gated_mil_tpu_torch.data.records import BagRecord, class_weights
+from montecarlo_gated_mil_tpu_torch.data.records import BagRecord, class_weights, select_records
 from montecarlo_gated_mil_tpu_torch.data.splits import (
     kfold_split,
     random_split,
@@ -107,14 +108,25 @@ def _pipeline_cfgs(cfg: Config) -> tuple[PipelineConfig, PipelineConfig]:
 
 
 def load_records(cfg: Config) -> tuple[list[BagRecord], Callable]:
-    """Records + pixel reader from the synthetic generator."""
+    """Records + pixel reader: the synthetic generator when
+    ``data.synthetic_count > 0``, else ``select_records`` over the pandas
+    pickle at ``data.metadata_path`` with a DICOM reader of
+    ``data.root_path`` (pydicom where it imports, else the native reader).
+    Without pandas the DICOM branch raises ``ImportError``."""
     d = cfg.data
-    if not d.synthetic_count:
-        raise NotImplementedError(
-            "the port reads synthetic records only (data.synthetic_count > 0); "
-            "DICOM records are not ported yet (ROADMAP.md queue 1, item 2)"
-        )
-    return synthetic_records(d.synthetic_count, seed=cfg.seed), make_synthetic_reader(d.H, d.W)
+    if d.synthetic_count:
+        return synthetic_records(d.synthetic_count, seed=cfg.seed), make_synthetic_reader(d.H, d.W)
+    import pandas as pd
+
+    df = pd.read_pickle(d.metadata_path)
+    recs = select_records(df.to_dict("records"), list(d.view), d.multimodal)
+    from montecarlo_gated_mil_tpu_torch.data.dicom import HAVE_PYDICOM, make_dicom_reader
+
+    if HAVE_PYDICOM:
+        return recs, make_dicom_reader(d.root_path)
+    from montecarlo_gated_mil_tpu_torch.data.dicom_native import make_native_dicom_reader
+
+    return recs, make_native_dicom_reader(d.root_path)
 
 
 def _bundle(cfg: Config, recs: list[BagRecord], reader, train_idx, val_idx, test_idx, *,
@@ -131,9 +143,14 @@ def _bundle(cfg: Config, recs: list[BagRecord], reader, train_idx, val_idx, test
     spec = BucketSpec(cfg.tpu.buckets) if cfg.tpu.adaptive_buckets else None
     mm = cfg.data.multimodal and not cfg.data.synthetic_count
 
+    # The reference's DataLoader worker count (config.yml:43, utils.py:99)
+    # sizes the loader's pool of raw reads.
+    io_workers = max(1, cfg.training_plan.parameters.num_workers)
+
     def loader(r, pc, **kw):
         return BagLoader(r, reader, pc, multimodal=mm, seed=cfg.seed, bucket_spec=spec,
-                         oversized=cfg.tpu.oversized_bags, device=device, **kw)
+                         oversized=cfg.tpu.oversized_bags, io_workers=io_workers, device=device,
+                         **kw)
 
     return DataBundle(
         train=loader(train_recs, train_cfg, shuffle=True, sample_weights=sample_w),

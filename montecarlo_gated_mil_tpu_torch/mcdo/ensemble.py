@@ -14,7 +14,7 @@ card those are the MC-head kernel (K1, or K2 for a shared gate).
 The pooled ``(M * T, C)`` samples drop straight into
 :func:`~montecarlo_gated_mil_tpu_torch.mcdo.sampling.predictive_stats` and
 :func:`attention_stats`.  The member-sharded form waits for ROADMAP.md
-queue 1, item 5.
+queue 1, item 2.
 """
 
 from __future__ import annotations

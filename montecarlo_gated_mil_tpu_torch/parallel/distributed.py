@@ -5,7 +5,7 @@ Counterpart of ``montecarlo_gated_mil_tpu/parallel/distributed.py``'s
 count come from ``torch.distributed`` when a process group is initialized,
 and are 0 and 1 otherwise, so a single process runs every fold and the merge
 is a passthrough.  The multi-process gather is not ported yet (ROADMAP.md
-queue 1, item 5); the CLI refuses ``tpu.coordinator_address`` before a run
+queue 1, item 2); the CLI refuses ``tpu.coordinator_address`` before a run
 could need it.
 """
 
@@ -44,6 +44,6 @@ def allgather_fold_accuracies(
     if process_count() > 1:
         raise NotImplementedError(
             "merging fold accuracies across processes is not ported yet "
-            "(ROADMAP.md queue 1, item 5: parallel/distributed.py)"
+            "(ROADMAP.md queue 1, item 2: parallel/distributed.py)"
         )
     return {int(f): float(a) for f, a in enumerate(local) if not np.isnan(a)}

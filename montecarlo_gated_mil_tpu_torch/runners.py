@@ -20,7 +20,7 @@ Every random stream derives from ``cfg.seed`` (``core/rng.py``): a fold's
 from ``(seed, fold)`` alone, never from loop position, so a resumed run
 trains the remaining folds as an uninterrupted one would.
 
-Not ported yet (ROADMAP.md queue 1, item 5): data-parallel evaluation and
+Not ported yet (ROADMAP.md queue 1, item 2): data-parallel evaluation and
 training, instance-sharded and oversize-routed bags, and multi-process fold
 fan-out.
 """
@@ -96,7 +96,7 @@ def _mc_test(cfg: Config, model, loader, *, seed: int, metrics: Metrics, fold: i
     """The MC test of one model, through the int8 embed when
     ``tpu.quantized_inference`` is set for an r18/r34/r50 backbone (JAX
     ``runners._mc_test``'s sequential branch; its data-parallel branch is
-    ROADMAP.md queue 1, item 5)."""
+    ROADMAP.md queue 1, item 2)."""
     quantized = cfg.tpu.quantized_inference and cfg.model in ("r18", "r34", "r50")
     return mc_test(model, loader, num_samples=cfg.N, seed=seed, metrics=metrics, fold=fold,
                    quantized=quantized)

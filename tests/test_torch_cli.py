@@ -110,14 +110,15 @@ def test_cli_train(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, raw, item", [
-    (["cv", "--tensorboard", "tb"], {}, "queue 1, item 3"),
+    (["cv", "--tensorboard", "tb"], {}, "queue 1, item 1"),
     (["cv-eval", "--manifest", "m.json"], {"tpu": {"coordinator_address": "localhost:1234"}},
-     "queue 1, item 5"),
-    (["infer", "--out", "figs"], {}, "queue 1, item 4"),
-    (["bench"], {"neptune": True}, "queue 1, item 3"),
+     "queue 1, item 2"),
+    (["infer", "--out", "figs"], {"tpu": {"coordinator_address": "localhost:1234"}},
+     "queue 1, item 2"),
+    (["bench"], {"neptune": True}, "queue 1, item 1"),
     (["serve", "--aot-cache", "cache"], {}, "'Never to be ported'"),
-    (["train", "--tensorboard", "tb"], {}, "queue 1, item 3"),
-    (["train"], {"tpu": {"coordinator_address": "localhost:1234"}}, "queue 1, item 5"),
+    (["train", "--tensorboard", "tb"], {}, "queue 1, item 1"),
+    (["train"], {"tpu": {"coordinator_address": "localhost:1234"}}, "queue 1, item 2"),
 ])
 def test_unported_exits_nonzero_naming_roadmap(tmp_path, monkeypatch, argv, raw, item):
     """Each refusal names its item in ROADMAP.md's current numbering; the
@@ -135,7 +136,8 @@ def test_module_entry_point(tmp_path):
     """``python -m montecarlo_gated_mil_tpu_torch.cli`` runs ``main``."""
     path, _ = _write_config(tmp_path, {})
     proc = subprocess.run(
-        [sys.executable, "-m", "montecarlo_gated_mil_tpu_torch.cli", "infer", "--config", path],
+        [sys.executable, "-m", "montecarlo_gated_mil_tpu_torch.cli", "cv", "--config", path,
+         "--tensorboard", "tb"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 1 and "ROADMAP.md" in proc.stderr and proc.stdout == ""
