@@ -77,7 +77,20 @@ Phases, each of which raises on failure:
    ensemble's peak one member's), the figures drawn where matplotlib
    imports; and a small ``run_inference`` item on the card against the
    CPU;
-12. prints the ``kernels`` JSON line, the total seconds, the card's line and
+12. the rest of the model surface at ``Config()``'s widths: (a) the
+   single-head ``GatedAttentionMIL`` (K=1, one class, seeded weights) on
+   phase 4's first full-size mammogram, ``image_to_bag`` (K3) then
+   ``mc_inference_single_head`` at T=50 (plain head, sigmoid inside), its
+   stages by CUDA events and its peak, and a small bag on the card against
+   the CPU with dropout on; (b) ``mc_inference_serial`` at T=50 on the
+   shipped model beside ``mc_inference`` (50 K1 launches, bit-equal or
+   within K1's tolerances), with ``targets``; (c) causal counterfactual
+   dropout at T=50; (d) ``train_epoch_plain``: 4 SGD steps of the
+   single-head model on full-size training bags at bucket 1024; (e) the
+   uncertainty acceptance (``evaluation/uncertainty.py``) trained and
+   checked on the card; (f) (d)'s metrics through ``TensorBoardSink`` where
+   ``torch.utils.tensorboard`` imports;
+13. prints the ``kernels`` JSON line, the total seconds, the card's line and
    the result line.
 
 Every timed call prints three numbers (``Timing``): its device time, the
@@ -100,6 +113,7 @@ computes in float32.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -614,8 +628,13 @@ def main() -> int:
               "--ensemble", flush=True)
         infer_launches = check_dicom_and_infer(cv_cfg, cv_peak)
 
+    print("[12] the model surface: the single-head request, serial MC, counterfactual dropout, "
+          "train_epoch_plain, the uncertainty acceptance, the TensorBoard sink", flush=True)
+    surface_launches = check_model_surface(pred, d)
+
     # Serving kernels: phase 4's direct requests, phase 4b's front-ends and
-    # phase 4q's quantized requests; then the bench's and CV's runs.
+    # phase 4q's quantized requests; then the bench's, CV's and infer's runs
+    # and phase 12's paths.
     launches = dict(
         {k: n + front_launches.get(k, 0) + quant_launches.get(k, 0)
          for k, n in serve_launches.items()},
@@ -624,7 +643,7 @@ def main() -> int:
         mc_head_bwd_shared=shared_train_launches["mc_head_bwd_shared"],
     )
     launches = {k: n + bench_launches[k] + cv_launches[k] + infer_launches[k]
-                for k, n in launches.items()}
+                + surface_launches[k] for k, n in launches.items()}
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in cuda_build.KERNELS.values():
@@ -2401,6 +2420,372 @@ def check_small_infer_against_cpu() -> None:
           f"CPU: max |d| {err:.2e} over the maps, display image and statistics", flush=True)
     if len(runs["cuda"]) != 2 or err > 1e-4:
         raise RuntimeError(f"small run_inference: the card differs from the CPU by {err}")
+
+
+# Phase 12's tolerances: the single-head head on the card against the CPU
+# with dropout on (the same Philox masks), and serial against batched MC
+# (K1's limits, as phase 3 holds it to its plain version).
+SINGLE_HEAD_TOL = 1e-5
+SERIAL_TOL_Y, SERIAL_TOL_A = 1e-4, 1e-5
+
+
+def _events(n: int) -> list:
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def check_model_surface(pred, d) -> dict:
+    """Phase 12: the single-head model's request, serial MC, counterfactual
+    dropout, ``train_epoch_plain``, the uncertainty acceptance and the
+    TensorBoard sink, at ``Config()``'s widths.  ``pred`` is phase 4's
+    predictor: its shipped multi-head model, bucket choice and tile starts.
+    Returns the launch counts of the phase's main paths: only the runs made
+    through ``main``, never warm-ups, timing loops or the seed sweep."""
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    totals: dict = {k: 0 for k in cuda_build.KERNELS}
+
+    def main(fn):
+        """Runs ``fn`` as a main path, its launch counts zeroed just before
+        and read just after: ``(fn's result, the counts)``."""
+        cuda_build.reset_launch_counts()
+        out = fn()
+        got = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+        for k, v in got.items():
+            totals[k] += v
+        return out, got
+
+    bag = check_single_head_request(pred, d, main)
+    check_serial_mc(pred, bag, main)
+    check_counterfactuals(pred, bag, main)
+    del bag
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tb_dir:
+        tb = _tensorboard_sink(tb_dir)
+        check_train_epoch_plain(main, tb)
+        if tb is not None:
+            events = list(Path(tb_dir).glob("events.out.tfevents.*"))
+            size = sum(e.stat().st_size for e in events)
+            print(f"  (f) TensorBoardSink: (d)'s epoch metrics in {len(events)} event file(s), "
+                  f"{size} bytes", flush=True)
+            if size == 0:
+                raise RuntimeError("the TensorBoard sink wrote no events")
+    check_uncertainty_acceptance(main)
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s; main-path launches "
+          f"{ {k: n for k, n in totals.items() if n} }", flush=True)
+    return totals
+
+
+def _tensorboard_sink(log_dir: str):
+    """A ``TensorBoardSink`` where ``torch.utils.tensorboard`` imports, else
+    None and a line saying why the sink is not exercised."""
+    from montecarlo_gated_mil_tpu_torch.utils.metrics import TensorBoardSink
+
+    try:
+        return TensorBoardSink(log_dir)
+    except ImportError as e:
+        print(f"  (f) TensorBoardSink not exercised: torch.utils.tensorboard does not import "
+              f"here ({e})", flush=True)
+        return None
+
+
+def check_single_head_request(pred, d, main):
+    """(a) The single-head model (K=1, one class, dropout 0.1/0.1, seeded
+    weights) on phase 4's first full-size mammogram: ``image_to_bag`` (K3),
+    the embed and ``mc_inference_single_head`` at T=50, then a small bag on
+    the card against the CPU with dropout on.  Returns the bag."""
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import image_to_bag
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.mcdo.sampling import mc_inference_single_head
+    from montecarlo_gated_mil_tpu_torch.models.gamil import GatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.serve import _prepare_image
+
+    T = 50
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = GatedAttentionMIL(backbone="r18", D=128).cuda()
+    img = synthetic_image(d.H, d.W, positive=False, seed=0)  # phase 4's first request, "L"
+    arr, inv_max = _prepare_image(img, None)
+    bucket = pred._pick_bucket(arr, "L")
+    cfg = replace(pred.pipeline, bucket=bucket)
+
+    def request():
+        ev = _events(4)
+        torch.cuda.synchronize()
+        ev[0].record()
+        image = torch.from_numpy(arr).cuda().to(torch.float32) * inv_max
+        ev[1].record()
+        with torch.inference_mode():
+            bag = image_to_bag(image, False, 0, pred._starts, cfg, device="cuda")
+        ev[2].record()
+        out = mc_inference_single_head(model, bag.patches, bag.mask, T, 100)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return bag, out, [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    request()  # warm
+    ((bag, out, ms), peak), launches = main(lambda: _peak_gib(request))
+    with torch.inference_mode():
+        e0, e1 = _events(2)
+        e0.record()
+        model.embed(bag.patches, bag.mask)
+        e1.record()
+        torch.cuda.synchronize()
+    embed_ms = e0.elapsed_time(e1)
+    p, a = out.predictions, out.attention
+    n = int(bag.mask.sum())
+    print(f"  (a) single-head request: bucket {bucket}, {n} valid; upload {ms[0]:.2f} ms, "
+          f"image_to_bag (K3) {ms[1]:.2f}, mc_inference_single_head T={T} {ms[2]:.2f} (its "
+          f"embed alone {embed_ms:.2f}, so the head's {T} samples about "
+          f"{ms[2] - embed_ms:.2f}); peak {peak:.3f} GiB; P {float(p.mean()):.4f}"
+          f"±{float(p.std(correction=0)):.4f}; launches K3 {launches['gather_tiles']}, "
+          f"K1 {launches['mc_head_sep']}", flush=True)
+    sums = float((a[..., :n].sum(-1) - 1).abs().max())
+    if not (p.shape == (T, 1) and a.shape == (T, 1, bucket) and bool(torch.isfinite(p).all())
+            and bool(((p >= 0) & (p <= 1)).all()) and bool((a[..., ~bag.mask] == 0).all())
+            and sums <= 1e-4 and out.aux_losses is None and launches["gather_tiles"] == 1):
+        raise RuntimeError("the single-head request's predictions or attention are wrong")
+    check_small_single_head_against_cpu()
+    del model
+    return bag
+
+
+def check_small_single_head_against_cpu() -> None:
+    """The single-head MC (dropout 0.25) of a small bag on the card and on
+    the CPU: the same seed draws the same Philox masks on both."""
+    from montecarlo_gated_mil_tpu_torch.mcdo.sampling import mc_inference_single_head
+    from montecarlo_gated_mil_tpu_torch.models.gamil import GatedAttentionMIL
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        model = GatedAttentionMIL(feature_dropout=0.25, attention_dropout=0.25)
+    g = torch.Generator().manual_seed(5)
+    mask = torch.arange(16) < 12
+    patches = torch.randn(16, 64, 64, 3, generator=g) * mask[:, None, None, None]
+    want = mc_inference_single_head(model, patches, mask, 8, 31, device="cpu")
+    got = mc_inference_single_head(model.cuda(), patches.cuda(), mask.cuda(), 8, 31)
+    err = max(float((got.predictions.cpu() - want.predictions).abs().max()),
+              float((got.attention.cpu() - want.attention).abs().max()))
+    print(f"  small single-head bag, card vs CPU (dropout 0.25, T=8): max|d| {err:.2e} "
+          f"(tol {SINGLE_HEAD_TOL:g})", flush=True)
+    if err > SINGLE_HEAD_TOL:
+        raise RuntimeError("the single-head MC on the card disagrees with the CPU")
+
+
+def check_serial_mc(pred, bag, main) -> None:
+    """(b) ``mc_inference_serial`` at T=50 with ``targets`` on the shipped
+    multi-head model beside ``mc_inference`` on (a)'s bag: 50 K1 launches,
+    equal or within K1's tolerances, and 50 auxiliary losses; then the head
+    stage alone, serial and batched."""
+    from montecarlo_gated_mil_tpu_torch.mcdo.sampling import (
+        mc_head,
+        mc_head_serial,
+        mc_inference,
+        mc_inference_serial,
+    )
+    from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
+
+    T, seed, model = 50, 7, pred.model
+    serial, launches = main(lambda: mc_inference_serial(model, bag.patches, bag.mask, T, seed,
+                                                        targets=1))
+    batched, _ = main(lambda: mc_inference(model, bag.patches, bag.mask, T, seed))
+    aux = serial.aux_losses
+    dy = float((serial.predictions - batched.predictions).abs().max())
+    da = float((serial.attention - batched.attention).abs().max())
+    equal = torch.equal(serial.predictions, batched.predictions) and torch.equal(
+        serial.attention, batched.attention)
+    params = GatedAttentionParams.from_module(model)
+    with torch.inference_mode():
+        H = model.embed(bag.patches, bag.mask)
+        times = {}
+        for name, fn in (("serial", mc_head_serial), ("batched", mc_head)):
+            fn(model, H, bag.mask, T, seed, params)  # warm
+            ev = _events(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            fn(model, H, bag.mask, T, seed, params)
+            ev[1].record()
+            host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            times[name] = (ev[0].elapsed_time(ev[1]), host)
+        del H
+    print(f"  (b) serial MC, T={T}: K1 launches {launches['mc_head_sep']}; serial vs "
+          f"mc_inference {'bit-equal' if equal else 'not bit-equal'}, max|dY| {dy:.3e} (tol "
+          f"{SERIAL_TOL_Y:g}), max|dA| {da:.3e} (tol {SERIAL_TOL_A:g}); head stage serial "
+          f"{times['serial'][0]:.2f} ms ({times['serial'][1]:.2f} ms host to queue), batched "
+          f"{times['batched'][0]:.2f} ms ({times['batched'][1]:.2f}); aux_losses "
+          f"{tuple(aux.shape)}, mean {float(aux.mean()):.5f}", flush=True)
+    if launches["mc_head_sep"] != T or dy > SERIAL_TOL_Y or da > SERIAL_TOL_A:
+        raise RuntimeError("serial MC did not launch K1 once per sample or disagrees with "
+                           "mc_inference")
+    if aux.shape != (T,) or not bool(torch.isfinite(aux).all()):
+        raise RuntimeError("serial MC's auxiliary losses are not 50 finite values")
+
+
+def check_counterfactuals(pred, bag, main) -> None:
+    """(c) ``causal_counterfactual_dropout`` at T=50 on the shipped model
+    and (a)'s bag: importance in (0, 1), drop rates beside their
+    expectation, counterfactual attention mass at most 1."""
+    from montecarlo_gated_mil_tpu_torch.models.causal import causal_counterfactual_dropout
+
+    T = 50
+    causal_counterfactual_dropout(pred.model, bag.patches, bag.mask, T, 3)  # warm
+    ev = _events(2)
+
+    def run():
+        torch.cuda.synchronize()
+        ev[0].record()
+        got = causal_counterfactual_dropout(pred.model, bag.patches, bag.mask, T, 3)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return got
+
+    out, launches = main(run)
+    mask = bag.mask
+    n, N = int(mask.sum()), mask.shape[0]
+    imp = out.importance.double()
+    expect = (imp * mask).sum(-1) / N  # mean importance over valid slots x valid / N
+    se = (imp * (1 - imp) * mask).sum(-1).sqrt() / N / T**0.5
+    rates = out.drop_rates.double()
+    mass = float(out.counterfactual_attention.sum(-1).max())
+    inside = bool(((imp > 0) & (imp < 1)).all())
+    print(f"  (c) counterfactual dropout, T={T}: {ev[0].elapsed_time(ev[1]):.2f} ms (embed "
+          f"included); importance in (0, 1) {inside} (range {float(imp.min()):.4f}-"
+          f"{float(imp.max()):.4f}); drop_rates {[round(float(r), 5) for r in rates]} beside "
+          f"mean importance over valid x {n}/{N} "
+          f"{[round(float(e), 5) for e in expect]} (standard error "
+          f"{[round(float(s), 5) for s in se]}); counterfactual attention mass max {mass:.6f}; "
+          f"K1 launches {launches['mc_head_sep']}", flush=True)
+    if not (inside and mass <= 1 + 1e-5 and bool(((rates - expect).abs() <= 5 * se).all())
+            and launches["mc_head_sep"] == 1):
+        raise RuntimeError("counterfactual dropout's importance, drop rates or mass are wrong")
+
+
+def check_train_epoch_plain(main, tb) -> None:
+    """(d) ``train_epoch_plain``: 4 SGD steps of the single-head model on 4
+    full-size synthetic training bags at bucket 1024, metrics to a memory
+    sink and ``tb`` (a TensorBoard sink, or None)."""
+    from montecarlo_gated_mil_tpu_torch.core.bag import BucketSpec
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import BagLoader
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import (
+        make_synthetic_reader,
+        synthetic_records,
+    )
+    from montecarlo_gated_mil_tpu_torch.experiment import _pipeline_cfgs
+    from montecarlo_gated_mil_tpu_torch.models.gamil import GatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.train.loops import train_epoch_plain
+    from montecarlo_gated_mil_tpu_torch.train.state import TrainState
+    from montecarlo_gated_mil_tpu_torch.utils.metrics import MemorySink, Metrics
+
+    cfg = Config()
+    train_cfg, _ = _pipeline_cfgs(cfg)
+    loader = BagLoader(
+        synthetic_records(12, seed=cfg.seed), make_synthetic_reader(cfg.data.H, cfg.data.W),
+        train_cfg, seed=cfg.seed, bucket_spec=BucketSpec(cfg.tpu.buckets), device="cuda",
+    )
+
+    def first_bags():
+        items = loader.epoch(1)
+        got = list(itertools.islice(((b, r) for b, r in items
+                                     if b.mask.shape[0] == train_cfg.bucket), 4))
+        items.close()  # stops the producer
+        return got
+
+    bags, bag_launches = main(first_bags)
+    if len(bags) < 4 or train_cfg.bucket != 1024:
+        raise RuntimeError(f"fewer than 4 training bags at bucket 1024 ({train_cfg.bucket})")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        model = GatedAttentionMIL(backbone=cfg.model).cuda()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.SGD(model.parameters(), lr=cfg.training_plan.parameters.lr)
+    sink = MemorySink()
+    metrics = Metrics([sink] + ([tb] if tb is not None else []))
+    marks = []
+
+    def timed(items):
+        for item in items:
+            marks.append(_events(1)[0])
+            marks[-1].record()
+            yield item
+        marks.append(_events(1)[0])
+        marks[-1].record()
+
+    (state, peak), _ = main(lambda: _peak_gib(lambda: train_epoch_plain(
+        model, TrainState(model, opt), timed(bags), opt, epoch=1, key=cfg.seed, metrics=metrics)))
+    metrics.close()
+    torch.cuda.synchronize()
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(len(marks) - 1)]
+    after = model.state_dict()
+    moved = {part: any(not torch.equal(before[k], after[k]) for k in before
+                       if k.startswith("feature_extractor.") == (part == "backbone"))
+             for part in ("backbone", "head")}
+    loss, acc = sink.values("train/epoch_loss"), sink.values("train/epoch_acc")
+    print(f"  (d) train_epoch_plain: 4 bags at bucket {train_cfg.bucket} "
+          f"({[int(b.mask.sum()) for b, _ in bags]} valid), SGD lr "
+          f"{cfg.training_plan.parameters.lr:g}; ms per step "
+          f"{[round(m, 1) for m in step_ms]} (CUDA events); peak {peak:.3f} GiB; epoch loss "
+          f"{loss}, acc {acc}; step {state.step}; weights moved {moved}; K3 launches for the "
+          f"bags {bag_launches['gather_tiles']}", flush=True)
+    if not (state.step == 4 and len(loss) == 1 and np.isfinite(loss[0]) and all(moved.values())):
+        raise RuntimeError("train_epoch_plain: step count, loss or weight update is wrong")
+    del bags, model, opt, state
+    torch.cuda.empty_cache()
+
+
+# The acceptance's seed sweep: seeds 0-11, each held to all five criteria,
+# and the least number of them that must meet all five: as many as meet them
+# in the JAX package's own harness on the same seeds, by
+# tests/uncertainty_seeds.py on an x86 CPU with XLA's default threading (6;
+# 4 with one Eigen thread, seed 0 among the misses).
+SWEEP_SEEDS = tuple(range(12))
+SWEEP_MIN_PASSES = 6
+
+
+def check_uncertainty_acceptance(main) -> None:
+    """(e) The uncertainty acceptance (``evaluation/uncertainty.py``, the
+    port of the JAX package's ``tests/test_uncertainty.py``) trained on the
+    card at seed 0 and checked with its thresholds.  The fit and the two
+    uncertainty ratios must hold at seed 0.  Whether the class-1 attention
+    settles on the lesion tiles depends on the training trajectory, in the
+    JAX package as in the port (ROADMAP.md queue 3), so a seed-0 miss of the
+    attention criteria is printed as the open fault it is, and then every
+    seed of ``SWEEP_SEEDS`` is held to all five criteria: the phase fails
+    if fewer than ``SWEEP_MIN_PASSES`` of them meet all five."""
+    from montecarlo_gated_mil_tpu_torch.evaluation import uncertainty as u
+
+    def run(seed: int):
+        t0 = time.perf_counter()
+        model, accs = u.train_toy_model(seed=seed, device="cuda")
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        values, oks = u.criteria(accs, (*u.uncertainty_ratios(model), *u.attention_ratios(model)))
+        return accs, values, oks, train_s, time.perf_counter() - t0
+
+    (accs, values, oks, train_s, eval_s), launches = main(lambda: run(0))
+    print(f"  (e) uncertainty acceptance, seed 0: trained 24 bags x 14 epochs in {train_s:.1f} s "
+          f"(accuracy per epoch {[round(a, 4) for a in accs]}), evaluated 24 bags x T={u.T} in "
+          f"{eval_s:.1f} s; {u.describe(values, oks)}; launches K2 "
+          f"{launches['mc_head_shared']}, K4 {launches['mc_head_bwd_shared']}", flush=True)
+    if not all(oks[:3]):
+        raise RuntimeError("the uncertainty acceptance failed on the card: the fit or the "
+                           "predictive-uncertainty ratios")
+    if not all(oks[3:]):
+        print("      seed 0 misses the attention criteria: open fault, ROADMAP.md queue 3",
+              flush=True)
+    passed = [0] if all(oks) else []
+    for seed in SWEEP_SEEDS[1:]:  # seed 0's is the acceptance's, above
+        _, values, oks, train_s, _ = run(seed)
+        print(f"      seed {seed} ({train_s:.1f} s): {u.describe(values, oks)}", flush=True)
+        if all(oks):
+            passed.append(seed)
+    print(f"      all five criteria met at {len(passed)} of {len(SWEEP_SEEDS)} seeds "
+          f"({', '.join(map(str, passed))}); at least {SWEEP_MIN_PASSES} required", flush=True)
+    if len(passed) < SWEEP_MIN_PASSES:
+        raise RuntimeError(f"the uncertainty acceptance met all five criteria at {len(passed)} "
+                           f"of {len(SWEEP_SEEDS)} seeds, fewer than {SWEEP_MIN_PASSES}")
 
 
 def time_heads(root: str) -> int:

@@ -17,9 +17,11 @@ subcommands and flags:
 ``cv-eval`` ``run_cv_eval``, ``infer`` ``viz.infer.run_inference`` (the
 figures need matplotlib), ``bench`` ``bench.run_bench`` (one JSON line)
 and ``serve`` the JSONL or HTTP front-end of ``server.py``, on the CUDA card.
-What is not ported yet (``--aot-cache``, ``--tensorboard``, the Neptune
-sink, a multi-process ``tpu.coordinator_address``) exits non-zero with a
-message naming its ROADMAP.md item, never doing something else instead.
+Metrics go to stdout, to TensorBoard event files under ``--tensorboard
+DIR`` and, with ``neptune: true`` in the YAML, to a Neptune run where
+``neptune`` imports.  What is not ported (``--aot-cache``, a multi-process
+``tpu.coordinator_address``) exits non-zero with a message naming its
+ROADMAP.md item, never doing something else instead.
 """
 
 from __future__ import annotations
@@ -125,8 +127,6 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
     a test, passes ``"cpu"``).  Raises ``SystemExit`` with a message for
     what is not ported."""
     args = get_args_parser().parse_args(argv)
-    if args.tensorboard:
-        raise _unported("--tensorboard, the TensorBoard sink (ROADMAP.md queue 1, item 1)")
     if args.command == "serve" and args.aot_cache:
         raise _unported("--aot-cache, the JAX package's executable cache (ROADMAP.md queue 1, "
                         "'Never to be ported': CUDA needs no compile cache)")
@@ -136,15 +136,23 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
     cfg = load_config(args.config)
     if cfg.tpu.coordinator_address:
         raise _unported("multi-process runs, tpu.coordinator_address (ROADMAP.md queue 1, "
-                        "item 2: parallel/distributed.py)")
+                        "item 1: parallel/distributed.py)")
     metrics = Metrics([StdoutSink()])
+    if args.tensorboard:
+        from montecarlo_gated_mil_tpu_torch.utils.metrics import TensorBoardSink
+
+        metrics.sinks.append(TensorBoardSink(args.tensorboard))
     if cfg.neptune:
         try:
-            import neptune  # noqa: F401
+            import neptune
+
+            from montecarlo_gated_mil_tpu_torch.utils.metrics import NeptuneSink
+
+            run = neptune.init_run()
+            run["config"] = {"yml": args.config}
+            metrics.sinks.append(NeptuneSink(run))
         except ImportError:
             print("neptune not installed; continuing with stdout metrics")
-        else:
-            raise _unported("the Neptune sink (ROADMAP.md queue 1, item 1)")
 
     if args.command == "train":
         from montecarlo_gated_mil_tpu_torch.runners import run_training

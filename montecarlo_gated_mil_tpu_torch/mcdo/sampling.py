@@ -5,6 +5,18 @@ computed once, by the float backbone or the int8 embed (``make_embed_fn``);
 the T stochastic head passes run in the MC-head kernel
 (``ops/gated_attention.py``) on the card, or its plain version on the CPU.
 The uncertainty reductions are plain tensor ops on the device.
+
+- ``mc_inference``: all T samples of the multi-head model in one kernel
+  launch;
+- ``mc_inference_serial``: the same samples one launch each (T=1, seed
+  ``seed + t``), so one sample's intermediates are live at a time; on the
+  CPU it equals ``mc_inference`` bit for bit;
+- ``mc_inference_single_head``: the single-head ``GatedAttentionMIL``, its
+  plain head one sample at a time, with the sigmoid applied inside.
+
+With ``targets`` the multi-head paths also return the per-sample auxiliary
+losses, scaled by ``aux_scale`` (a model with other than 2 class heads
+raises ``ValueError``).
 """
 
 from __future__ import annotations
@@ -13,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
 from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
     GatedAttentionParams,
     mc_gated_attention,
@@ -23,12 +36,15 @@ from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
 class MCOutputs:
     """Raw Monte Carlo outputs for one bag.
 
-    predictions: ``(T, C)`` raw logits.
+    predictions: ``(T, C)`` raw logits (probabilities on the single-head
+    path).
     attention: ``(T, C, N)`` post-softmax attention (zero on padded slots).
+    aux_losses: ``(T,)`` scaled auxiliary losses, or None without targets.
     """
 
     predictions: torch.Tensor
     attention: torch.Tensor
+    aux_losses: torch.Tensor | None = None
 
 
 def make_embed_fn(model, quantized: bool = False):
@@ -60,6 +76,7 @@ def mc_head(
     num_samples: int,
     seed: int,
     params: GatedAttentionParams | None = None,
+    targets=None,
 ) -> MCOutputs:
     """T stochastic head passes over precomputed features ``H (N, L)``;
     sample t is seeded with ``seed + t``.  ``params`` may carry the head's
@@ -72,7 +89,57 @@ def mc_head(
         H, mask, params, num_samples, seed,
         model.feature_dropout, model.attention_dropout,
     )
-    return MCOutputs(predictions=Y, attention=A)
+    return MCOutputs(predictions=Y, attention=A, aux_losses=_aux_losses(model, A, targets))
+
+
+def mc_head_serial(
+    model,
+    H: torch.Tensor,
+    mask: torch.Tensor | None,
+    num_samples: int,
+    seed: int,
+    params: GatedAttentionParams | None = None,
+    targets=None,
+) -> MCOutputs:
+    """:func:`mc_head` one sample at a time: sample t is one head launch at
+    T=1 seeded with ``seed + t``, the seed sample t of :func:`mc_head` has."""
+    if params is None:
+        params = GatedAttentionParams.from_module(model)
+    outs = [mc_head(model, H, mask, 1, seed + t, params) for t in range(num_samples)]
+    A = torch.cat([o.attention for o in outs])
+    return MCOutputs(
+        predictions=torch.cat([o.predictions for o in outs]), attention=A,
+        aux_losses=_aux_losses(model, A, targets),
+    )
+
+
+def _aux_losses(model, A: torch.Tensor, targets) -> torch.Tensor | None:
+    """Per-sample scaled auxiliary losses of ``A (T, C, N)``: the positive
+    head (class 1) against the negative head (class 0).  On a model with any
+    other head count that contrast means nothing, so targets raise."""
+    if targets is None:
+        return None
+    if A.shape[-2] != 2:
+        raise ValueError(
+            "aux loss (targets=...) requires exactly 2 class heads "
+            f"(pos/neg attention contrast); model produced {A.shape[-2]}"
+        )
+    targets = torch.as_tensor(targets, device=A.device)
+    return model.aux_scale * auxiliary_loss(
+        A[:, 1, :], A[:, 0, :], targets == 1,
+        loss_type=model.aux_loss_type, margin=model.aux_margin,
+    )
+
+
+def _on_device(model, patches, mask, device):
+    """``patches`` and ``mask`` as tensors on ``device``, where ``model``
+    must already live."""
+    device = torch.device(device)
+    model_device = next(model.parameters()).device
+    if model_device.type != device.type:
+        raise ValueError(f"model is on {model_device}, inference asked for {device}")
+    patches = torch.as_tensor(patches, device=device)
+    return patches, None if mask is None else torch.as_tensor(mask, device=device)
 
 
 def mc_inference(
@@ -81,6 +148,7 @@ def mc_inference(
     mask,
     num_samples: int,
     seed: int,
+    targets=None,
     *,
     quantized: bool = False,
     device: str | torch.device = "cuda",
@@ -88,16 +156,57 @@ def mc_inference(
     """Features once (the int8 embed with ``quantized``), then T head
     samples.  ``patches``: one bag ``(N, h, w, 3)``; ``model`` must already
     live on ``device``."""
-    device = torch.device(device)
-    model_device = next(model.parameters()).device
-    if model_device.type != device.type:
-        raise ValueError(f"model is on {model_device}, inference asked for {device}")
-    patches = torch.as_tensor(patches, device=device)
-    mask = None if mask is None else torch.as_tensor(mask, device=device)
+    patches, mask = _on_device(model, patches, mask, device)
     embed = make_embed_fn(model, quantized)
     with torch.inference_mode():
         H = embed(patches, mask)
-        return mc_head(model, H, mask, num_samples, seed)
+        return mc_head(model, H, mask, num_samples, seed, targets=targets)
+
+
+def mc_inference_serial(
+    model,
+    patches,
+    mask,
+    num_samples: int,
+    seed: int,
+    targets=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> MCOutputs:
+    """:func:`mc_inference` with the T samples one after another
+    (:func:`mc_head_serial`): features once, then T launches of the head
+    kernel at T=1, so only one sample's intermediates are live at a time
+    (JAX's ``lax.scan`` form; the reference's Python loop)."""
+    patches, mask = _on_device(model, patches, mask, device)
+    with torch.inference_mode():
+        H = model.embed(patches, mask)
+        return mc_head_serial(model, H, mask, num_samples, seed, targets=targets)
+
+
+def mc_inference_single_head(
+    model,
+    patches,
+    mask,
+    num_samples: int,
+    seed: int,
+    *,
+    device: str | torch.device = "cuda",
+) -> MCOutputs:
+    """Single-head ``GatedAttentionMIL`` MC inference with the reference's
+    contract: features once, then T stochastic passes of the head, one
+    sample's intermediates at a time, with the **sigmoid applied inside**,
+    so ``predictions (T, num_classes)`` are probabilities; ``attention`` is
+    ``(T, K, N)``.  Sample t draws its masks from seed ``seed + t``.  There
+    is no auxiliary loss on this model: ``aux_losses`` is None."""
+    patches, mask = _on_device(model, patches, mask, device)
+    with torch.inference_mode():
+        H = model.embed(patches, mask)
+        ys, attns = [], []
+        for t in range(num_samples):
+            y, a = model.head(H, mask, mc_dropout=True, seed=seed + t)
+            ys.append(torch.sigmoid(y))
+            attns.append(a)
+        return MCOutputs(predictions=torch.stack(ys), attention=torch.stack(attns))
 
 
 @dataclass(frozen=True)

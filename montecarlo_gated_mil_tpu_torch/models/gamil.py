@@ -1,12 +1,17 @@
-"""Multi-head gated-attention MIL, the flagship model.
+"""Gated-attention MIL models: the multi-head flagship and the single-head model.
 
-Counterpart of ``montecarlo_gated_mil_tpu/models/gamil.py``: one gated
-attention head and one bias-free linear classifier per class, shared or
-per-class V/U gates, attention dropout on the pre-softmax logits.  The
-module names follow the reference's state_dict schema
-(``attention_V.{i}.0``, ``attention_weights.{i}``, ``classifiers.{i}``), so
-``models/port.py::port_multihead_gamil`` of the JAX package reads the port's
-state_dict unchanged.
+Counterpart of ``montecarlo_gated_mil_tpu/models/gamil.py``.
+
+- ``MultiHeadGatedAttentionMIL``: one gated attention head and one
+  bias-free linear classifier per class, shared or per-class V/U gates,
+  attention dropout on the pre-softmax logits.  Module names
+  ``attention_V.{i}.0``, ``attention_weights.{i}``, ``classifiers.{i}``, as
+  ``models/port.py::port_multihead_gamil`` of the JAX package reads them.
+- ``GatedAttentionMIL``: K attention heads over one gate, the pooled
+  embeddings concatenated into one classifier, attention dropout inside the
+  V/U branches.  Module names ``attention_V.0``, ``attention_U.0``,
+  ``attention_weights``, ``classifier.0``, as ``port_singlehead_gamil``
+  reads them.
 
 ``embed`` (the ResNet, expensive) and ``head`` (gate, masked softmax,
 pooling, classifiers) are separate so Monte Carlo dropout runs T head
@@ -19,6 +24,16 @@ import torch
 import torch.nn as nn
 
 from montecarlo_gated_mil_tpu_torch.models.resnet import feature_dim, make_backbone
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
+    FEATURE_DRAW,
+    apply_dropout,
+    dropout_uniforms,
+)
+from montecarlo_gated_mil_tpu_torch.ops.masked import masked_softmax
+
+# Philox draw indices of the single-head model's attention dropouts; its
+# feature dropout takes ``FEATURE_DRAW``, as the MC head kernels do.
+V_DRAW, U_DRAW = 1, 2
 
 
 def pairwise_distance(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -173,3 +188,92 @@ class MultiHeadGatedAttentionMIL(nn.Module):
             A[1], A[0], targets == 1, loss_type=self.aux_loss_type, margin=self.aux_margin
         )
         return Y, A, aux
+
+
+class GatedAttentionMIL(nn.Module):
+    """Single-head GA-MIL (JAX ``gamil.py::GatedAttentionMIL``).
+
+    K attention heads over one tanh/sigmoid gate; the K pooled embeddings
+    are concatenated into one linear classifier with bias.  Attention
+    dropout acts *inside* the gate branches, after the tanh and after the
+    sigmoid, unlike the multi-head model's pre-softmax logit dropout.  The
+    head is plain PyTorch on every device (the JAX package computes it
+    outside any Pallas kernel); its three dropout masks come from the port's
+    Philox stream keyed on ``seed``, draws ``FEATURE_DRAW``, ``V_DRAW`` and
+    ``U_DRAW``, in one call (``ops/gated_attention.py::dropout_uniforms``),
+    so one seed draws the same masks on the CPU and on the card.  Linear
+    layers keep torch's default init.
+    """
+
+    def __init__(
+        self,
+        num_classes: int = 1,
+        backbone: str = "r18",
+        D: int = 128,
+        K: int = 1,
+        feature_dropout: float = 0.1,
+        attention_dropout: float = 0.1,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.backbone = backbone
+        self.D = D
+        self.K = K
+        self.feature_dropout = feature_dropout
+        self.attention_dropout = attention_dropout
+        self.dtype = dtype
+        L = feature_dim(backbone)
+        self.L = L
+        self.feature_extractor = make_backbone(backbone, dtype=dtype)
+        self.attention_V = nn.Sequential(nn.Linear(L, D), nn.Tanh())
+        self.attention_U = nn.Sequential(nn.Linear(L, D), nn.Sigmoid())
+        self.attention_weights = nn.Linear(D, K)
+        self.classifier = nn.Sequential(nn.Linear(L * K, num_classes))
+
+    def embed(self, patches: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Patch bag ``(N, h, w, 3)`` -> features ``(N, L)``."""
+        return self.feature_extractor(patches, mask)
+
+    def head(
+        self,
+        H: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        *,
+        train: bool = False,
+        mc_dropout: bool = False,
+        seed: int = 0,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Features ``(N, L)`` -> logits ``(num_classes,)`` and attention
+        ``(K, N)``.  ``train`` or ``mc_dropout`` turns dropout on, drawn
+        from ``seed``.  ``Hd`` is promoted to at least f32 (a bf16 embed is
+        promoted, an f64 run stays f64)."""
+        stochastic = train or mc_dropout
+        p_f = self.feature_dropout if stochastic else 0.0
+        p_a = self.attention_dropout if stochastic else 0.0
+        N = H.shape[0]
+        draws = [(FEATURE_DRAW, H.numel())] if p_f > 0 else []
+        draws += [(V_DRAW, N * self.D), (U_DRAW, N * self.D)] if p_a > 0 else []
+        u = dict(zip((d for d, _ in draws), dropout_uniforms(seed, draws, H.device)))
+        Hd = apply_dropout(H, u[FEATURE_DRAW], p_f) if p_f > 0 else H
+        Hd = Hd.to(torch.promote_types(Hd.dtype, torch.float32))
+        V, U = self.attention_V(Hd), self.attention_U(Hd)
+        if p_a > 0:
+            V, U = apply_dropout(V, u[V_DRAW], p_a), apply_dropout(U, u[U_DRAW], p_a)
+        logits = self.attention_weights(V * U).T  # (K, N)
+        if mask is None:
+            mask = torch.ones(N, dtype=torch.bool, device=H.device)
+        A = masked_softmax(logits, mask[None, :])
+        M = A @ Hd  # (K, L)
+        return self.classifier(M.reshape(-1)), A
+
+    def forward(
+        self,
+        patches: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        *,
+        train: bool = False,
+        seed: int = 0,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full forward of one bag: ``(Y (num_classes,), A (K, N))``."""
+        return self.head(self.embed(patches, mask), mask, train=train, seed=seed)

@@ -53,10 +53,11 @@ def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def philox4x32_10(
     counter: tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
-    key: tuple[int, int],
+    key: tuple,
 ) -> tuple[torch.Tensor, ...]:
     """Philox4x32-10 on int64 tensors holding uint32 words; bit-exact with
-    ``philox4x32_10`` in ``csrc/philox.cuh``."""
+    ``philox4x32_10`` in ``csrc/philox.cuh``.  A key word is an int or an
+    int64 tensor that broadcasts against the counter."""
     c0, c1, c2, c3 = counter
     k0, k1 = key[0] & _MASK32, key[1] & _MASK32
     for r in range(10):
@@ -68,15 +69,37 @@ def philox4x32_10(
     return c0, c1, c2, c3
 
 
+def dropout_uniforms(key: int, draws, device) -> list[torch.Tensor]:
+    """U[0,1) float32 for several draws of one key in one Philox call:
+    ``draws`` is a sequence of ``(draw, n)``, and the result holds, for each,
+    elements ``0..n-1`` of that draw.  Element ``e`` of draw ``d`` is the
+    top 24 bits of word ``e % 4`` of Philox at counter ``(e // 4, 0, 0, 0)``
+    and key ``(key, d)``, so one call serves four elements."""
+    if not draws:
+        return []
+    groups = [(n + 3) // 4 for _, n in draws]
+    counter = torch.cat([torch.arange(g, dtype=torch.int64, device=device) for g in groups])
+    draw = torch.cat([torch.full((g,), d, dtype=torch.int64, device=device)
+                      for (d, _), g in zip(draws, groups)])
+    zero = torch.zeros_like(counter)
+    words = torch.stack(philox4x32_10((counter, zero, zero, zero), (key, draw)), -1)
+    out = []
+    for part, (_, n) in zip(torch.split(words, groups), draws):
+        out.append((part.reshape(-1)[:n] >> 8).to(torch.float32) * _INV_2_24)
+    return out
+
+
 def dropout_uniform(key: int, draw: int, n: int, device) -> torch.Tensor:
-    """U[0,1) float32 for elements ``0..n-1`` of one draw: element ``e`` is
-    the top 24 bits of word ``e % 4`` of Philox at counter ``(e // 4, 0, 0,
-    0)`` and key ``(key, draw)``, so one call serves four elements."""
-    group = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
-    zero = torch.zeros_like(group)
-    words = philox4x32_10((group, zero, zero, zero), (key, draw))
-    bits = torch.stack(words, -1).reshape(-1)[:n]
-    return (bits >> 8).to(torch.float32) * _INV_2_24
+    """U[0,1) float32 for elements ``0..n-1`` of one draw
+    (:func:`dropout_uniforms`)."""
+    return dropout_uniforms(key, [(draw, n)], device)[0]
+
+
+def apply_dropout(x: torch.Tensor, u: torch.Tensor, p: float) -> torch.Tensor:
+    """``x * keep * (1/(1-p))`` with ``keep = u >= p``, element ``e`` of
+    ``x`` (row-major) taking uniform ``e``, as the kernels do."""
+    keep = u.view(x.shape) >= torch.tensor(p, dtype=torch.float32)
+    return x * keep.to(x.dtype) * (1.0 / (1.0 - p))
 
 
 def _keep(shape, p: float, key: int, draw: int, device, dtype) -> torch.Tensor:
@@ -90,7 +113,7 @@ def _keep(shape, p: float, key: int, draw: int, device, dtype) -> torch.Tensor:
 
 def _dropout(x: torch.Tensor, p: float, key: int, draw: int) -> torch.Tensor:
     """``x * keep * (1/(1-p))`` with ``keep = u >= p``, as the kernels do."""
-    return x * _keep(x.shape, p, key, draw, x.device, x.dtype) * (1.0 / (1.0 - p))
+    return apply_dropout(x, dropout_uniform(key, draw, x.numel(), x.device), p)
 
 
 @dataclass(frozen=True)

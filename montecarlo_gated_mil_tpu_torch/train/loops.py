@@ -8,6 +8,10 @@ Counterpart of ``montecarlo_gated_mil_tpu/train/loops.py`` (reference
   ``train/epoch_loss|epoch_acc|aux_loss``, and per step ``train/step`` =
   ``{"ms", "bucket", "instances"}`` (time by CUDA events on the card, the
   host clock on the CPU; the padded and the valid bag size);
+- ``train_epoch_plain`` (``net_utils.py:6-30``): the single-head model's
+  plain loop, sigmoid + BCE against the binary label, an optimizer step
+  every bag, prediction = P > 0.5, epoch metrics
+  ``train/epoch_loss|epoch_acc``;
 - ``validate`` (``net_utils.py:82-114``): deterministic forward, CE loss,
   argmax accuracy; returns the epoch loss for early stopping;
 - ``mc_validate`` (``net_utils.py:116-158``): T MC samples; loss = mean over
@@ -39,6 +43,7 @@ import torch
 from montecarlo_gated_mil_tpu_torch.core import rng
 from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn, mc_head
 from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
+from montecarlo_gated_mil_tpu_torch.train.criteria import bce_on_probs
 from montecarlo_gated_mil_tpu_torch.train.state import TrainState
 from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics
 
@@ -116,6 +121,54 @@ def train_epoch(
     m.log("train/aux_loss", running_aux / total, step=epoch)
     print(f"Epoch {epoch} - Train Loss: {running_loss / total:.4f}, "
           f"Accuracy: {correct / total:.4f}")
+    return state
+
+
+def _plain_step(model, optimizer, state: TrainState, bag, seed: int):
+    """One plain step of the single-head model: sigmoid + BCE against the
+    bag's label, autograd through the plain head and the masked-BN embed,
+    and an optimizer step.  Returns ``(state, loss, correct)``."""
+    y, _ = model(bag.patches, bag.mask, train=True, seed=seed)
+    p = torch.sigmoid(y)
+    loss = bce_on_probs(p, torch.full_like(p, float(bag.label)))
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    if state.scheduler is not None:
+        state.scheduler.step()
+    state.step += 1
+    correct = ((p[0] > 0.5).to(torch.int64) == bag.label).to(torch.float32)
+    return state, loss.detach(), correct
+
+
+def train_epoch_plain(
+    model,
+    state: TrainState,
+    loader: Iterable,
+    optimizer,
+    *,
+    epoch: int,
+    key: int,
+    metrics: Metrics | None = None,
+) -> TrainState:
+    """Plain per-bag training for the single-head ``GatedAttentionMIL``
+    (reference ``net_utils.py:6-30``): sigmoid outputs + BCE against the
+    binary label, an optimizer step every bag, prediction = P > 0.5.  Bag
+    ``i`` of epoch ``e`` draws its dropout from ``fold_in(fold_in(key, e),
+    i)`` (``core/rng.py``).  Unused by the main entry points, as in the JAX
+    package."""
+    running_loss = correct = total = 0.0
+    for i, (bag, _rec) in enumerate(_items(loader, epoch)):
+        seed = rng.fold_in(rng.fold_in(key, epoch), i)
+        state, loss, c = _plain_step(model, optimizer, state, bag, seed)
+        running_loss += float(loss)
+        correct += float(c)
+        total += 1
+    m = metrics or Metrics([])
+    m.log("train/epoch_loss", running_loss / max(total, 1), step=epoch)
+    m.log("train/epoch_acc", correct / max(total, 1), step=epoch)
+    print(f"Epoch {epoch} - Train Loss: {running_loss / max(total, 1):.4f}, "
+          f"Accuracy: {correct / max(total, 1):.4f}")
     return state
 
 

@@ -1,10 +1,9 @@
 """Metrics front-end with pluggable sinks.
 
 Counterpart of ``montecarlo_gated_mil_tpu/utils/metrics.py``: one thin
-``Metrics`` fans out to stdout, JSONL and in-memory sinks, with the
-reference's metric names (``train/epoch_loss``, ``val/epoch_acc``,
-``test/accuracy``, fold-prefixed ``{fold}/train/...``).  The TensorBoard and
-Neptune sinks are not ported yet (ROADMAP.md).
+``Metrics`` fans out to stdout, JSONL, in-memory, TensorBoard and Neptune
+sinks, with the reference's metric names (``train/epoch_loss``,
+``val/epoch_acc``, ``test/accuracy``, fold-prefixed ``{fold}/train/...``).
 """
 
 from __future__ import annotations
@@ -63,6 +62,51 @@ class MemorySink:
 
     def close(self):
         pass
+
+
+class TensorBoardSink:
+    """TensorBoard event files via ``torch.utils.tensorboard`` (imported
+    here, so the module imports without tensorboard).  Scalars go to
+    ``add_scalar``, with a per-name step counted here when none is given;
+    everything else (classification reports, paths) to ``add_text``."""
+
+    def __init__(self, log_dir: str):
+        from torch.utils.tensorboard import SummaryWriter
+
+        self.writer = SummaryWriter(log_dir=log_dir)
+        self._auto_step: dict[str, int] = {}
+
+    def log(self, name, value, step=None):
+        if step is None:
+            step = self._auto_step.get(name, 0)
+            self._auto_step[name] = step + 1
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            self.writer.add_scalar(name, value, global_step=step)
+        else:
+            self.writer.add_text(name, str(value), global_step=step)
+
+    def close(self):
+        self.writer.close()
+
+
+class NeptuneSink:
+    """Passthrough to a Neptune run object (reference
+    ``neptune_run[k].log(v)``); imports nothing."""
+
+    def __init__(self, run):
+        self.run = run
+
+    def log(self, name, value, step=None):
+        if step is None:
+            self.run[name].log(value)
+        else:
+            self.run[name].log(value, step=step)
+
+    def close(self):
+        try:
+            self.run.stop()
+        except Exception:
+            pass
 
 
 class Metrics:

@@ -13,6 +13,9 @@ Layout conversions:
   stacked per-class w_V/w_U (C, L, D), w_att (C, D, 1), b_att (C, 1),
   w_cls (C, L, 1)             -> per-class ``attention_V.{i}.0``,
                                  ``attention_weights.{i}``, ``classifiers.{i}``
+  single-head w_V/w_U (L, D), w_att (D, K), w_cls (L*K, C), b_cls (C,)
+                              -> ``attention_V.0``, ``attention_U.0``,
+                                 ``attention_weights``, ``classifier.0``
 """
 
 from __future__ import annotations
@@ -72,4 +75,17 @@ def from_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         sd[f"attention_weights.{i}.weight"] = _t(w_att[i].T)  # (D, 1) -> (1, D)
         sd[f"attention_weights.{i}.bias"] = _t(b_att[i])  # (1,)
         sd[f"classifiers.{i}.weight"] = _t(w_cls[i].T)  # (L, 1) -> (1, L)
+    return sd
+
+
+def from_jax_singlehead_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``GatedAttentionMIL`` flax params (with or without the
+    ``{"params": ...}`` wrapper) -> the port's state_dict: the inverse of
+    ``models/port.py::port_singlehead_gamil``."""
+    p = params.get("params", params)
+    sd = backbone_from_jax(p["features"], "feature_extractor.")
+    for key, w, b in (("attention_V.0", "w_V", "b_V"), ("attention_U.0", "w_U", "b_U"),
+                      ("attention_weights", "w_att", "b_att"), ("classifier.0", "w_cls", "b_cls")):
+        sd[f"{key}.weight"] = _t(np.asarray(p[w]).T)  # (in, out) -> (out, in)
+        sd[f"{key}.bias"] = _t(p[b])
     return sd

@@ -5,7 +5,6 @@ its ROADMAP item."""
 import json
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
@@ -109,21 +108,21 @@ def test_cli_train(tmp_path, capsys):
     assert (tmp_path / "models" / "best").is_file()
 
 
+_COORDINATOR = {"tpu": {"coordinator_address": "localhost:1234"}}
+
+
 @pytest.mark.parametrize("argv, raw, item", [
-    (["cv", "--tensorboard", "tb"], {}, "queue 1, item 1"),
-    (["cv-eval", "--manifest", "m.json"], {"tpu": {"coordinator_address": "localhost:1234"}},
-     "queue 1, item 2"),
-    (["infer", "--out", "figs"], {"tpu": {"coordinator_address": "localhost:1234"}},
-     "queue 1, item 2"),
-    (["bench"], {"neptune": True}, "queue 1, item 1"),
+    (["cv"], _COORDINATOR, "queue 1, item 1"),
+    (["cv-eval", "--manifest", "m.json"], _COORDINATOR, "queue 1, item 1"),
+    (["infer", "--out", "figs"], _COORDINATOR, "queue 1, item 1"),
+    (["bench"], _COORDINATOR, "queue 1, item 1"),
     (["serve", "--aot-cache", "cache"], {}, "'Never to be ported'"),
-    (["train", "--tensorboard", "tb"], {}, "queue 1, item 1"),
-    (["train"], {"tpu": {"coordinator_address": "localhost:1234"}}, "queue 1, item 2"),
+    (["serve", "--input", "r.jsonl"], _COORDINATOR, "queue 1, item 1"),
+    (["train"], _COORDINATOR, "queue 1, item 1"),
 ])
-def test_unported_exits_nonzero_naming_roadmap(tmp_path, monkeypatch, argv, raw, item):
-    """Each refusal names its item in ROADMAP.md's current numbering; the
-    Neptune sink is refused only where the package imports."""
-    monkeypatch.setitem(sys.modules, "neptune", types.ModuleType("neptune"))
+def test_unported_exits_nonzero_naming_roadmap(tmp_path, argv, raw, item):
+    """Each refusal names its item in ROADMAP.md's current numbering:
+    multi-process runs on every subcommand, and ``--aot-cache``."""
     path, _ = _write_config(tmp_path, raw)
     with pytest.raises(SystemExit) as exc:
         main([argv[0], "--config", path, *argv[1:]], device="cpu")
@@ -134,10 +133,9 @@ def test_unported_exits_nonzero_naming_roadmap(tmp_path, monkeypatch, argv, raw,
 
 def test_module_entry_point(tmp_path):
     """``python -m montecarlo_gated_mil_tpu_torch.cli`` runs ``main``."""
-    path, _ = _write_config(tmp_path, {})
+    path, _ = _write_config(tmp_path, _COORDINATOR)
     proc = subprocess.run(
-        [sys.executable, "-m", "montecarlo_gated_mil_tpu_torch.cli", "cv", "--config", path,
-         "--tensorboard", "tb"],
+        [sys.executable, "-m", "montecarlo_gated_mil_tpu_torch.cli", "cv", "--config", path],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 1 and "ROADMAP.md" in proc.stderr and proc.stdout == ""

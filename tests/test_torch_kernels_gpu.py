@@ -814,3 +814,71 @@ def test_infer_item_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch):
         for f in vars(b[5]):
             torch.testing.assert_close(getattr(a[5], f).double(), getattr(b[5], f).double(),
                                        atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True])
+def test_mc_inference_serial_on_the_card(cuda, shared):
+    """``mc_inference_serial`` with dropout on: T launches of the head
+    kernel at T=1 (by the wrapper's counter and by device function), the
+    auxiliary losses of ``targets``, and every sample within K1's
+    tolerances (1e-4 on Y, 1e-5 on A) of the batched ``mc_inference``: the
+    row plan may differ between T=1 and T=6, so the sums' order may too."""
+    from montecarlo_gated_mil_tpu_torch.mcdo.sampling import mc_inference, mc_inference_serial
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+
+    torch.manual_seed(2)
+    model = MultiHeadGatedAttentionMIL(shared_attention=shared).to(cuda)
+    g = torch.Generator().manual_seed(4)
+    mask = (torch.arange(16) < 12).to(cuda)
+    patches = torch.randn(16, 64, 64, 3, generator=g).to(cuda) * mask[:, None, None, None]
+    T = 6
+    kernel = cuda_build.KERNELS["mc_head_shared" if shared else "mc_head_sep"]
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        batched = mc_inference(model, patches, mask, T, 5, targets=1)
+        before = kernel.launches
+        serial = mc_inference_serial(model, patches, mask, T, 5, targets=1)
+        assert kernel.launches - before == T
+        got = _device_launches(lambda: mc_inference_serial(model, patches, mask, T, 5),
+                               "mc_head.cu")
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    assert got == {"mc_fwd_tile_kernel": T, "mc_fwd_finalize_kernel": T}
+    torch.testing.assert_close(serial.predictions, batched.predictions, atol=1e-4, rtol=0)
+    torch.testing.assert_close(serial.attention, batched.attention, atol=1e-5, rtol=0)
+    assert serial.aux_losses.shape == (T,) and bool(torch.isfinite(serial.aux_losses).all())
+    torch.testing.assert_close(serial.aux_losses, batched.aux_losses, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_single_head_mc_on_the_card_matches_cpu(cuda):
+    """The single-head model's MC samples with dropout 0.25 on the card
+    equal the CPU's within 1e-5 (probabilities and attention): one seed
+    draws the same Philox masks on both.  The head alone on the same
+    features agrees within 1e-6."""
+    from montecarlo_gated_mil_tpu_torch.mcdo.sampling import mc_inference_single_head
+    from montecarlo_gated_mil_tpu_torch.models.gamil import GatedAttentionMIL
+
+    torch.manual_seed(3)
+    model = GatedAttentionMIL(feature_dropout=0.25, attention_dropout=0.25)
+    g = torch.Generator().manual_seed(5)
+    mask = torch.arange(16) < 12
+    patches = torch.randn(16, 64, 64, 3, generator=g) * mask[:, None, None, None]
+    want = mc_inference_single_head(model, patches, mask, 8, 31, device="cpu")
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model_c = model.to(cuda)
+        got = mc_inference_single_head(model_c, patches, mask, 8, 31)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    torch.testing.assert_close(got.predictions.cpu(), want.predictions, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.attention.cpu(), want.attention, atol=1e-5, rtol=0)
+    H = torch.rand(16, 512, generator=g)
+    with torch.no_grad():
+        y_c, a_c = model_c.head(H.to(cuda), mask.to(cuda), mc_dropout=True, seed=7)
+        y, a = model.cpu().head(H, mask, mc_dropout=True, seed=7)
+    torch.testing.assert_close(y_c.cpu(), y, atol=1e-6, rtol=0)
+    torch.testing.assert_close(a_c.cpu(), a, atol=1e-6, rtol=0)
