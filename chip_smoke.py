@@ -90,7 +90,19 @@ Phases, each of which raises on failure:
    uncertainty acceptance (``evaluation/uncertainty.py``) trained and
    checked on the card; (f) (d)'s metrics through ``TensorBoardSink`` where
    ``torch.utils.tensorboard`` imports;
-13. prints the ``kernels`` JSON line, the total seconds, the card's line and
+13. the parallel paths (``parallel/``) on meshes of repeated ``cuda:0``
+   entries: (a) phase 4's full-size requests through a predictor with an
+   ``inst`` mesh of 2 and of 4 (instance-sharded embed and head), each
+   against the whole-bag ``predict`` of the same seed (statistics 1e-4,
+   attention 1e-5), with ms and peak beside the whole bag's; (b)
+   ``mc_test_dp`` on a ``data`` mesh of 4 over ten bags of mixed buckets,
+   one oversized, in f32 and int8, labels and MC logits equal to the
+   sequential ``mc_test``'s bag for bag; (c) ``predict_many(dp=True)`` on a
+   ``data`` mesh of 2 over phase 4b's four requests, equal to ``predict``
+   bit for bit; (d) the member-sharded ensemble of phase 10's two fold
+   models against the sequential one (2e-5).  A repeated-device mesh
+   checks the arithmetic and the launches, not transfers between cards;
+14. prints the ``kernels`` JSON line, the total seconds, the card's line and
    the result line.
 
 Every timed call prints three numbers (``Timing``): its device time, the
@@ -119,6 +131,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from dataclasses import asdict, dataclass, replace
 from pathlib import Path
 
@@ -627,14 +640,21 @@ def main() -> int:
         print("[11] DICOM and infer: full-size DICOM files, DICOM bags, cli infer per fold and "
               "--ensemble", flush=True)
         infer_launches = check_dicom_and_infer(cv_cfg, cv_peak)
+        members, member_bag = phase10_members(cv_cfg)
 
     print("[12] the model surface: the single-head request, serial MC, counterfactual dropout, "
           "train_epoch_plain, the uncertainty acceptance, the TensorBoard sink", flush=True)
     surface_launches = check_model_surface(pred, d)
 
+    print("[13] parallel paths on the card: instance-sharded requests, mc_test_dp, "
+          "predict_many(dp=True), the member-sharded ensemble (meshes of repeated cuda:0)",
+          flush=True)
+    parallel_launches = check_parallel_paths(pred, weights, requests, d, members, member_bag)
+    del members, member_bag
+
     # Serving kernels: phase 4's direct requests, phase 4b's front-ends and
     # phase 4q's quantized requests; then the bench's, CV's and infer's runs
-    # and phase 12's paths.
+    # and phases 12 and 13's paths.
     launches = dict(
         {k: n + front_launches.get(k, 0) + quant_launches.get(k, 0)
          for k, n in serve_launches.items()},
@@ -643,7 +663,7 @@ def main() -> int:
         mc_head_bwd_shared=shared_train_launches["mc_head_bwd_shared"],
     )
     launches = {k: n + bench_launches[k] + cv_launches[k] + infer_launches[k]
-                + surface_launches[k] for k, n in launches.items()}
+                + surface_launches[k] + parallel_launches[k] for k, n in launches.items()}
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in cuda_build.KERNELS.values():
@@ -2786,6 +2806,198 @@ def check_uncertainty_acceptance(main) -> None:
     if len(passed) < SWEEP_MIN_PASSES:
         raise RuntimeError(f"the uncertainty acceptance met all five criteria at {len(passed)} "
                            f"of {len(SWEEP_SEEDS)} seeds, fewer than {SWEEP_MIN_PASSES}")
+
+
+# Phase 13: (bucket, valid instances) of (b)'s synthetic bags at 224 px, one
+# of them oversized (above the registry's 1024, divisible by the mesh), and
+# the limits that hold the sharded request to the whole-bag one (K1's).
+DP_BAGS = ((64, 40), (256, 200), (128, 100), (64, 50), (512, 400), (2048, 1500), (256, 180),
+           (128, 90), (64, 33), (512, 300))
+SHARD_STATS_TOL, SHARD_ATTN_TOL, ENSEMBLE_TOL = 1e-4, 1e-5, 2e-5
+
+
+def phase10_members(cv_cfg):
+    """Phase 10's fold models as ensemble members (host state dicts) and its
+    first test bag's patches and mask on the card, for phase 13 (d)."""
+    from montecarlo_gated_mil_tpu_torch.experiment import get_fold_dataloaders
+    from montecarlo_gated_mil_tpu_torch.mcdo.ensemble import load_fold_ensemble
+
+    manifest = json.loads(Path(cv_cfg.model_path, "cv_manifest.json").read_text())
+    bag, _ = next(iter(get_fold_dataloaders(cv_cfg, 0, device="cuda").test.epoch(0)))
+    return load_fold_ensemble(cv_cfg, manifest), (bag.patches, bag.mask)
+
+
+def check_parallel_paths(pred, weights, requests, d, members, member_bag) -> dict:
+    """Phase 13: the parallel paths at ``Config()``'s widths on meshes of
+    repeated ``cuda:0`` entries: (a) phase 4's full-size requests through a
+    predictor with an ``inst`` mesh of 2 and of 4, each result against the
+    whole-bag ``predict`` of the same seed; (b) ``mc_test_dp`` on a ``data``
+    mesh of 4 over ``DP_BAGS`` in f32 and int8, against the sequential
+    ``mc_test`` with the same ``shard_over`` and mesh, bag for bag; (c)
+    ``predict_many(dp=True)`` on a ``data`` mesh of 2 over phase 4b's four
+    requests, each against ``predict``; (d) the member-sharded ensemble of
+    phase 10's two fold models on a ``data`` mesh of 2 against the
+    sequential one.  Returns the launch counts of the parallel runs, each
+    zeroed just before the run and read just after."""
+    from montecarlo_gated_mil_tpu_torch.core.bag import Bag
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.evaluation.dp_eval import _mc_test_dp_outputs
+    from montecarlo_gated_mil_tpu_torch.mcdo.ensemble import (
+        ensemble_mc_inference,
+        ensemble_mc_inference_sharded,
+    )
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.parallel.mesh import make_mesh
+    from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
+    from montecarlo_gated_mil_tpu_torch.train.loops import _mc_test_outputs
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    totals = {k: 0 for k in cuda_build.KERNELS}
+    cuda0 = torch.device("cuda", 0)
+
+    def main(fn):
+        cuda_build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+        for k, v in got.items():
+            totals[k] += v
+        return out, got
+
+    def image(kind, img_seed):
+        img = synthetic_image(d.H, d.W, positive=bool(img_seed % 2), seed=img_seed)
+        return np.round(img * 65535).astype(np.uint16) if kind == "uint16" else img
+
+    def timed(p, img, lat, seed):
+        t0 = time.perf_counter()
+        r, peak = _peak_gib(lambda: p.predict(img, lat, seed=seed))
+        return r, (time.perf_counter() - t0) * 1e3, peak
+
+    def stats_err(a, b) -> float:
+        return max(float((getattr(a.stats, f) - getattr(b.stats, f)).abs().max())
+                   for f in vars(a.stats))
+
+    def attn_err(a, b) -> float:
+        return max(float((a.attention.mean - b.attention.mean).abs().max()),
+                   float((a.attention.std - b.attention.std).abs().max()))
+
+    # (a) instance-sharded requests against the whole bag.
+    reqs = [(image(kind, s), lat, seed) for kind, lat, s, seed in requests[:4]]
+    whole = [timed(pred, *r) for r in reqs]
+    print("  (a) phase 4's requests whole (phase 4's predictor): "
+          + "; ".join(f"bucket {r.bucket} {ms:.1f} ms {gib:.3f} GiB" for r, ms, gib in whole),
+          flush=True)
+    for inst in (2, 4):
+        mesh = make_mesh(data=1, inst=inst, devices=[cuda0] * inst)
+        sp = MCDOPredictor.from_config(cfg, weights, mesh=mesh)
+        sp.predict(*reqs[0][:2], seed=reqs[0][2])  # warm: cuDNN at the shard shapes
+        runs, got = main(lambda: [timed(sp, *r) for r in reqs])
+        for (w, _, _), (r, _, _) in zip(whole, runs):
+            se, ae = stats_err(w, r), attn_err(w, r)
+            if (r.bucket != w.bucket or r.num_instances != w.num_instances
+                    or r.prediction != w.prediction or not se <= SHARD_STATS_TOL
+                    or not ae <= SHARD_ATTN_TOL):
+                raise RuntimeError(f"(a) inst={inst}: bucket {r.bucket}/{w.bucket}, instances "
+                                   f"{r.num_instances}/{w.num_instances}, prediction "
+                                   f"{r.prediction}/{w.prediction}, stats {se}, attention {ae}")
+        print(f"  (a) inst mesh of {inst}: "
+              + "; ".join(f"{ms:.1f} ms {gib:.3f} GiB" for _, ms, gib in runs)
+              + f"; max |d stats| {max(stats_err(w[0], r[0]) for w, r in zip(whole, runs)):.3e}"
+              f" (<= {SHARD_STATS_TOL}), max |d attention| "
+              f"{max(attn_err(w[0], r[0]) for w, r in zip(whole, runs)):.3e} "
+              f"(<= {SHARD_ATTN_TOL}); launches K3 {got['gather_tiles']} K1 "
+              f"{got['mc_head_sep']}", flush=True)
+        if got["gather_tiles"] < len(reqs):
+            raise RuntimeError(f"(a) inst={inst}: the requests did not go through K3: {got}")
+        del sp
+    torch.cuda.empty_cache()
+
+    # (b) mc_test_dp against the sequential mc_test, bag for bag.
+    g = torch.Generator(device="cuda").manual_seed(13)
+    bags = []
+    for i, (bucket, n) in enumerate(DP_BAGS):
+        mask = torch.arange(bucket, device="cuda") < n
+        patches = torch.rand((bucket, d.patch_size, d.patch_size, 3), generator=g,
+                             device="cuda") * mask[:, None, None, None]
+        bags.append((Bag(patches, mask, torch.tensor(i % 2, device="cuda"),
+                         torch.where(mask, torch.arange(bucket, device="cuda"), 0)), None))
+    shard_over = max(cfg.tpu.buckets)
+    mesh4 = make_mesh(data=4, devices=[cuda0] * 4)
+    model = pred.model
+    for quantized in (False, True):
+        kw = dict(num_samples=cfg.N, seed=7, quantized=quantized, shard_over=shard_over)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            seq = _mc_test_outputs(model, bags, mesh=mesh4, **kw)
+            seq_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dp, got = main(lambda: _mc_test_dp_outputs(model, bags, mesh=mesh4, **kw))
+            dp_s = time.perf_counter() - t0
+        dy = [float((a - b).abs().max()) for a, b in zip(seq[2], dp[2])]
+        warned = sum("mixes evaluation regimes" in str(w.message) for w in caught)
+        label = "int8" if quantized else "f32"
+        print(f"  (b) mc_test_dp {label}, data mesh of 4, {len(bags)} bags (buckets "
+              f"{sorted({b for b, _ in DP_BAGS})}, one oversized): labels {dp[1]} (sequential "
+              f"{seq[1]}); largest per-bag |dY| {max(dy):.3e}; {dp_s:.1f} s (sequential "
+              f"{seq_s:.1f} s); launches K1 {got['mc_head_sep']} K6 {got['qconv_i8']} K7 "
+              f"{got['bn_stats']} K8 {got['bn_relu_quant']}; mixed-regime warnings {warned}",
+              flush=True)
+        need_k1 = len(bags) - 1  # every bag but the oversized one, padding aside
+        if (dp[1] != seq[1] or dp[0] != seq[0] or got["mc_head_sep"] < need_k1
+                or (quantized and min(got["qconv_i8"], got["bn_stats"], got["bn_relu_quant"]) < 1)
+                or (quantized and warned < 2) or max(dy) != 0.0):
+            raise RuntimeError(f"(b) mc_test_dp {label}: labels {dp[1]} vs {seq[1]}, |dY| "
+                               f"{max(dy)}, launches {got}, warnings {warned}")
+    del bags
+    torch.cuda.empty_cache()
+
+    # (c) predict_many(dp=True) against predict: a registry reaching 3072, so
+    # that the full-size requests ride the batch instead of leaving it.
+    ccfg = replace(cfg, tpu=replace(cfg.tpu, buckets=cfg.tpu.buckets + (2048, 3072)))
+    mesh2 = make_mesh(data=2, devices=[cuda0] * 2)
+    cp = MCDOPredictor.from_config(ccfg, weights, mesh=mesh2)
+    imgs, lats, seeds = zip(*[(image(kind, s), lat, seed) for kind, lat, s, seed in (
+        ("float", "L", 10, 200), ("uint16", "R", 11, 201), ("float", "R", 12, 202),
+        ("uint16", "L", 13, 203))])
+    want = [cp.predict(img, lat, seed=seed) for img, lat, seed in zip(imgs, lats, seeds)]
+    t0 = time.perf_counter()
+    (many, peak), got = main(lambda: _peak_gib(
+        lambda: cp.predict_many(list(imgs), list(lats), seeds=list(seeds), dp=True)))
+    many_s = time.perf_counter() - t0
+    same = [torch.equal(w.stats.mean_probs, m.stats.mean_probs)
+            and all(torch.equal(getattr(w.stats, f), getattr(m.stats, f)) for f in vars(w.stats))
+            and torch.equal(w.attention.mean, m.attention.mean)
+            and torch.equal(w.attention.std, m.attention.std)
+            and (w.bucket, w.num_instances) == (m.bucket, m.num_instances)
+            for w, m in zip(want, many)]
+    print(f"  (c) predict_many(dp=True), data mesh of 2, buckets {[m.bucket for m in many]}: "
+          f"{many_s * 1e3 / len(imgs):.1f} ms per request, peak {peak:.3f} GiB; equal to "
+          f"predict bit for bit {same}; launches K3 {got['gather_tiles']} K1 "
+          f"{got['mc_head_sep']}", flush=True)
+    if not all(same) or got["mc_head_sep"] < len(imgs) or got["gather_tiles"] < len(imgs):
+        raise RuntimeError(f"(c) predict_many(dp=True): equal {same}, launches {got}")
+    del cp, want, many
+    torch.cuda.empty_cache()
+
+    # (d) the member-sharded ensemble against the sequential one.
+    patches, mask = member_bag
+    ref, ref_peak = _peak_gib(lambda: ensemble_mc_inference(model, members, patches, mask,
+                                                            cfg.N, 1))
+    (out, peak), got = main(lambda: _peak_gib(lambda: ensemble_mc_inference_sharded(
+        model, members, patches, mask, cfg.N, 1, mesh2)))
+    err = max(float((out.predictions - ref.predictions).abs().max()),
+              float((out.attention - ref.attention).abs().max()))
+    print(f"  (d) ensemble_mc_inference_sharded, {len(members)} members on a data mesh of 2 "
+          f"(bucket {mask.shape[0]}): max |d| {err:.3e} (<= {ENSEMBLE_TOL}); peak {peak:.3f} GiB "
+          f"(sequential {ref_peak:.3f} GiB); launches K1 {got['mc_head_sep']}", flush=True)
+    if not err <= ENSEMBLE_TOL or got["mc_head_sep"] != len(members):
+        raise RuntimeError(f"(d) sharded ensemble: |d| {err}, launches {got}")
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{ {k: n for k, n in totals.items() if n} }", flush=True)
+    return totals
 
 
 def time_heads(root: str) -> int:

@@ -11,7 +11,9 @@ from __future__ import annotations
 import bisect
 import math
 from dataclasses import dataclass
+from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -35,6 +37,11 @@ class Bag:
     @property
     def num_instances(self) -> torch.Tensor:
         return self.mask.sum(dim=-1)
+
+    @property
+    def bucket(self) -> int:
+        """The padded size Nmax."""
+        return self.patches.shape[-4]
 
 
 @dataclass(frozen=True)
@@ -67,3 +74,38 @@ class BucketSpec:
     @property
     def max_size(self) -> int:
         return self.sizes[-1]
+
+
+def pad_to_bucket(
+    patches: np.ndarray,
+    tile_indices: np.ndarray,
+    label: int,
+    bucket: int,
+) -> Bag:
+    """Pad host-side ragged instances ``(n, ph, pw, C)`` into a :class:`Bag`
+    on the CPU.  With ``n > bucket`` the first ``bucket`` instances are kept
+    (callers rank instances by fill first, so truncation drops the
+    emptiest)."""
+    n = patches.shape[0]
+    keep = min(n, bucket)
+    out = np.zeros((bucket,) + tuple(patches.shape[1:]), dtype=patches.dtype)
+    out[:keep] = patches[:keep]
+    idx = np.zeros((bucket,), dtype=np.int64)
+    idx[:keep] = tile_indices[:keep]
+    mask = np.zeros((bucket,), dtype=bool)
+    mask[:keep] = True
+    return Bag(
+        patches=torch.from_numpy(out),
+        mask=torch.from_numpy(mask),
+        label=torch.tensor(label, dtype=torch.int64),
+        tile_indices=torch.from_numpy(idx),
+    )
+
+
+def stack_bags(bags: Sequence[Bag]) -> Bag:
+    """Stack same-bucket bags along a new leading batch axis."""
+    buckets = {b.bucket for b in bags}
+    if len(buckets) != 1:
+        raise ValueError(f"cannot stack bags from different buckets: {buckets}")
+    return Bag(*(torch.stack([getattr(b, f) for b in bags])
+                 for f in ("patches", "mask", "label", "tile_indices")))

@@ -13,8 +13,9 @@ card those are the MC-head kernel (K1, or K2 for a shared gate).
 
 The pooled ``(M * T, C)`` samples drop straight into
 :func:`~montecarlo_gated_mil_tpu_torch.mcdo.sampling.predictive_stats` and
-:func:`attention_stats`.  The member-sharded form waits for ROADMAP.md
-queue 1, item 1.
+:func:`attention_stats`.  :func:`ensemble_mc_inference_sharded` spreads the
+members over an axis of a device mesh (``parallel/mesh.py``), with the same
+seeds, so its result equals the sequential one.
 """
 
 from __future__ import annotations
@@ -75,6 +76,61 @@ def ensemble_mc_inference(
     finally:
         model.load_state_dict(own)
     return MCOutputs(predictions=torch.cat(Ys), attention=torch.cat(As))
+
+
+def ensemble_mc_inference_sharded(
+    model: torch.nn.Module,
+    members: Sequence[StateDict],
+    patches: torch.Tensor,
+    mask: torch.Tensor | None,
+    num_samples: int,
+    seed: int,
+    mesh,
+    axis: str = "data",
+) -> MCOutputs:
+    """:func:`ensemble_mc_inference` with the members spread over ``axis``
+    of ``mesh``: device ``s`` of the axis runs members ``s * k .. s * k + k
+    - 1`` (``k = M / axis size``) in its replica of ``model``, on its copy
+    of the bag.  Members need no cross-device reduction (each embeds with
+    its own BN statistics).  Member ``m`` samples with ``fold_in(seed, m)``
+    of its GLOBAL index, so the pooled result is the sequential one for the
+    same seed whatever the mesh.  Members run member-index-major across the
+    devices, and nothing waits on the host until the gather at the end.
+
+    A member count the axis size does not divide raises (a 5-fold ensemble
+    on 4 devices): repeating members to pad would weight the pooled
+    distribution toward the repeats.  Returns member-major ``(M * T, C)``
+    and ``(M * T, C, N)`` on the axis's first device; each replica's own
+    weights are put back at the end."""
+    from montecarlo_gated_mil_tpu_torch.parallel.mesh import replicated
+
+    size = mesh.shape[axis]
+    if len(members) % size:
+        raise ValueError(f"member count {len(members)} not divisible by {axis}={size}")
+    local = len(members) // size
+    devices = mesh.axis_devices(axis)
+    replicas = replicated(mesh, model, axis)
+    owns = {id(r): (r, {k: v.detach().clone() for k, v in r.state_dict().items()})
+            for r in replicas}
+    outs: dict[int, MCOutputs] = {}
+    try:
+        for j in range(local):
+            for s, (dev, replica) in enumerate(zip(devices, replicas)):
+                m = s * local + j
+                replica.load_state_dict(members[m])
+                with torch.inference_mode():
+                    p = patches.to(dev)
+                    mk = None if mask is None else mask.to(dev)
+                    outs[m] = mc_head(replica, replica.embed(p, mk), mk, num_samples,
+                                      rng.fold_in(seed, m))
+    finally:
+        for replica, own in owns.values():
+            replica.load_state_dict(own)
+    dev0 = devices[0]
+    return MCOutputs(
+        predictions=torch.cat([outs[m].predictions.to(dev0) for m in range(len(members))]),
+        attention=torch.cat([outs[m].attention.to(dev0) for m in range(len(members))]),
+    )
 
 
 def load_fold_ensemble(cfg, manifest: dict) -> list[StateDict]:

@@ -16,6 +16,11 @@ so ``weights.py`` maps them one to one onto the JAX parameter tree.
 4x4 stride-1 conv over 2x2-rearranged input, :func:`s2d_stem_kernel`), with
 the same ``conv1.weight``; the quantized embed's ``stem="s2d_i8"`` uses the
 same rearrangement.
+
+One walk through the network (:func:`_walk`, :func:`_walk_block`) serves a
+whole bag and a bag split into instance shards over several devices
+(:func:`sharded_features`, ``parallel/instance.py``); the two differ only in
+the BN step they hand it.
 """
 
 from __future__ import annotations
@@ -67,16 +72,10 @@ class _MaskedBatchNorm(torch.autograd.Function):
             y = xf.clone() if xf is x else xf
         else:
             m = mask.to(sd)
-            n_valid = m.sum()
-            count = torch.clamp(n_valid * hw, min=1.0)
-            mean = (s1 * m[:, None]).sum(0) / count
-            var = (s2 * m[:, None]).sum(0) / count - mean.square()
-            scale = torch.clamp(n_valid, max=1.0)
+            count, mean, var, scale = _masked_moments(s1, s2, m, hw)
             y = xf * scale
         inv = torch.rsqrt(var + eps)
-        y.sub_(mean[None, :, None, None]).mul_(inv[None, :, None, None])
-        y.mul_(weight.to(sd)[None, :, None, None])
-        y.add_(bias.to(sd)[None, :, None, None])
+        _normalize_(y, mean, inv, weight, bias)
         ctx.save_for_backward(x, weight, mean, inv)
         ctx.stats = (m, count, scale)
         return y.to(x.dtype)
@@ -105,6 +104,93 @@ class _MaskedBatchNorm(torch.autograd.Function):
         w = 1.0 / count if m is None else m[:, None, None, None] / count
         dx = dx + w * (ch(d_mean) + 2.0 * ch(d_var) * xf)
         return dx.to(x.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None
+
+
+def _masked_moments(s1: torch.Tensor, s2: torch.Tensor, m: torch.Tensor, hw: int):
+    """``(count, mean, var, scale)`` of a masked BN from the per-instance
+    channel sums ``s1``, ``s2 (N, C)`` and the float mask ``m (N,)``."""
+    n_valid = m.sum()
+    count = torch.clamp(n_valid * hw, min=1.0)
+    mean = (s1 * m[:, None]).sum(0) / count
+    var = (s2 * m[:, None]).sum(0) / count - mean.square()
+    return count, mean, var, torch.clamp(n_valid, max=1.0)
+
+
+def _normalize_(y: torch.Tensor, mean, inv, weight, bias) -> None:
+    """``y = (y - mean) * inv * weight + bias`` per channel, in place."""
+    y.sub_(mean[None, :, None, None]).mul_(inv[None, :, None, None])
+    y.mul_(weight.to(y.dtype)[None, :, None, None])
+    y.add_(bias.to(y.dtype)[None, :, None, None])
+
+
+def sharded_batch_norm(
+    bns: Sequence["MaskedBatchStatsNorm"], xs: list, masks: Sequence[torch.Tensor],
+    relu: bool = False,
+) -> list[torch.Tensor]:
+    """:class:`MaskedBatchStatsNorm` over a bag whose instances are split
+    into shards: ``xs[s] (n_s, C, h, w)`` with validity ``masks[s]`` and
+    ``bns[s]``, the BN's copy, all on shard ``s``'s device; with ``relu``
+    the ReLU that follows.  The entries of ``xs`` are released as their
+    shards are normalized, so a layer holds about one copy of its
+    activations, as the unsharded layer does.
+
+    The only coupling between shards is the statistics.  Each shard takes
+    its instances' channel sums and sums of squares over ``(h, w)``, as the
+    unsharded forward does, and sends them, ``(n_s, C)`` each, with its mask
+    to the first shard's device.  There they are concatenated in shard
+    order (``parallel/mesh.py::gather_shards``) and the masked sums over the
+    bag, the valid count, mean and variance are taken exactly as the
+    unsharded BN takes them (:func:`_masked_moments`); the moments go back
+    to every shard, which normalizes its own instances.  So the result is
+    the whole-bag BN's wherever the per-instance sums come out the same.
+    The partials are ``2 * N * C`` numbers a layer, against the ``N * C *
+    h * w`` of the activations.  No gradient: the evaluation paths run it
+    under inference mode.
+
+    The backward (training's instance-sharded step) reduces the same way.
+    Of ``_MaskedBatchNorm.backward``, only the two channel sums
+    ``(dxhat * xhat).sum`` and ``dxhat.sum`` couple the instances: each
+    shard sends its per-instance sums over ``(h, w)``, they are summed over
+    the bag on the first device in shard order and handed back, and every
+    shard then forms its ``dx`` with the whole bag's ``d_var`` and
+    ``d_mean``; ``d_weight`` and ``d_bias`` reduce the same way.  It plugs
+    into the same walk (:func:`_walk`) as another ``norm``.
+    """
+    from montecarlo_gated_mil_tpu_torch.parallel.mesh import gather_shards
+
+    sd = _stats_dtype(xs[0].dtype)
+    hw = xs[0].shape[2] * xs[0].shape[3]
+    s1s, s2s = [], []
+    for x in xs:
+        xf = x.to(sd)
+        s1s.append(xf.sum(dim=(2, 3)))
+        s2s.append(xf.square().sum(dim=(2, 3)))
+    dev = xs[0].device
+    m = gather_shards([mask.to(sd) for mask in masks], dev)
+    _, mean, var, scale = _masked_moments(gather_shards(s1s, dev), gather_shards(s2s, dev), m, hw)
+    inv = torch.rsqrt(var + bns[0].eps)
+    out = []
+    for s, bn in enumerate(bns):
+        x, xs[s] = xs[s], None
+        y = x.to(sd) * scale.to(x.device)
+        dtype = x.dtype
+        del x
+        _normalize_(y, mean.to(y.device), inv.to(y.device), bn.weight, bn.bias)
+        y = y.to(dtype)
+        out.append(F.relu(y) if relu else y)
+    return out
+
+
+def _whole_norm(mask: torch.Tensor | None):
+    """The ``norm`` of :func:`_walk` for a whole bag: its one entry through
+    the autograd BN with ``mask``.  The entry is popped, so a conv's output
+    is freed once the BN has read it."""
+
+    def norm(bns, ys, relu):
+        y = bns[0](ys.pop(), mask)
+        return [F.relu(y) if relu else y]
+
+    return norm
 
 
 class MaskedBatchStatsNorm(nn.Module):
@@ -138,10 +224,40 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
 
 
-class BasicBlock(nn.Module):
+class _ResidualBlock(nn.Module):
+    """A residual block: ``conv1, bn1, ..., conv{depth}, bn{depth}`` with a
+    ReLU after every BN but the last, and the identity or the ``downsample``
+    projection ``(conv, bn)`` as its shortcut."""
+
+    depth: int
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        return _walk_block([self], [x], _whole_norm(mask))[0]
+
+
+def _walk_block(blocks: Sequence[_ResidualBlock], xs: list, norm) -> list:
+    """One residual block over instance shards: ``blocks[s]`` is the block
+    on shard ``s``'s device, ``xs[s]`` its input.  ``norm(bns, ys, relu)``
+    normalizes the shards ``ys`` with the BNs ``bns`` (then the ReLU): the
+    one step in which the whole bag (:func:`_whole_norm`) and its shards
+    (:func:`sharded_batch_norm`) differ."""
+    depth = blocks[0].depth
+    ys = xs
+    for k in range(1, depth + 1):
+        ys = norm([getattr(b, f"bn{k}") for b in blocks],
+                  [_conv(getattr(b, f"conv{k}"), y) for b, y in zip(blocks, ys)], k < depth)
+    residual = xs
+    if blocks[0].downsample is not None:
+        residual = norm([b.downsample[1] for b in blocks],
+                        [_conv(b.downsample[0], x) for b, x in zip(blocks, xs)], False)
+    return [F.relu(y + r) for y, r in zip(ys, residual)]
+
+
+class BasicBlock(_ResidualBlock):
     """Two 3x3 convs + identity/projection shortcut (r18/r34 block)."""
 
     expansion = 1
+    depth = 2
 
     def __init__(self, cin: int, features: int, stride: int = 1):
         super().__init__()
@@ -155,19 +271,12 @@ class BasicBlock(nn.Module):
                 [_make_conv(cin, features, 1, stride, 0), MaskedBatchStatsNorm(features)]
             )
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        y = F.relu(self.bn1(_conv(self.conv1, x), mask))
-        y = self.bn2(_conv(self.conv2, y), mask)
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample[1](_conv(self.downsample[0], x), mask)
-        return F.relu(y + residual)
 
-
-class Bottleneck(nn.Module):
+class Bottleneck(_ResidualBlock):
     """1x1 -> 3x3 -> 1x1 (x4 expansion) block (r50)."""
 
     expansion = 4
+    depth = 3
 
     def __init__(self, cin: int, features: int, stride: int = 1):
         super().__init__()
@@ -183,15 +292,6 @@ class Bottleneck(nn.Module):
             self.downsample = nn.ModuleList(
                 [_make_conv(cin, out, 1, stride, 0), MaskedBatchStatsNorm(out)]
             )
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        y = F.relu(self.bn1(_conv(self.conv1, x), mask))
-        y = F.relu(self.bn2(_conv(self.conv2, y), mask))
-        y = self.bn3(_conv(self.conv3, y), mask)
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample[1](_conv(self.downsample[0], x), mask)
-        return F.relu(y + residual)
 
 
 def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
@@ -280,18 +380,7 @@ class ResNetFeatures(nn.Module):
         _lecun_normal_init(self)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        x = x.to(self.dtype)
-        with _exact_float_convs(self.dtype):
-            # The stem's output is a temporary: bound to a name, it would stay
-            # alive through the BN and the ReLU (9.9 GB at bucket 3072).
-            x = F.relu(self.bn1(self._stem(x), mask))
-            x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
-            for i in range(1, self.num_stages + 1):
-                for block in getattr(self, f"layer{i}"):
-                    x = block(x, mask)
-        # Global average pool, accumulated in >= f32.
-        return x.to(_stats_dtype(x.dtype)).mean(dim=(2, 3))
-
+        return _walk([self], [x], _whole_norm(mask))[0]
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC patches -> the stem conv's NCHW output."""
@@ -299,6 +388,36 @@ class ResNetFeatures(nn.Module):
             return _s2d_stem(self.conv1, x)
         # NHWC storage viewed as NCHW: a channels_last tensor, no copy.
         return _conv(self.conv1, x.permute(0, 3, 1, 2))
+
+
+def _walk(nets: Sequence[ResNetFeatures], xs: list, norm) -> list:
+    """The backbone over instance shards, ``nets[s]`` on shard ``s``'s
+    device with input ``xs[s] (n_s, H, W, 3)``; returns each shard's pooled
+    features ``(n_s, L)``.  ``norm`` is as in :func:`_walk_block`."""
+    net = nets[0]
+    xs = [x.to(net.dtype) for x in xs]
+    with _exact_float_convs(net.dtype):
+        # The stem's output goes to ``norm`` in a temporary list: held by a
+        # name, it would stay alive through the BN and the ReLU (9.9 GB at
+        # bucket 3072).
+        xs = norm([n.bn1 for n in nets], [n._stem(x) for n, x in zip(nets, xs)], True)
+        xs = [F.max_pool2d(x, kernel_size=3, stride=2, padding=1) for x in xs]
+        for i in range(1, net.num_stages + 1):
+            for j in range(len(getattr(net, f"layer{i}"))):
+                xs = _walk_block([getattr(n, f"layer{i}")[j] for n in nets], xs, norm)
+    # Global average pool, accumulated in >= f32.
+    return [x.to(_stats_dtype(x.dtype)).mean(dim=(2, 3)) for x in xs]
+
+
+def sharded_features(nets: Sequence[ResNetFeatures], xs: list, masks: list) -> list:
+    """:meth:`ResNetFeatures.forward` over one bag split into instance
+    shards: ``nets[s]``, the backbone's copy on shard ``s``'s device, embeds
+    ``xs[s] (n_s, H, W, 3)`` with validity ``masks[s] (n_s,)``; returns each
+    shard's features ``(n_s, L)`` on its device.  Convolutions run per
+    shard; every BN takes the whole bag's masked statistics
+    (:func:`sharded_batch_norm`), so the features equal ``forward``'s up to
+    the order of the statistics' sums."""
+    return _walk(nets, xs, lambda bns, ys, relu: sharded_batch_norm(bns, ys, masks, relu))
 
 
 def _lecun_normal_init(module: nn.Module) -> None:

@@ -69,23 +69,40 @@ def philox4x32_10(
     return c0, c1, c2, c3
 
 
-def dropout_uniforms(key: int, draws, device) -> list[torch.Tensor]:
-    """U[0,1) float32 for several draws of one key in one Philox call:
-    ``draws`` is a sequence of ``(draw, n)``, and the result holds, for each,
-    elements ``0..n-1`` of that draw.  Element ``e`` of draw ``d`` is the
-    top 24 bits of word ``e % 4`` of Philox at counter ``(e // 4, 0, 0, 0)``
-    and key ``(key, d)``, so one call serves four elements."""
+def dropout_uniforms(key, draws, device) -> list[torch.Tensor]:
+    """U[0,1) float32 for several draws of one key in one Philox call.
+
+    ``draws`` is a sequence of ``(draw, n)`` or ``(draw, n, start)``; the
+    result holds, for each, elements ``start..start+n-1`` of that draw
+    (``start`` 0 by default).  Element ``e`` of draw ``d`` is the top 24
+    bits of word ``e % 4`` of Philox at counter ``(e // 4, 0, 0, 0)`` and key
+    ``(key, d)``, so one call serves four elements, and element ``e`` is the
+    same word whoever draws it: a shard of rows draws exactly the uniforms
+    the whole draw holds for them.  A ``start`` that is not a multiple of 4
+    skips the first words of its first counter.
+
+    ``key`` is one key, or a 1-D int64 tensor of T keys: then every result
+    has a leading T axis, all T drawn in the same call."""
     if not draws:
         return []
-    groups = [(n + 3) // 4 for _, n in draws]
-    counter = torch.cat([torch.arange(g, dtype=torch.int64, device=device) for g in groups])
+    draws = [(d[0], d[1], d[2] if len(d) > 2 else 0) for d in draws]
+    skips = [start % 4 for _, _, start in draws]
+    groups = [(skip + n + 3) // 4 for (_, n, _), skip in zip(draws, skips)]
+    counter = torch.cat([
+        torch.arange(start // 4, start // 4 + g, dtype=torch.int64, device=device)
+        for (_, _, start), g in zip(draws, groups)
+    ])
     draw = torch.cat([torch.full((g,), d, dtype=torch.int64, device=device)
-                      for (d, _), g in zip(draws, groups)])
+                      for (d, _, _), g in zip(draws, groups)])
+    if isinstance(key, torch.Tensor):
+        key, counter, draw = torch.broadcast_tensors(
+            key.to(device=device, dtype=torch.int64)[:, None], counter, draw)
     zero = torch.zeros_like(counter)
     words = torch.stack(philox4x32_10((counter, zero, zero, zero), (key, draw)), -1)
     out = []
-    for part, (_, n) in zip(torch.split(words, groups), draws):
-        out.append((part.reshape(-1)[:n] >> 8).to(torch.float32) * _INV_2_24)
+    for part, (_, n, _), skip in zip(torch.split(words, groups, dim=-2), draws, skips):
+        flat = part.reshape(*part.shape[:-2], -1)[..., skip:skip + n]
+        out.append((flat >> 8).to(torch.float32) * _INV_2_24)
     return out
 
 

@@ -20,9 +20,14 @@ Every random stream derives from ``cfg.seed`` (``core/rng.py``): a fold's
 from ``(seed, fold)`` alone, never from loop position, so a resumed run
 trains the remaining folds as an uninterrupted one would.
 
-Not ported yet (ROADMAP.md queue 1, item 1): data-parallel evaluation and
-training, instance-sharded and oversize-routed bags, and multi-process fold
-fan-out.
+Evaluation follows JAX's routing: a bag padded past the largest registry
+bucket (``_shard_over``) evaluates instance-sharded over every visible CUDA
+device where there are several (``train/loops.py``), and the MC test runs
+data-parallel (``evaluation/dp_eval.py``) under ``tpu.data_parallel_eval``
+on such a host with one process.  On one card both stay sequential and
+whole, as JAX's do on one chip.  Training keeps running oversized bags whole
+on one device, and data-parallel training and multi-process fold fan-out
+are not ported yet (ROADMAP.md queue 1, item 1).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from montecarlo_gated_mil_tpu_torch.parallel.distributed import (
     process_count,
     process_index,
 )
+from montecarlo_gated_mil_tpu_torch.parallel.mesh import Mesh, instance_mesh
 from montecarlo_gated_mil_tpu_torch.train.loops import (
     ensemble_mc_test,
     mc_test,
@@ -92,14 +98,35 @@ def initial_model(cfg: Config, fold: int | None = None) -> torch.nn.Module:
     return model
 
 
+def _shard_over(cfg: Config) -> int:
+    """Bags padded past the largest registry bucket are OVERSIZED (the
+    loader's ``oversized_bags='extend'`` output); the eval loops route them
+    to the instance-sharded path where a mesh is available."""
+    return max(cfg.tpu.buckets)
+
+
+def _eval_mesh(model) -> Mesh | None:
+    """The devices evaluation may spread over: every visible CUDA device
+    when the model is on a card and there are several, else None."""
+    return instance_mesh() if next(model.parameters()).is_cuda else None
+
+
 def _mc_test(cfg: Config, model, loader, *, seed: int, metrics: Metrics, fold: int | None):
     """The MC test of one model, through the int8 embed when
-    ``tpu.quantized_inference`` is set for an r18/r34/r50 backbone (JAX
-    ``runners._mc_test``'s sequential branch; its data-parallel branch is
-    ROADMAP.md queue 1, item 1)."""
+    ``tpu.quantized_inference`` is set for an r18/r34/r50 backbone: data-
+    parallel over every card under ``tpu.data_parallel_eval`` with one
+    process and several cards (JAX ``runners._mc_test``), else the
+    sequential loop."""
     quantized = cfg.tpu.quantized_inference and cfg.model in ("r18", "r34", "r50")
+    mesh = _eval_mesh(model)
+    if cfg.tpu.data_parallel_eval and process_count() == 1 and mesh is not None:
+        from montecarlo_gated_mil_tpu_torch.evaluation.dp_eval import mc_test_dp
+
+        return mc_test_dp(model, loader, num_samples=cfg.N, seed=seed, mesh=mesh.flat("data"),
+                          metrics=metrics, fold=fold, quantized=quantized,
+                          shard_over=_shard_over(cfg))
     return mc_test(model, loader, num_samples=cfg.N, seed=seed, metrics=metrics, fold=fold,
-                   quantized=quantized)
+                   quantized=quantized, shard_over=_shard_over(cfg), mesh=mesh)
 
 
 def _fit(
@@ -146,12 +173,13 @@ def _fit(
     for epoch in range(start_epoch, params.epochs + 1):
         state = train_epoch(step_fn, state, data.train, epoch=epoch, accumulation_steps=k,
                             key=train_key, metrics=metrics, fold=fold)
+        routing = {"shard_over": _shard_over(cfg), "mesh": _eval_mesh(model)}
         if cfg.is_mcdo_val:
             val_loss = mc_validate(model, data.val, criterion, epoch=epoch, num_samples=cfg.N,
-                                   key=val_key, metrics=metrics, fold=fold)
+                                   key=val_key, metrics=metrics, fold=fold, **routing)
         else:
             val_loss = validate(model, data.val, criterion, epoch=epoch, metrics=metrics,
-                                fold=fold)
+                                fold=fold, **routing)
         stop = stopper(val_loss, model)
         every = cfg.tpu.checkpoint_every
         if checkpointer is not None and every and (epoch % every == 0 or stop):
@@ -193,7 +221,8 @@ def run_training(
     metrics.log("best_model_path", path)
     model2 = build_model(cfg).to(device)
     model2.load_state_dict(ckpt.restore_params(name))
-    acc, report = test(model2, data.test, metrics=metrics)
+    acc, report = test(model2, data.test, metrics=metrics, shard_over=_shard_over(cfg),
+                       mesh=_eval_mesh(model2))
     return {"best_model_path": path, "test_accuracy": acc, "report": report,
             "best_params": best, "model": model2}
 
@@ -285,7 +314,8 @@ def run_cross_validation(
             acc, _ = _mc_test(cfg, model, data.test, seed=rng.fold_in(test_seed, fold),
                               metrics=metrics, fold=k)
         else:
-            acc, _ = test(model, data.test, metrics=metrics, fold=k)
+            acc, _ = test(model, data.test, metrics=metrics, fold=k,
+                          shard_over=_shard_over(cfg), mesh=_eval_mesh(model))
         folds.append({"fold": k, "checkpoint": path, "accuracy": acc})
         _write_cv_progress(progress_path, folds)
         print(f"Fold {k}/{cfg.data.cv_folds} done in {time.perf_counter() - t0:.2f} s: "
@@ -396,7 +426,8 @@ def run_cv_eval(
                                      metrics=metrics, fold=fold)
         mc_time = time.perf_counter() - t0
         t0 = time.perf_counter()
-        det_acc, det_report = test(model, data.test, metrics=metrics, fold=fold)
+        det_acc, det_report = test(model, data.test, metrics=metrics, fold=fold,
+                                   shard_over=_shard_over(cfg), mesh=_eval_mesh(model))
         det_time = time.perf_counter() - t0
         print(f"fold {fold}: MC-ACC {mc_acc:.4f} ({mc_time:.2f}s)  "
               f"nMC-ACC {det_acc:.4f} ({det_time:.2f}s)")

@@ -8,6 +8,12 @@ T Monte Carlo head samples in one kernel launch, the uncertainty
 reductions and, on request, the mean/std attention maps
 (``viz/attention.py``) on the device, behind one warm predictor.
 
+With a device mesh (``mesh=``, by default every visible CUDA device when
+there are several) an oversized request shards its instances over the
+mesh's devices (``parallel/instance.py``) and ``predict_many`` spreads its
+requests over them (``parallel/dp.py``), as JAX's predictor does over its
+devices.
+
     predictor = MCDOPredictor.from_config(cfg, state_dict)
     result = predictor.predict(image, laterality="R", seed=7, return_maps=True)
     result.prediction, result.stats.mean, result.attention_mean_maps
@@ -40,6 +46,13 @@ from montecarlo_gated_mil_tpu_torch.mcdo.sampling import (
 )
 from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
 from montecarlo_gated_mil_tpu_torch.ops.patching import compute_tile_grid
+from montecarlo_gated_mil_tpu_torch.parallel.mesh import (
+    Mesh,
+    instance_mesh,
+    make_mesh,
+    replicated,
+    shard_mesh_for,
+)
 from montecarlo_gated_mil_tpu_torch.viz.attention import attention_map_stats
 
 
@@ -91,6 +104,14 @@ class MCDOPredictor:
     bucket; an oversized request (more valid tiles than the cap bucket)
     extends past the cap under ``oversized='extend'`` and keeps every tile.
 
+    ``mesh``: the devices the predictor spreads over (default: every visible
+    CUDA device when the predictor is on a card and there are several, else
+    none).  With k devices an extended bucket is a multiple of k, an
+    oversized request embeds and samples with its instances sharded over
+    all k on the float embed (``parallel/instance.py``), and
+    ``predict_many`` runs its requests k at a time, one per device.  The
+    model must live on the mesh's first device.
+
     ``quantized=True`` embeds through the int8 PTQ path (static k-sigma
     scales, ``ops/quantized.py``); its plan is built once, here.
     """
@@ -106,6 +127,7 @@ class MCDOPredictor:
         oversized: str = "extend",
         max_inflight: int = 1,
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ):
         if oversized not in ("extend", "truncate"):
             raise ValueError(f"oversized must be 'extend' or 'truncate', got {oversized!r}")
@@ -138,6 +160,13 @@ class MCDOPredictor:
         self._head_params = GatedAttentionParams.from_module(self.model).to(self.device)
         # The f32 backbone, or the int8 embed with its plan built once.
         self._embed = make_embed_fn(self.model, quantized)
+        if mesh is None and self.device.type == "cuda":
+            mesh = instance_mesh()
+        self.mesh = mesh
+        # Built at first use: the model on each of the mesh's devices, shared
+        # by the instance-sharded route and predict_many's data-parallel step.
+        self._replicas = None
+        self._dp_eval = None
 
     @classmethod
     def from_config(
@@ -209,14 +238,18 @@ class MCDOPredictor:
                 )
         return max(bucket_lo, bucket_hi)
 
+    def _mesh_size(self) -> int:
+        return self._mesh().size
+
     def _decide_bucket(self, n: int, may_overflow: bool) -> tuple[int, bool]:
-        """Map a valid-tile count to ``(bucket, overflowed)``.  On one card an
-        extended bucket is a multiple of the cap bucket alone."""
+        """Map a valid-tile count to ``(bucket, overflowed)``.  An extended
+        bucket is a multiple of the cap bucket and of the mesh's device
+        count, so an oversized bag divides over the devices."""
         cap = self.pipeline.bucket
         if may_overflow and n > cap:
             if self.oversized == "extend":
                 spec = self.bucket_spec or BucketSpec((cap,))
-                return spec.extended_bucket(n, multiple_of=1), True
+                return spec.extended_bucket(n, multiple_of=self._mesh_size()), True
             return cap, True
         if self.bucket_spec is None:
             return cap, False
@@ -225,16 +258,39 @@ class MCDOPredictor:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=True)
 
-    def _infer(self, image: torch.Tensor, flip: bool, seed: int, inv_max: float, bucket: int):
-        """The request on the device: bag, features, T head samples, stats."""
+    def _bag(self, image: torch.Tensor, flip: bool, inv_max: float, bucket: int):
         image = image.to(torch.float32) * inv_max
-        bag = image_to_bag(
+        return image_to_bag(
             image, flip, 0, self._starts, replace(self.pipeline, bucket=bucket),
             device=self.device,
         )
-        H = self._embed(bag.patches, bag.mask)
-        out = mc_head(self.model, H, bag.mask, self.num_samples, seed, self._head_params)
-        y, a = out.predictions, out.attention
+
+    def _mesh(self) -> Mesh:
+        return self.mesh or make_mesh(devices=[self.device])
+
+    def _mesh_replicas(self) -> list:
+        """The model on each of the mesh's devices, in order, copied once."""
+        with self._lock:
+            if self._replicas is None:
+                self._replicas = replicated(self._mesh().flat("inst"), self.model, "inst")
+            return self._replicas
+
+    def _infer(self, image: torch.Tensor, flip: bool, seed: int, inv_max: float, bucket: int):
+        """The request on the device: bag, features, T head samples, stats.
+        An oversized bucket runs instance-sharded where the mesh allows."""
+        bag = self._bag(image, flip, inv_max, bucket)
+        shard_mesh = shard_mesh_for(bucket, self.pipeline.bucket, self._mesh())
+        if shard_mesh is not None:
+            from montecarlo_gated_mil_tpu_torch.parallel.instance import mc_inference_sharded
+
+            y, a = mc_inference_sharded(self.model, bag.patches, bag.mask, self.num_samples,
+                                        seed, shard_mesh, params=self._head_params,
+                                        replicas=self._mesh_replicas())
+            y, a = y.to(self.device), a.to(self.device)
+        else:
+            H = self._embed(bag.patches, bag.mask)
+            out = mc_head(self.model, H, bag.mask, self.num_samples, seed, self._head_params)
+            y, a = out.predictions, out.attention
         return bag, y, a, predictive_stats(y), attention_stats(a, bag.mask)
 
     def _mark_warm(self, bucket: int) -> None:
@@ -361,9 +417,20 @@ class MCDOPredictor:
         seed: int = 0,
         seeds: list[int] | None = None,
         pixel_maxes: list[float | None] | None = None,
+        dp: bool | None = None,
     ) -> list[PredictionResult]:
-        """Sequential batch prediction; request i is seeded ``seed + i``
-        unless ``seeds`` gives each its own."""
+        """Batch prediction; request i is seeded ``seed + i`` unless
+        ``seeds`` gives each its own.
+
+        With ``dp`` (default: when the predictor has a mesh of several
+        devices and there is more than one request) the requests run data-
+        parallel over the mesh's devices: each request's bag is built at
+        the bucket ``predict`` would give it, bags of one bucket group into
+        batches of the device count (``parallel/dp.py::BucketBatcher``),
+        and bag ``b`` of a batch runs on device ``b`` with its own seed, so
+        each result equals ``predict``'s.  An oversized request leaves the
+        batch for ``predict``'s own route (instance-sharded or whole).
+        Without ``dp``, one ``predict`` after another."""
         lateralities = lateralities or ["L"] * len(images)
         if seeds is None:
             seeds = [seed + i for i in range(len(images))]
@@ -372,7 +439,56 @@ class MCDOPredictor:
         pixel_maxes = pixel_maxes or [None] * len(images)
         if len(pixel_maxes) != len(images):
             raise ValueError(f"{len(pixel_maxes)} pixel_maxes for {len(images)} images")
-        return [
-            self.predict(img, lat, seed=s, pixel_max=pm)
-            for img, lat, s, pm in zip(images, lateralities, seeds, pixel_maxes)
-        ]
+        if dp is None:
+            dp = self._mesh_size() > 1 and len(images) > 1
+        if not dp:
+            return [
+                self.predict(img, lat, seed=s, pixel_max=pm)
+                for img, lat, s, pm in zip(images, lateralities, seeds, pixel_maxes)
+            ]
+        return self._predict_many_dp(images, lateralities, seeds, pixel_maxes)
+
+    def _predict_many_dp(self, images, lateralities, seeds, pixel_maxes):
+        from montecarlo_gated_mil_tpu_torch.parallel.dp import (
+            BucketBatcher,
+            make_dp_mc_eval,
+            pad_group_to_batch,
+        )
+
+        mesh = self._mesh().flat("data")
+        replicas = self._mesh_replicas()
+        with self._lock:
+            if self._dp_eval is None:
+                self._dp_eval = make_dp_mc_eval(self.model, mesh, self.num_samples,
+                                                self.quantized, replicas=replicas)
+        results: list[PredictionResult | None] = [None] * len(images)
+
+        def flush(group):
+            with self._execute_gate, torch.inference_mode():
+                shards, group_seeds, _ = pad_group_to_batch(
+                    mesh, [b for b, _ in group], [seeds[j] for _, j in group])
+                ys, atts = self._dp_eval(shards, group_seeds)
+                for b, (bag, j) in enumerate(group):
+                    stats = _host(predictive_stats(ys[b]))
+                    att = _host(attention_stats(atts[b], bag.mask.to(atts.device)))
+                    results[j] = PredictionResult(
+                        prediction=int(stats.prediction), stats=stats, attention=att,
+                        num_instances=int(bag.num_instances), bucket=bag.bucket,
+                    )
+
+        batcher = BucketBatcher(mesh.shape["data"])
+        for j, (img, lat, pm) in enumerate(zip(images, lateralities, pixel_maxes)):
+            arr, inv_max = _prepare_image(img, pm)
+            bucket = self._route(self._pick_bucket(arr, lat))
+            if bucket > self.pipeline.bucket:
+                with self._upload_slots:
+                    results[j] = self._run(arr, lat == "R", seeds[j], inv_max, bucket, None)
+                self._mark_warm(bucket)
+                continue
+            with self._execute_gate, torch.inference_mode():
+                bag = self._bag(self._upload(arr), lat == "R", inv_max, bucket)
+            for group in batcher.add(bag, j):
+                flush(group)
+        for group in batcher.drain():
+            flush(group)
+        return results

@@ -28,6 +28,14 @@ With ``fold=k`` the epoch metrics carry the reference's fold prefix
 (``k/train/epoch_loss``) and the test metrics its suffix
 (``test/accuracy_fold{k}``).
 
+``shard_over``: the four evaluation loops send an OVERSIZED bag (its bucket
+above ``shard_over``, as the loader pads it under ``oversized_bags=
+'extend'``) through the instance-sharded path (``parallel/instance.py``)
+over every device of ``mesh`` (default: every visible CUDA device), on the
+float embed; on one device, or when the bucket does not divide over the
+devices, it runs whole, as JAX's does on one chip.  Training keeps running
+oversized bags whole (ROADMAP.md queue 1, item 1).
+
 A loader is anything with ``epoch(e)`` yielding ``(Bag, record)``, or a
 plain iterable of such pairs.
 """
@@ -43,6 +51,8 @@ import torch
 from montecarlo_gated_mil_tpu_torch.core import rng
 from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn, mc_head
 from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
+from montecarlo_gated_mil_tpu_torch.parallel.mesh import Mesh, replicated, shard_mesh_for
 from montecarlo_gated_mil_tpu_torch.train.criteria import bce_on_probs
 from montecarlo_gated_mil_tpu_torch.train.state import TrainState
 from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics
@@ -50,6 +60,77 @@ from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics
 
 def _items(loader, epoch: int):
     return loader.epoch(epoch) if hasattr(loader, "epoch") else iter(loader)
+
+
+def warn_float_shard(quantized: bool = False) -> None:
+    """Oversized bags evaluate on the float instance-sharded path; the int8
+    embed is a single-device program and does not apply there.  Callers say
+    so once per loop, so a metric labeled int8 is never silently a
+    mixed-regime number."""
+    import warnings
+
+    warnings.warn(
+        "oversized bag routed to the instance-sharded EXACT float path; the int8 "
+        "single-device variant does not apply there — this metric mixes evaluation "
+        "regimes for such bags",
+        stacklevel=3,
+    )
+
+
+def _det_step_sharded(model, mesh: Mesh):
+    """Deterministic forward of an oversized bag with its instances sharded
+    over ``mesh``'s ``inst`` axis: ``f(patches, mask) -> Y (C,)``, the
+    sequential forward's logits up to the order of the cross-shard sums.
+    The model's copies on the mesh's devices are made here, once."""
+    from montecarlo_gated_mil_tpu_torch.parallel.instance import (
+        sharded_embed,
+        sharded_gated_attention,
+    )
+
+    replicas = replicated(mesh, model, "inst")
+    params = GatedAttentionParams.from_module(model)
+
+    def f(patches, mask):
+        H = sharded_embed(model, patches, mask, mesh, replicas=replicas)
+        return sharded_gated_attention(H, mask, params, mesh)[0]
+
+    return f
+
+
+def _mc_test_step_sharded(model, num_samples: int, mesh: Mesh):
+    """MC test step of an oversized bag, instance-sharded over ``mesh``
+    (float path): ``f(patches, mask, seed) -> Y (T, C)``."""
+    from montecarlo_gated_mil_tpu_torch.parallel.instance import mc_inference_sharded
+
+    replicas = replicated(mesh, model, "inst")
+
+    def f(patches, mask, seed):
+        return mc_inference_sharded(model, patches, mask, num_samples, seed, mesh,
+                                    replicas=replicas)[0]
+
+    return f
+
+
+def _mc_labels(preds: torch.Tensor) -> torch.Tensor:
+    """``mc_test``'s reduction of MC logits ``(..., T, C)``: the argmax of
+    the mean softmax over T."""
+    return torch.argmax(torch.softmax(preds, dim=-1).mean(-2), dim=-1)
+
+
+def _mc_val_step_sharded(model, criterion, num_samples: int, mesh: Mesh):
+    """MC validation step of an oversized bag, instance-sharded over
+    ``mesh``: ``f(patches, mask, label, seed) -> (loss, aux, prediction)``
+    with ``mc_validate``'s reductions."""
+    from montecarlo_gated_mil_tpu_torch.parallel.instance import mc_inference_sharded
+
+    replicas = replicated(mesh, model, "inst")
+
+    def f(patches, mask, label, seed):
+        y, a = mc_inference_sharded(model, patches, mask, num_samples, seed, mesh,
+                                    replicas=replicas)
+        return _mc_val_finish(model, criterion, y, a, label.to(y.device))
+
+    return f
 
 
 def _with_last_flag(items):
@@ -180,13 +261,23 @@ def validate(
     epoch: int,
     metrics: Metrics | None = None,
     fold: int | None = None,
+    shard_over: int | None = None,
+    mesh: Mesh | None = None,
 ) -> float:
     running_loss = correct = total = 0.0
+    sharded = None
     with torch.no_grad():
         for bag, _rec in _items(loader, epoch):
-            y, _ = model(bag.patches, bag.mask)
-            running_loss += float(criterion(y[None, :], bag.label[None]))
-            correct += float(torch.argmax(y) == bag.label)
+            shard_mesh = shard_mesh_for(bag.bucket, shard_over, mesh)
+            if shard_mesh is not None:
+                sharded = sharded or _det_step_sharded(model, shard_mesh)
+                y = sharded(bag.patches, bag.mask)
+            else:
+                y, _ = model(bag.patches, bag.mask)
+            loss = criterion(y[None, :], bag.label.to(y.device)[None])
+            pred = torch.argmax(y)
+            running_loss += float(loss)
+            correct += float(pred.cpu() == bag.label.cpu())
             total += 1
     epoch_loss = running_loss / max(total, 1)
     m = (metrics or Metrics([])).scoped(fold)
@@ -217,21 +308,30 @@ def mc_validate(
     key: int,
     metrics: Metrics | None = None,
     fold: int | None = None,
+    shard_over: int | None = None,
+    mesh: Mesh | None = None,
 ) -> float:
     """MC validation; bag ``i`` of epoch ``e`` samples with seed
     ``fold_in(fold_in(key, e), i)``."""
     running_loss = running_aux = correct = total = 0.0
+    sharded = None
     with torch.no_grad():
         for i, (bag, _rec) in enumerate(_items(loader, epoch)):
             seed = rng.fold_in(rng.fold_in(key, epoch), i)
-            H = model.embed(bag.patches, bag.mask)
-            out = mc_head(model, H, bag.mask, num_samples, seed)
-            loss, aux, pred = _mc_val_finish(
-                model, criterion, out.predictions, out.attention, bag.label
-            )
+            shard_mesh = shard_mesh_for(bag.bucket, shard_over, mesh)
+            if shard_mesh is not None:
+                sharded = sharded or _mc_val_step_sharded(model, criterion, num_samples,
+                                                          shard_mesh)
+                loss, aux, pred = sharded(bag.patches, bag.mask, bag.label, seed)
+            else:
+                H = model.embed(bag.patches, bag.mask)
+                out = mc_head(model, H, bag.mask, num_samples, seed)
+                loss, aux, pred = _mc_val_finish(
+                    model, criterion, out.predictions, out.attention, bag.label
+                )
             running_loss += float(loss)
             running_aux += float(aux)
-            correct += float(pred == bag.label)
+            correct += float(pred.cpu() == bag.label.cpu())
             total += 1
     epoch_loss = running_loss / max(total, 1)
     m = (metrics or Metrics([])).scoped(fold)
@@ -262,12 +362,20 @@ def test(
     *,
     metrics: Metrics | None = None,
     fold: int | None = None,
+    shard_over: int | None = None,
+    mesh: Mesh | None = None,
 ):
     """Deterministic test pass: ``(accuracy, Report)``."""
     preds, targets = [], []
+    sharded = None
     with torch.no_grad():
         for bag, _rec in _items(loader, 0):
-            y, _ = model(bag.patches, bag.mask)
+            shard_mesh = shard_mesh_for(bag.bucket, shard_over, mesh)
+            if shard_mesh is not None:
+                sharded = sharded or _det_step_sharded(model, shard_mesh)
+                y = sharded(bag.patches, bag.mask)
+            else:
+                y, _ = model(bag.patches, bag.mask)
             preds.append(int(torch.argmax(y)))
             targets.append(int(bag.label))
     return _finish_test(targets, preds, metrics, fold)
@@ -282,21 +390,46 @@ def mc_test(
     metrics: Metrics | None = None,
     fold: int | None = None,
     quantized: bool = False,
+    shard_over: int | None = None,
+    mesh: Mesh | None = None,
 ):
     """MC test pass: ``(accuracy, Report)`` from the argmax of the MC-mean
     softmax.  Bag ``i`` samples with seed ``fold_in(seed, i)``;
     ``quantized=True`` embeds through the int8 PTQ path.  An oversized bag
-    runs whole on the one card."""
+    (bucket above ``shard_over``) evaluates instance-sharded over
+    ``mesh``'s devices on the float embed, where there are several (see the
+    module docstring); the int8 path then says once that the metric mixes
+    regimes (:func:`warn_float_shard`)."""
+    targets, preds, _ = _mc_test_outputs(
+        model, loader, num_samples=num_samples, seed=seed, quantized=quantized,
+        shard_over=shard_over, mesh=mesh,
+    )
+    return _finish_test(targets, preds, metrics, fold)
+
+
+def _mc_test_outputs(model, loader, *, num_samples, seed, quantized=False, shard_over=None,
+                     mesh=None) -> tuple[list[int], list[int], list[torch.Tensor]]:
+    """:func:`mc_test`'s pass: per bag its target, predicted label and MC
+    logits ``Y (T, C)`` on the CPU, in stream order."""
     embed = make_embed_fn(model, quantized)
-    preds, targets = [], []
+    targets, preds, ys = [], [], []
+    sharded = None
     with torch.no_grad():
         for i, (bag, _rec) in enumerate(_items(loader, 0)):
-            H = embed(bag.patches, bag.mask)
-            out = mc_head(model, H, bag.mask, num_samples, rng.fold_in(seed, i))
-            probs = torch.softmax(out.predictions, dim=-1)
-            preds.append(int(torch.argmax(probs.mean(0))))
+            seed_i = rng.fold_in(seed, i)
+            shard_mesh = shard_mesh_for(bag.bucket, shard_over, mesh)
+            if shard_mesh is not None:
+                if sharded is None and quantized:
+                    warn_float_shard(quantized=True)
+                sharded = sharded or _mc_test_step_sharded(model, num_samples, shard_mesh)
+                y = sharded(bag.patches, bag.mask, seed_i)
+            else:
+                H = embed(bag.patches, bag.mask)
+                y = mc_head(model, H, bag.mask, num_samples, seed_i).predictions
+            preds.append(int(_mc_labels(y)))
+            ys.append(y.cpu())
             targets.append(int(bag.label))
-    return _finish_test(targets, preds, metrics, fold)
+    return targets, preds, ys
 
 
 def ensemble_mc_test(

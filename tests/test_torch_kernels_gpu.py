@@ -882,3 +882,134 @@ def test_single_head_mc_on_the_card_matches_cpu(cuda):
         y, a = model.cpu().head(H, mask, mc_dropout=True, seed=7)
     torch.testing.assert_close(y_c.cpu(), y, atol=1e-6, rtol=0)
     torch.testing.assert_close(a_c.cpu(), a, atol=1e-6, rtol=0)
+
+
+def _cuda_mesh(cuda, data: int = -1, inst: int = 1):
+    """A mesh of repeated entries of the one card."""
+    from montecarlo_gated_mil_tpu_torch.parallel.mesh import make_mesh
+
+    k = data * inst if data > 0 else inst
+    return make_mesh(data=data, inst=inst, devices=[cuda] * k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("separate", [False, True])
+def test_sharded_mc_head_on_the_card_matches_k1(cuda, separate):
+    """The instance-sharded head (plain PyTorch, 4 shards of 50 rows, T
+    samples in one Philox call per shard) on the card draws K1's dropout
+    elements: it equals K1 on the whole bag within K1's limits (1e-4 on Y,
+    1e-5 on A)."""
+    from montecarlo_gated_mil_tpu_torch.parallel.instance import sharded_mc_gated_attention
+
+    N, L, T = 200, 128, 4
+    g = torch.Generator().manual_seed(7)
+    H = torch.rand(N, L, generator=g).to(cuda)
+    mask = (torch.arange(N) % 4 != 3).to(cuda)
+    params = _params(separate).to(cuda)
+    y_k, a_k = tga.mc_gated_attention(H, mask, params, T, 3, 0.1, 0.1)
+    y, a = sharded_mc_gated_attention(H, mask, params, T, 3, _cuda_mesh(cuda, data=1, inst=4))
+    torch.testing.assert_close(y, y_k, atol=1e-4, rtol=0)
+    torch.testing.assert_close(a, a_k, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_sharded_embed_on_the_card_matches_whole(cuda):
+    """The instance-sharded r18 embed on the card (cuDNN f32 convs per
+    shard, TF32 off) equals the whole-bag embed within 1e-5."""
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.parallel.instance import sharded_embed
+
+    torch.manual_seed(0)
+    model = MultiHeadGatedAttentionMIL(shared_attention=False).to(cuda).eval()
+    g = torch.Generator().manual_seed(2)
+    mask = (torch.arange(16) < 13).to(cuda)
+    x = (torch.randn(16, 64, 64, 3, generator=g).to(cuda)) * mask[:, None, None, None]
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            whole = model.embed(x, mask)
+            got = sharded_embed(model, x, mask, _cuda_mesh(cuda, data=1, inst=4))
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    torch.testing.assert_close(got, whole, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_mc_test_dp_on_the_card_equals_sequential(cuda):
+    """``mc_test_dp`` over a ``data`` mesh of 2 on the card, with an
+    oversized bag that diverts to the sharded route: labels and MC logits
+    equal the sequential ``mc_test``'s with the same ``shard_over`` and mesh,
+    bag for bag; K1 ran for every regular bag."""
+    from montecarlo_gated_mil_tpu_torch.core.bag import Bag
+    from montecarlo_gated_mil_tpu_torch.evaluation.dp_eval import _mc_test_dp_outputs
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.train.loops import _mc_test_outputs
+
+    torch.manual_seed(1)
+    model = MultiHeadGatedAttentionMIL(shared_attention=False).to(cuda).eval()
+    g = torch.Generator().manual_seed(4)
+    bags = []
+    for i, (bucket, n) in enumerate([(8, 5), (16, 12), (8, 7), (32, 30), (16, 9)]):
+        mask = torch.arange(bucket) < n
+        x = torch.randn(bucket, 32, 32, 3, generator=g) * mask[:, None, None, None]
+        bags.append((Bag(x.to(cuda), mask.to(cuda), torch.tensor(i % 2, device=cuda),
+                         torch.arange(bucket, device=cuda)), None))
+    mesh = _cuda_mesh(cuda, data=2)
+    kw = dict(num_samples=3, seed=5, shard_over=16, mesh=mesh)
+    seq = _mc_test_outputs(model, bags, **kw)
+    before = cuda_build.KERNELS["mc_head_sep"].launches
+    dp = _mc_test_dp_outputs(model, bags, **kw)
+    assert cuda_build.KERNELS["mc_head_sep"].launches - before >= 4
+    assert dp[1] == seq[1] and all(torch.equal(a, b) for a, b in zip(dp[2], seq[2]))
+
+
+@pytest.mark.gpu
+def test_predict_many_dp_on_the_card_equals_predict(cuda):
+    """``predict_many(dp=True)`` on a ``data`` mesh of 2 of the card: every
+    result equals ``predict``'s bit for bit."""
+    from montecarlo_gated_mil_tpu_torch.core.bag import BucketSpec
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import PipelineConfig
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
+
+    torch.manual_seed(2)
+    pipe = PipelineConfig(height=256, width=256, patch_size=32, overlap=0.0, empty_threshold=0.05,
+                          bucket=64)
+    pred = MCDOPredictor(MultiHeadGatedAttentionMIL(shared_attention=False), pipe,
+                         num_samples=4, bucket_spec=BucketSpec((16, 32, 64)), device=cuda,
+                         mesh=_cuda_mesh(cuda, data=2))
+    imgs = [synthetic_image(256, 256, positive=bool(s % 2), seed=s) for s in range(3)]
+    many = pred.predict_many(imgs, ["L", "R", "L"], seed=3, dp=True)
+    for i, (m, img, lat) in enumerate(zip(many, imgs, ["L", "R", "L"])):
+        p = pred.predict(img, lat, seed=3 + i)
+        assert (m.bucket, m.num_instances) == (p.bucket, p.num_instances)
+        assert torch.equal(m.stats.mean_probs, p.stats.mean_probs)
+        assert torch.equal(m.attention.std, p.attention.std)
+
+
+@pytest.mark.gpu
+def test_ensemble_sharded_on_the_card_matches_sequential(cuda):
+    """The member-sharded ensemble on a ``data`` mesh of 2 of the card equals
+    the sequential ensemble within 2e-5; K1 ran once per member."""
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.experiment import build_model
+    from montecarlo_gated_mil_tpu_torch.mcdo.ensemble import (
+        ensemble_mc_inference,
+        ensemble_mc_inference_sharded,
+    )
+
+    cfg = Config()
+    members = [build_model(cfg, seed=s).state_dict() for s in (1, 2, 3, 4)]
+    g = torch.Generator().manual_seed(3)
+    mask = (torch.arange(16) < 12).to(cuda)
+    patches = (torch.randn(16, 64, 64, 3, generator=g).to(cuda)) * mask[:, None, None, None]
+    model = build_model(cfg).to(cuda)
+    want = ensemble_mc_inference(model, members, patches, mask, 4, 9)
+    before = cuda_build.KERNELS["mc_head_sep"].launches
+    got = ensemble_mc_inference_sharded(model, members, patches, mask, 4, 9,
+                                        _cuda_mesh(cuda, data=2))
+    assert cuda_build.KERNELS["mc_head_sep"].launches - before == 4
+    torch.testing.assert_close(got.predictions, want.predictions, atol=2e-5, rtol=0)
+    torch.testing.assert_close(got.attention, want.attention, atol=2e-5, rtol=0)
