@@ -102,7 +102,22 @@ Phases, each of which raises on failure:
    bit for bit; (d) the member-sharded ensemble of phase 10's two fold
    models against the sequential one (2e-5).  A repeated-device mesh
    checks the arithmetic and the launches, not transfers between cards;
-14. prints the ``kernels`` JSON line, the total seconds, the card's line and
+14. parallel training at ``Config()``'s widths, cuDNN deterministic, on
+   meshes of repeated ``cuda:0``: (a) ``train_epoch_dp`` on a ``data`` mesh
+   of 2 over five bags at buckets 256-1024 (a padded partial group, one
+   update at epoch end) against ``train_epoch`` (final weights within 2e-5),
+   ms per bag and peaks; (b) one oversized training bag at bucket 2048 (phase
+   4's first mammogram) through ``make_train_step_sharded`` at ``inst`` 2 and
+   4 against the whole-bag ``make_train_step`` (loss rtol 1e-4, gradients
+   rtol 2e-3 / atol 2e-5); (c) the training-memory guard: a bucket-3072 bag
+   on the single-device route raises before its step, 2048 does not, and
+   (b)'s whole-bag peak stays under the guard's estimate; (d) phase 7's
+   ``run_training`` with ``tpu.async_checkpointing``: its checkpoints load
+   equal to a synchronous run's, and a resume from them writes the next one
+   again equal; (e) ``cli cv`` with phase 10's config fanned out over two
+   processes on a ``gloo`` group, each manifest's fold accuracies equal to
+   phase 10's.  K1, K3 and K5 are counted around each path;
+15. prints the ``kernels`` JSON line, the total seconds, the card's line and
    the result line.
 
 Every timed call prints three numbers (``Timing``): its device time, the
@@ -641,6 +656,8 @@ def main() -> int:
               "--ensemble", flush=True)
         infer_launches = check_dicom_and_infer(cv_cfg, cv_peak)
         members, member_bag = phase10_members(cv_cfg)
+        cv_accuracies = json.loads(
+            Path(cv_cfg.model_path, "cv_manifest.json").read_text())["all_fold_accuracies"]
 
     print("[12] the model surface: the single-head request, serial MC, counterfactual dropout, "
           "train_epoch_plain, the uncertainty acceptance, the TensorBoard sink", flush=True)
@@ -651,10 +668,16 @@ def main() -> int:
           flush=True)
     parallel_launches = check_parallel_paths(pred, weights, requests, d, members, member_bag)
     del members, member_bag
+    torch.cuda.empty_cache()
+
+    print("[14] parallel training on the card: train_epoch_dp, the sharded training step of an "
+          "oversized bag, the memory guard, async checkpoints, cli cv over two processes",
+          flush=True)
+    training_launches = check_parallel_training(cv_cfg, cv_accuracies)
 
     # Serving kernels: phase 4's direct requests, phase 4b's front-ends and
     # phase 4q's quantized requests; then the bench's, CV's and infer's runs
-    # and phases 12 and 13's paths.
+    # and phases 12, 13 and 14's paths.
     launches = dict(
         {k: n + front_launches.get(k, 0) + quant_launches.get(k, 0)
          for k, n in serve_launches.items()},
@@ -663,7 +686,8 @@ def main() -> int:
         mc_head_bwd_shared=shared_train_launches["mc_head_bwd_shared"],
     )
     launches = {k: n + bench_launches[k] + cv_launches[k] + infer_launches[k]
-                + surface_launches[k] + parallel_launches[k] for k, n in launches.items()}
+                + surface_launches[k] + parallel_launches[k] + training_launches[k]
+                for k, n in launches.items()}
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in cuda_build.KERNELS.values():
@@ -2998,6 +3022,362 @@ def check_parallel_paths(pred, weights, requests, d, members, member_bag) -> dic
     print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s; launches "
           f"{ {k: n for k, n in totals.items() if n} }", flush=True)
     return totals
+
+
+# Phase 14 (a): (bucket, valid tiles) of the five training bags: two groups
+# of two, one partial group of one, on a data mesh of 2.
+TRAIN_DP_BAGS = ((256, 200), (1024, 900), (512, 400), (256, 180), (1024, 700))
+DP_TRAIN_TOL = 2e-5  # final weights, data-parallel against sequential (JAX's bar)
+SHARD_LOSS_RTOL, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 1e-4, 2e-3, 2e-5
+FANOUT_TIMEOUT = 600  # seconds, each fold process of (e)
+
+
+def _excess(got: dict, want: dict, rtol: float, atol: float) -> float:
+    """The largest amount by which ``|got - want|`` exceeds ``atol + rtol *
+    |want|`` over every entry (<= 0: all within)."""
+    return max(float(((got[k] - want[k]).abs() - atol - rtol * want[k].abs()).max())
+               for k in want)
+
+
+def _grads(model) -> dict:
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def check_parallel_training(cv_cfg, cv_accuracies: dict) -> dict:
+    """Phase 14: the training half of ``parallel/`` at ``Config()``'s widths
+    on meshes of repeated ``cuda:0``, cuDNN deterministic and TF32 off:
+    (a) ``train_epoch_dp`` on a data mesh of 2 over ``TRAIN_DP_BAGS``
+    against ``train_epoch`` of the same bags and seeds; (b) one oversized
+    bag at bucket 2048 through ``make_train_step_sharded`` at inst 2 and 4
+    against the whole-bag ``make_train_step``; (c) the memory guard; (d)
+    phase 7's ``run_training`` with ``tpu.async_checkpointing``, its
+    checkpoints against a synchronous run's and a resume from them; (e)
+    ``cli cv`` with phase 10's config fanned out over two processes.
+    Returns the launch counts of these runs, each zeroed just before the run
+    and read just after (the fold processes report their own)."""
+    import copy
+
+    from montecarlo_gated_mil_tpu_torch.core.bag import Bag
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import image_to_bag
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.experiment import (
+        _pipeline_cfgs,
+        build_criterion,
+        build_model,
+        build_optimizer,
+    )
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.parallel.dp import make_dp_train_step
+    from montecarlo_gated_mil_tpu_torch.parallel.mesh import make_mesh
+    from montecarlo_gated_mil_tpu_torch.train import loops
+    from montecarlo_gated_mil_tpu_torch.train.state import (
+        TrainState,
+        make_train_step,
+        make_train_step_sharded,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    d = cfg.data
+    totals = {k: 0 for k in cuda_build.KERNELS}
+    cuda0 = torch.device("cuda", 0)
+    crit = build_criterion(cfg)
+
+    def main(fn):
+        cuda_build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+        for k, v in got.items():
+            totals[k] += v
+        return out, got
+
+    def trainer(model):
+        opt, sched = build_optimizer(cfg, model)
+        return opt, TrainState(model, opt, sched)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, peak = _peak_gib(fn)
+        return out, (time.perf_counter() - t0) * 1e3, peak
+
+    flags = torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                       allow_tf32=False)
+    with flags:
+        # (a) the data-parallel epoch against the sequential one.
+        g = torch.Generator(device="cuda").manual_seed(14)
+        items = []
+        for i, (bucket, n) in enumerate(TRAIN_DP_BAGS):
+            mask = torch.arange(bucket, device="cuda") < n
+            patches = torch.rand((bucket, d.patch_size, d.patch_size, 3), generator=g,
+                                 device="cuda") * mask[:, None, None, None]
+            items.append((Bag(patches, mask, torch.tensor(i % 2, device="cuda"),
+                              torch.where(mask, torch.arange(bucket, device="cuda"), 0)), None))
+        k = len(items)  # one update, at epoch end: the two epochs apply one gradient
+        base = build_model(cfg, seed=21).cuda()
+        seq_model, dp_model = copy.deepcopy(base), copy.deepcopy(base)
+        opt, state = trainer(seq_model)
+        seq_step = make_train_step(seq_model, crit, opt, k)
+        kw = dict(epoch=1, accumulation_steps=k, key=5)
+        with _Capture():
+            (state, seq_ms, seq_peak), got_seq = main(lambda: timed(
+                lambda: loops.train_epoch(seq_step, state, items, **kw)))
+        mesh2 = make_mesh(data=2, devices=[cuda0] * 2)
+        opt2, state2 = trainer(dp_model)
+        dp_step, dp_apply = make_dp_train_step(dp_model, crit, opt2, mesh2)
+        with _Capture():
+            (state2, dp_ms, dp_peak), got_dp = main(lambda: timed(
+                lambda: loops.train_epoch_dp(dp_step, dp_apply, state2, items, mesh2, **kw)))
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            seq_model.state_dict().values(), dp_model.state_dict().values()))
+        moved = max(float((a - b).abs().max()) for a, b in zip(
+            base.state_dict().values(), dp_model.state_dict().values()))
+        print(f"  (a) train_epoch_dp, data mesh of 2, {k} bags (buckets "
+              f"{[b for b, _ in TRAIN_DP_BAGS]}; groups of 2, 2 and a padded 1), k={k}: "
+              f"{dp_ms / k:.1f} ms per bag, peak {dp_peak:.3f} GiB (sequential train_epoch "
+              f"{seq_ms / k:.1f} ms per bag, {seq_peak:.3f} GiB); steps {state2.step}/"
+              f"{state.step}; max |d weights| {err:.3e} (<= {DP_TRAIN_TOL}), moved "
+              f"{moved:.3e}; launches K1 {got_dp['mc_head_sep']} K5 "
+              f"{got_dp['mc_head_bwd_sep']} (sequential {got_seq['mc_head_sep']}, "
+              f"{got_seq['mc_head_bwd_sep']})", flush=True)
+        if (not err <= DP_TRAIN_TOL or moved == 0.0 or state.step != 1 or state2.step != 1
+                or got_dp["mc_head_sep"] != k or got_dp["mc_head_bwd_sep"] != k):
+            raise RuntimeError(f"(a) train_epoch_dp: |d| {err}, steps {state2.step}, "
+                               f"launches {got_dp}")
+        del items, seq_model, dp_model, state, state2, opt, opt2, seq_step, dp_step, dp_apply
+        torch.cuda.empty_cache()
+
+        # (b) one oversized bag at bucket 2048: sharded steps against the whole bag.
+        _, eval_cfg = _pipeline_cfgs(cfg)
+        starts = torch.from_numpy(eval_cfg.grid().tiles_array()[:, :2]).long()
+        img = synthetic_image(d.H, d.W, positive=False, seed=0)  # phase 4's first request
+        (bag, _), got_bag = main(lambda: (image_to_bag(
+            img, False, 1, starts, replace(eval_cfg, bucket=2048), device="cuda"), 0))
+        n_valid = int(bag.mask.sum())
+        whole_model = build_model(cfg, seed=22).cuda()
+        opt, state = trainer(whole_model)
+        whole_step = make_train_step(whole_model, crit, opt, 1)
+        ((_, out), whole_ms, _), got_whole = main(lambda: timed(
+            lambda: whole_step(state, bag, 3, False)))
+        whole_abs = torch.cuda.max_memory_allocated() / 2**30  # since timed's reset
+        want, loss = _grads(whole_model), float(out["loss"])
+        print(f"  (b) oversized training bag: bucket 2048, {n_valid} valid tiles (phase 4's "
+              f"first mammogram, eval grid); whole-bag make_train_step {whole_ms:.1f} ms, peak "
+              f"{whole_abs:.3f} GiB allocated in all; loss {loss:.6f}; launches K1 "
+              f"{got_whole['mc_head_sep']} K5 {got_whole['mc_head_bwd_sep']}", flush=True)
+        base_sd = copy.deepcopy(whole_model.state_dict())
+        del state, opt, whole_step
+        whole_model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        shard_ok = got_whole["mc_head_sep"] == 1 and got_whole["mc_head_bwd_sep"] == 1
+        for inst in (2, 4):
+            model = build_model(cfg, seed=22).cuda()
+            model.load_state_dict(base_sd)
+            opt, state = trainer(model)
+            step = make_train_step_sharded(model, crit, opt, 1,
+                                           make_mesh(data=1, inst=inst, devices=[cuda0] * inst))
+            ((_, out), ms, peak), got = main(lambda: timed(lambda: step(state, bag, 3, False)))
+            in_all = torch.cuda.max_memory_allocated() / 2**30  # since timed's reset
+            lerr = abs(float(out["loss"]) - loss) / abs(loss)
+            gex = _excess(_grads(model), want, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL)
+            print(f"  (b) make_train_step_sharded inst {inst}: {ms:.1f} ms, peak {in_all:.3f} GiB "
+                  f"allocated in all ({peak:.3f} above its start); loss rel. error {lerr:.3e} (<= {SHARD_LOSS_RTOL}); "
+                  f"gradients' largest excess over rtol {SHARD_GRAD_RTOL} / atol "
+                  f"{SHARD_GRAD_ATOL}: {gex:.3e} (<= 0); launches K1 {got['mc_head_sep']} K5 "
+                  f"{got['mc_head_bwd_sep']}", flush=True)
+            shard_ok = (shard_ok and lerr <= SHARD_LOSS_RTOL and gex <= 0.0
+                        and got["mc_head_sep"] == 1 and got["mc_head_bwd_sep"] == 1)
+            del model, opt, state, step
+            torch.cuda.empty_cache()
+        if not shard_ok:
+            raise RuntimeError("(b) the sharded training steps disagree with the whole bag or "
+                               "missed K1/K5")
+        del whole_model, want
+
+        # (c) the guard: the card's estimate against (b)'s measured peak.
+        est = loops._train_step_bytes(bag) / 2**30
+        loops._check_unrouted_train_bag(bag, max(cfg.tpu.buckets))  # 2048 fits: no raise
+        big = Bag(torch.zeros((3072, d.patch_size, d.patch_size, 3), device="cuda"),
+                  torch.ones(3072, dtype=torch.bool, device="cuda"),
+                  torch.tensor(1, device="cuda"), torch.arange(3072, device="cuda"))
+        ran = []
+        try:
+            loops.train_epoch(lambda *a: ran.append(a), None, [(big, None)], epoch=1,
+                              accumulation_steps=1, key=0, shard_over=max(cfg.tpu.buckets))
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        limit = torch.cuda.get_device_properties(0).total_memory / 2**30
+        print(f"  (c) guard: card {limit:.2f} GiB; bucket 2048 estimate {est:.2f} GiB (no raise; "
+              f"(b)'s whole-bag peak {whole_abs:.3f} GiB in all); bucket 3072 estimate "
+              f"{loops._train_step_bytes(big) / 2**30:.2f} GiB: raised before the step "
+              f"{bool(raised) and not ran}: {raised[:90]}...", flush=True)
+        if not raised or ran or not whole_abs < est:
+            raise RuntimeError(f"(c) guard: raised {bool(raised)}, step ran {bool(ran)}, peak "
+                               f"{whole_abs} GiB against the estimate {est} GiB")
+        del big, bag
+        torch.cuda.empty_cache()
+
+        # (d) run_training with asynchronous checkpoints.
+        check_async_checkpoints(main)
+    torch.cuda.empty_cache()
+
+    # (e) cli cv fanned out over two processes, against phase 10's manifest.
+    check_fold_fanout(cv_cfg, cv_accuracies, totals)
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{ {k: n for k, n in totals.items() if n} }", flush=True)
+    return totals
+
+
+def _load_steps(directory: str) -> dict:
+    return {int(f.stem.split("_")[1]): torch.load(f, map_location="cpu", weights_only=True)
+            for f in sorted(Path(directory).glob("step_*.pt"))}
+
+
+def _same(a, b) -> bool:
+    """Loaded checkpoints equal: every tensor bit for bit, every other value."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def check_async_checkpoints(main) -> None:
+    """Phase 14 (d): phase 7's ``run_training`` (8 synthetic records,
+    ``Config()`` widths) for 2 epochs with ``tpu.async_checkpointing`` and
+    ``checkpoint_every: 1``; 1 epoch synchronously, whose checkpoint must
+    load equal to the async run's; then the async run's epoch-2 checkpoint
+    removed and the run resumed, which must write it again equal."""
+    import os
+
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.runners import run_training
+
+    base = Config()
+    tp = base.training_plan
+    with tempfile.TemporaryDirectory() as tmp:
+        def cfg(name: str, epochs: int, async_save: bool):
+            return replace(
+                base, model_path=os.path.join(tmp, name),
+                data=replace(base.data, synthetic_count=8),
+                training_plan=replace(tp, parameters=replace(tp.parameters, epochs=epochs)),
+                tpu=replace(base.tpu, checkpoint_every=1, async_checkpointing=async_save),
+            )
+
+        def run(c, resume=False):
+            t0 = time.perf_counter()
+            with _Capture():
+                (_, got) = main(lambda: run_training(c, resume=resume, device="cuda"))
+            return time.perf_counter() - t0, got
+
+        a_s, got_a = run(cfg("async", 2, True))
+        b_s, got_b = run(cfg("sync", 1, False))
+        a = _load_steps(os.path.join(tmp, "async", "train_state"))
+        b = _load_steps(os.path.join(tmp, "sync", "train_state"))
+        equal = sorted(a) == [1, 2] and sorted(b) == [1] and _same(a[1], b[1])
+        os.remove(os.path.join(tmp, "async", "train_state", "step_00000002.pt"))
+        r_s, got_r = run(cfg("async", 2, True), resume=True)
+        resumed = _load_steps(os.path.join(tmp, "async", "train_state"))
+        again = sorted(resumed) == [1, 2] and _same(resumed[2], a[2])
+    print(f"  (d) run_training, async checkpoints, 2 epochs: {a_s:.1f} s (launches K1 "
+          f"{got_a['mc_head_sep']} K3 {got_a['gather_tiles']} K5 {got_a['mc_head_bwd_sep']}); "
+          f"synchronous, 1 epoch: {b_s:.1f} s; epoch 1's checkpoints load equal {equal}; "
+          f"resumed from epoch 1: {r_s:.1f} s, epoch 2's checkpoint written again equal "
+          f"{again}", flush=True)
+    if not (equal and again and got_a["mc_head_bwd_sep"] > 0 and got_r["mc_head_bwd_sep"] > 0):
+        raise RuntimeError(f"(d) async checkpoints: equal {equal}, resumed equal {again}")
+
+
+# One fold process of phase 14 (e): cli cv with TF32 off, as phase 10 runs
+# it, then its kernel launch counts and peak memory on a line of their own.
+# Both processes share the one card, so each caps its allocator at 45 % of
+# the card's memory: an allocator frees its own cache when it reaches its cap,
+# never the other process's (a training step at bucket 1024 peaks at 26 GiB,
+# an evaluation bag at 3072 at 20 GiB).
+_FOLD_PROCESS = """
+import json, sys
+import torch
+from montecarlo_gated_mil_tpu_torch import cli
+from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.cuda.set_per_process_memory_fraction(0.45)
+rc = cli.main(["cv", "--config", sys.argv[1]])
+got = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+got["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+print("LAUNCHES " + json.dumps(got))
+sys.exit(rc)
+"""
+
+
+def check_fold_fanout(cv_cfg, cv_accuracies: dict, totals: dict) -> None:
+    """Phase 14 (e): ``cli cv`` with phase 10's config fanned out over two
+    processes on the one card (``coordinator_address`` on a free local port,
+    ``num_processes`` 2, ``process_id`` 0 and 1; a ``gloo`` group); each
+    process's manifest must hold every fold's accuracy, equal to phase 10's
+    single-process manifest."""
+    import os
+    import socket
+
+    import yaml
+
+    from montecarlo_gated_mil_tpu_torch.core.config import config_to_dict
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ymls = []
+        for r in range(2):
+            c = replace(cv_cfg, model_path=os.path.join(tmp, "models"), tpu=replace(
+                cv_cfg.tpu, coordinator_address=f"127.0.0.1:{port}", num_processes=2,
+                process_id=r))
+            ymls.append(os.path.join(tmp, f"p{r}.yml"))
+            Path(ymls[-1]).write_text(yaml.safe_dump(config_to_dict(c)))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", _FOLD_PROCESS, y], cwd=root, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for y in ymls]
+        ends = []
+        try:
+            for p in procs:
+                ends.append(p.communicate(timeout=FANOUT_TIMEOUT))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError("(e) fold processes exited " + "; ".join(
+                f"{p.returncode}: {err[-2500:]}" for p, (_, err) in zip(procs, ends)))
+        outs = [out for out, _ in ends]
+        manifests = [json.loads(Path(tmp, "models", f"cv_manifest_p{r}.json").read_text())
+                     for r in range(2)]
+    launches = [json.loads(next(ln for ln in out.splitlines() if ln.startswith("LAUNCHES "))[9:])
+                for out in outs]
+    peaks = [got.pop("peak_gib") for got in launches]
+    for got in launches:
+        for k, v in got.items():
+            totals[k] += v
+    accs = [m["all_fold_accuracies"] for m in manifests]
+    print(f"  (e) cli cv over 2 processes (gloo, 127.0.0.1:{port}): {wall:.1f} s wall; folds "
+          f"{[[f['fold'] for f in m['folds']] for m in manifests]}; all_fold_accuracies "
+          f"{accs} (phase 10's single process: {cv_accuracies}); per process: "
+          + "; ".join(f"peak {peak:.3f} GiB, launches K1 {g['mc_head_sep']} K3 "
+                      f"{g['gather_tiles']} K5 {g['mc_head_bwd_sep']}"
+                      for g, peak in zip(launches, peaks)), flush=True)
+    if (any(a != cv_accuracies for a in accs)
+            or [[f["fold"] for f in m["folds"]] for m in manifests] != [[1], [2]]
+            or any(g["mc_head_bwd_sep"] == 0 for g in launches)):
+        raise RuntimeError(f"(e) fold fan-out: accuracies {accs} against {cv_accuracies}")
 
 
 def time_heads(root: str) -> int:

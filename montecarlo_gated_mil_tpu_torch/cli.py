@@ -19,9 +19,13 @@ figures need matplotlib), ``bench`` ``bench.run_bench`` (one JSON line)
 and ``serve`` the JSONL or HTTP front-end of ``server.py``, on the CUDA card.
 Metrics go to stdout, to TensorBoard event files under ``--tensorboard
 DIR`` and, with ``neptune: true`` in the YAML, to a Neptune run where
-``neptune`` imports.  What is not ported (``--aot-cache``, a multi-process
-``tpu.coordinator_address``) exits non-zero with a message naming its
-ROADMAP.md item, never doing something else instead.
+``neptune`` imports.  With ``tpu.coordinator_address`` set, each process
+of a multi-process run joins the group first
+(``parallel/distributed.py::initialize`` with ``tpu.num_processes`` and
+``tpu.process_id``; ``cv`` then fans its folds out over the processes), and
+leaves it at the end.  ``--aot-cache`` is not ported and exits non-zero
+with a message naming its ROADMAP.md item, never doing something else
+instead.
 """
 
 from __future__ import annotations
@@ -131,12 +135,26 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
         raise _unported("--aot-cache, the JAX package's executable cache (ROADMAP.md queue 1, "
                         "'Never to be ported': CUDA needs no compile cache)")
     from montecarlo_gated_mil_tpu_torch.core.config import load_config
-    from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics, StdoutSink
 
     cfg = load_config(args.config)
-    if cfg.tpu.coordinator_address:
-        raise _unported("multi-process runs, tpu.coordinator_address (ROADMAP.md queue 1, "
-                        "item 1: parallel/distributed.py)")
+    if not cfg.tpu.coordinator_address:
+        return _run(args, cfg, device)
+    import torch.distributed as dist
+
+    from montecarlo_gated_mil_tpu_torch.parallel.distributed import initialize
+
+    own_group = not dist.is_initialized()
+    initialize(cfg.tpu.coordinator_address, cfg.tpu.num_processes, cfg.tpu.process_id)
+    try:
+        return _run(args, cfg, device)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, device) -> int:
+    from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics, StdoutSink
+
     metrics = Metrics([StdoutSink()])
     if args.tensorboard:
         from montecarlo_gated_mil_tpu_torch.utils.metrics import TensorBoardSink

@@ -6,10 +6,17 @@ both packages.  The ``tpu:`` section keeps its name for that reason.  The
 port's predictor reads ``buckets``, ``compute_dtype``, ``oversized_bags``
 and ``quantized_inference`` (the int8 embed of ``ops/quantized.py``);
 training reads ``buckets``, ``adaptive_buckets``,
-``compute_dtype``, ``oversized_bags``, ``checkpoint_every`` and
+``compute_dtype``, ``oversized_bags``, ``checkpoint_every``,
 ``debug_nans`` / ``debug_infs`` (a NaN / Inf check of every step's loss and
-gradients, ``train/state.py::make_train_step``).  The other
-knobs are parsed and validated only.  ``use_pallas_train`` in particular has
+gradients, ``train/state.py::make_train_step``), ``data_parallel_train``
+(data-parallel training over several cards with one process,
+``train/loops.py::train_epoch_dp``) and ``async_checkpointing`` (epoch
+checkpoints written on a background thread, ``train/state.py::
+Checkpointer``); the CLI reads ``coordinator_address``, ``num_processes``
+and ``process_id`` (a multi-process run's ``gloo`` group, over which ``cv``
+fans its folds out, ``parallel/distributed.py::initialize``; -1 takes
+``WORLD_SIZE`` / ``RANK`` from a launcher where JAX detects them).  The
+other knobs are parsed and validated only.  ``use_pallas_train`` in particular has
 no effect in the port: on the card a training step's head always runs the
 forward kernel and its backward kernel (K1/K5, or K2/K4 for a shared gate),
 and on the CPU their plain version; both compute the same function on the
@@ -210,10 +217,11 @@ class TpuConfig:
     #    tiles — with a loud warning and a loader-side truncated-bag count
     #    (never silent).
     oversized_bags: str = "extend"
-    # Multi-process (multi-slice) execution: when coordinator_address is
-    # set, the CLI calls jax.distributed.initialize before first jax use and
-    # CV folds fan out round-robin over processes (parallel/distributed.py).
-    # num_processes/process_id of -1 defer to JAX auto-detection.
+    # Multi-process execution: when coordinator_address (host:port of
+    # process 0) is set, the CLI joins a gloo process group before anything
+    # else runs and CV folds fan out round-robin over processes
+    # (parallel/distributed.py).  num_processes/process_id of -1 take
+    # WORLD_SIZE/RANK from the environment, as a launcher sets them.
     coordinator_address: str = ""
     num_processes: int = -1
     process_id: int = -1

@@ -101,6 +101,24 @@ def classification_report(
     return Report(text, data)
 
 
+def classification_report_text(
+    targets: Sequence[int],
+    preds: Sequence[int],
+    target_names: tuple[str, str] = ("Negative", "Positive"),
+) -> str:
+    """The text form of :func:`classification_report`."""
+    return str(classification_report(targets, preds, target_names))
+
+
+def classification_report_dict(
+    targets: Sequence[int],
+    preds: Sequence[int],
+    target_names: tuple[str, str] = ("Negative", "Positive"),
+) -> dict:
+    """The dict form of :func:`classification_report`."""
+    return classification_report(targets, preds, target_names).data
+
+
 def aggregate_fold_accuracies(accs: Sequence[float]) -> dict:
     """Mean and std (ddof=0) across folds in float64, and the per-fold list
     (reference ``cross_val_eval.py:145-153``)."""

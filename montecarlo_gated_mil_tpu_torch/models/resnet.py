@@ -123,39 +123,12 @@ def _normalize_(y: torch.Tensor, mean, inv, weight, bias) -> None:
     y.add_(bias.to(y.dtype)[None, :, None, None])
 
 
-def sharded_batch_norm(
-    bns: Sequence["MaskedBatchStatsNorm"], xs: list, masks: Sequence[torch.Tensor],
-    relu: bool = False,
-) -> list[torch.Tensor]:
-    """:class:`MaskedBatchStatsNorm` over a bag whose instances are split
-    into shards: ``xs[s] (n_s, C, h, w)`` with validity ``masks[s]`` and
-    ``bns[s]``, the BN's copy, all on shard ``s``'s device; with ``relu``
-    the ReLU that follows.  The entries of ``xs`` are released as their
-    shards are normalized, so a layer holds about one copy of its
-    activations, as the unsharded layer does.
-
-    The only coupling between shards is the statistics.  Each shard takes
-    its instances' channel sums and sums of squares over ``(h, w)``, as the
-    unsharded forward does, and sends them, ``(n_s, C)`` each, with its mask
-    to the first shard's device.  There they are concatenated in shard
-    order (``parallel/mesh.py::gather_shards``) and the masked sums over the
-    bag, the valid count, mean and variance are taken exactly as the
-    unsharded BN takes them (:func:`_masked_moments`); the moments go back
-    to every shard, which normalizes its own instances.  So the result is
-    the whole-bag BN's wherever the per-instance sums come out the same.
-    The partials are ``2 * N * C`` numbers a layer, against the ``N * C *
-    h * w`` of the activations.  No gradient: the evaluation paths run it
-    under inference mode.
-
-    The backward (training's instance-sharded step) reduces the same way.
-    Of ``_MaskedBatchNorm.backward``, only the two channel sums
-    ``(dxhat * xhat).sum`` and ``dxhat.sum`` couple the instances: each
-    shard sends its per-instance sums over ``(h, w)``, they are summed over
-    the bag on the first device in shard order and handed back, and every
-    shard then forms its ``dx`` with the whole bag's ``d_var`` and
-    ``d_mean``; ``d_weight`` and ``d_bias`` reduce the same way.  It plugs
-    into the same walk (:func:`_walk`) as another ``norm``.
-    """
+def _shard_moments(xs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor], eps: float):
+    """The whole bag's BN moments from its shards, on the first shard's
+    device: each shard's per-instance channel sums and sums of squares over
+    ``(h, w)``, concatenated in shard order (``parallel/mesh.py::
+    gather_shards``), then reduced as the unsharded BN reduces them
+    (:func:`_masked_moments`).  Returns ``(count, mean, inv, scale)``."""
     from montecarlo_gated_mil_tpu_torch.parallel.mesh import gather_shards
 
     sd = _stats_dtype(xs[0].dtype)
@@ -167,14 +140,124 @@ def sharded_batch_norm(
         s2s.append(xf.square().sum(dim=(2, 3)))
     dev = xs[0].device
     m = gather_shards([mask.to(sd) for mask in masks], dev)
-    _, mean, var, scale = _masked_moments(gather_shards(s1s, dev), gather_shards(s2s, dev), m, hw)
-    inv = torch.rsqrt(var + bns[0].eps)
+    count, mean, var, scale = _masked_moments(gather_shards(s1s, dev), gather_shards(s2s, dev),
+                                              m, hw)
+    return count, mean, torch.rsqrt(var + eps), scale
+
+
+class _ShardedMaskedBatchNorm(torch.autograd.Function):
+    """:func:`sharded_batch_norm` under autograd: one node over every
+    shard's input, weight and bias, so that the backward can take the two
+    channel sums that couple the instances over the whole bag.
+
+    ``forward(ctx, bns, masks, *xs, *weights, *biases)`` normalizes as the
+    inference path does (the same operations, so the same numbers).  The backward is
+    ``_MaskedBatchNorm.backward`` split over shards: each shard sends the
+    per-instance sums over ``(h, w)`` of ``g`` and ``g * xhat`` to the first
+    device, where they are concatenated in shard order and summed over the
+    bag into ``d_bias`` and ``d_weight``; ``d_var`` and ``d_mean`` follow
+    from those, go back to every shard, and each forms its own ``dx``.
+    ``d_weight`` and ``d_bias`` go to the first shard's BN (the shards'
+    copies share one set of weights; ``parallel/instance.py::
+    sharded_embed_grad`` sums the copies' gradients).  No float atomics.
+    """
+
+    @staticmethod
+    def forward(ctx, bns, masks, *tensors):
+        # tensors: every shard's input, then each shard's BN weight and bias.
+        k = len(bns)
+        xs = tensors[:k]
+        count, mean, inv, scale = _shard_moments(xs, masks, bns[0].eps)
+        ctx.bns, ctx.masks, ctx.count, ctx.scale = bns, masks, count, scale
+        ctx.save_for_backward(mean, inv, *xs)
+        ys = []
+        for x, bn in zip(xs, bns):
+            y = x.to(_stats_dtype(x.dtype)) * scale.to(x.device)
+            _normalize_(y, mean.to(y.device), inv.to(y.device), bn.weight, bn.bias)
+            ys.append(y.to(x.dtype))
+        return tuple(ys)
+
+    @staticmethod
+    def backward(ctx, *gys):
+        from montecarlo_gated_mil_tpu_torch.parallel.mesh import gather_shards
+
+        mean, inv, *xs = ctx.saved_tensors
+        bns, count, scale = ctx.bns, ctx.count, ctx.scale
+        sd = _stats_dtype(xs[0].dtype)
+        dev = mean.device
+
+        def ch(v, device):
+            return v.to(device)[None, :, None, None]
+
+        pb, pw = [], []
+        for x, gy in zip(xs, gys):
+            g = gy.to(sd)
+            xhat = (x.to(sd) * scale.to(x.device) - ch(mean, x.device)) * ch(inv, x.device)
+            pb.append(g.sum(dim=(2, 3)))
+            pw.append((g * xhat).sum(dim=(2, 3)))
+            del g, xhat
+        d_bias = gather_shards(pb, dev).sum(0)
+        d_weight = gather_shards(pw, dev).sum(0)
+        w = bns[0].weight.to(device=dev, dtype=sd)
+        # As _MaskedBatchNorm.backward, with (dxhat * xhat).sum = w * d_weight
+        # and dxhat.sum = w * d_bias.
+        d_var = -0.5 * (w * d_weight) * inv.square()
+        d_mean = -(w * d_bias * inv) - 2.0 * mean * d_var
+        dxs = []
+        for x, gy, bn, mask in zip(xs, gys, bns, ctx.masks):
+            xf = x.to(sd)
+            wm = mask.to(device=x.device, dtype=sd)[:, None, None, None] / count.to(x.device)
+            dx = gy.to(sd) * ch(bn.weight.to(sd) * inv.to(x.device) * scale.to(x.device), x.device)
+            dx = dx + wm * (ch(d_mean, x.device) + 2.0 * ch(d_var, x.device) * xf)
+            dxs.append(dx.to(x.dtype))
+        rest = [None] * (len(bns) - 1)
+        return (None, None, *dxs, d_weight.to(bns[0].weight.dtype), *rest,
+                d_bias.to(bns[0].bias.dtype), *rest)
+
+
+def sharded_batch_norm(
+    bns: Sequence["MaskedBatchStatsNorm"], xs: list, masks: Sequence[torch.Tensor],
+    relu: bool = False,
+) -> list[torch.Tensor]:
+    """:class:`MaskedBatchStatsNorm` over a bag whose instances are split
+    into shards: ``xs[s] (n_s, C, h, w)`` with validity ``masks[s]`` and
+    ``bns[s]``, the BN's copy, all on shard ``s``'s device; with ``relu``
+    the ReLU that follows.
+
+    The only coupling between shards is the statistics.  Each shard takes
+    its instances' channel sums and sums of squares over ``(h, w)``, as the
+    unsharded forward does, and sends them, ``(n_s, C)`` each, with its mask
+    to the first shard's device.  There they are concatenated in shard
+    order (``parallel/mesh.py::gather_shards``) and the masked sums over the
+    bag, the valid count, mean and variance are taken exactly as the
+    unsharded BN takes them (:func:`_masked_moments`); the moments go back
+    to every shard, which normalizes its own instances.  So the result is
+    the whole-bag BN's wherever the per-instance sums come out the same.
+    The partials are ``2 * N * C`` numbers a layer, against the ``N * C *
+    h * w`` of the activations.
+
+    Where autograd records (training's instance-sharded step), the layer is
+    one :class:`_ShardedMaskedBatchNorm` node, whose backward reduces its
+    channel sums across shards the same way; it keeps every shard's input
+    for the backward, as the unsharded BN keeps the bag's.  Otherwise (the
+    evaluation paths) the entries of ``xs`` are released as their shards are
+    normalized, so a layer holds about one copy of its activations, as the
+    unsharded layer does.
+    """
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in [*xs, bns[0].weight, bns[0].bias]
+    ):
+        ys = _ShardedMaskedBatchNorm.apply(bns, list(masks), *xs, *(bn.weight for bn in bns),
+                                           *(bn.bias for bn in bns))
+        xs.clear()
+        return [F.relu(y) if relu else y for y in ys]
+    _, mean, inv, scale = _shard_moments(xs, masks, bns[0].eps)
     out = []
     for s, bn in enumerate(bns):
         x, xs[s] = xs[s], None
-        y = x.to(sd) * scale.to(x.device)
         dtype = x.dtype
-        del x
+        y = x.to(_stats_dtype(dtype)) * scale.to(x.device)
+        del x  # freed before the normalize, which runs in place on y
         _normalize_(y, mean.to(y.device), inv.to(y.device), bn.weight, bn.bias)
         y = y.to(dtype)
         out.append(F.relu(y) if relu else y)

@@ -6,7 +6,9 @@ geometry is the reference's (``image_patcher.py:16-41``): stride
 row-major (y outer, x inner), each tile recorded as ``(y, x, h, w, i, j)``.
 Candidate tiles are fill-scored through a summed-area table, ranked by a
 stable sort, and only the selected bucket is gathered, by the
-``csrc/gather.cu`` kernel on the card.
+``csrc/gather.cu`` kernel on the card (:func:`extract_bag_on_device`; the
+loader's path, with canonicalization, flips and normalization, is
+``data/pipeline.py::image_to_bag``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from montecarlo_gated_mil_tpu_torch.core.bag import Bag
 from montecarlo_gated_mil_tpu_torch.ops import cuda_build
 
 
@@ -150,6 +153,13 @@ def sat_block_size(grid: TileGrid) -> int:
     return g
 
 
+def tile_fill_scores(patches: torch.Tensor) -> torch.Tensor:
+    """Percent of nonzero pixels in channel 0 per tile (the reference's fill
+    metric, ``image_patcher.py:53``): ``(K, h, w, C) -> (K,)``."""
+    nonzero = (patches[..., 0] > 0).to(torch.float32)
+    return nonzero.mean(dim=(-2, -1)) * 100.0
+
+
 def tile_fill_scores_sat(
     image: torch.Tensor, starts: torch.Tensor, patch_size: int, block: int = 1
 ) -> torch.Tensor:
@@ -195,3 +205,38 @@ def select_tiles(
     limit = torch.clamp((fill_scores > thr).sum(), max=cap)
     mask = torch.arange(bucket, device=fill_scores.device) < limit
     return order, mask
+
+
+def extract_bag_on_device(
+    image,
+    grid: TileGrid,
+    bucket: int,
+    empty_threshold: float,
+    bag_size: int = -1,
+    label: int = 0,
+    *,
+    device: str | torch.device = "cuda",
+) -> Bag:
+    """Image ``(H, W, C)`` -> padded :class:`Bag` on ``device``: every tile of
+    ``grid`` fill-scored on channel 0 through the summed-area table, the
+    bucket selected (:func:`select_tiles`), and only the selected tiles
+    gathered (a single channel by the gather kernel on the card), zero in
+    padded slots.  The reference's unseeded bag shuffle is dropped, as in
+    the JAX package: the model is invariant to the order of instances."""
+    img = torch.as_tensor(image, device=device)
+    starts = torch.as_tensor(grid.tiles_array()[:, :2], device=img.device).to(torch.int64)
+    scores = tile_fill_scores_sat(img[..., 0], starts, grid.patch_size,
+                                  block=sat_block_size(grid))
+    idx, mask = select_tiles(scores, bucket, empty_threshold, bag_size)
+    if img.shape[-1] == 1:
+        patches = gather_selected(img[..., 0], starts[idx], grid.patch_size)[..., None]
+    else:
+        patches = gather_tiles(img, starts[idx], grid.patch_size)
+    patches = torch.where(mask[:, None, None, None], patches, torch.zeros((), dtype=patches.dtype,
+                                                                         device=img.device))
+    return Bag(
+        patches=patches,
+        mask=mask,
+        label=torch.tensor(label, dtype=torch.int64, device=img.device),
+        tile_indices=torch.where(mask, idx, torch.zeros_like(idx)),
+    )

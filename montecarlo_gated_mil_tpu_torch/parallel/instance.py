@@ -80,6 +80,65 @@ def sharded_embed(model, patches: torch.Tensor, mask: torch.Tensor, mesh: Mesh,
     return torch.cat([h.to(hs[0].device) for h in hs])
 
 
+class _ShardedEmbedGrad(torch.autograd.Function):
+    """The instance-sharded embed as one autograd node of the model's
+    backbone weights (:func:`sharded_embed_grad`).
+
+    The forward records each shard's graph on its replica of the backbone
+    (the shards coupled by ``models/resnet.py::_ShardedMaskedBatchNorm``)
+    and returns the gathered features.  The backward runs those graphs with
+    the features' gradient split by shard, then sums each weight's gradient
+    over the distinct replicas on the first device in replica order
+    (``parallel/mesh.py::reduce_shards``) and hands it to the model's own
+    weight.  Replicas that are one module (a mesh of one device repeated)
+    give one gradient, already summed over the shards by autograd."""
+
+    @staticmethod
+    def forward(ctx, nets, xs, ms, *weights):
+        with torch.enable_grad():
+            hs = sharded_features(nets, xs, ms)
+        ctx.nets, ctx.hs = nets, hs
+        return torch.cat([h.detach().to(weights[0].device) for h in hs])
+
+    @staticmethod
+    def backward(ctx, dH):
+        hs, nets = ctx.hs, ctx.nets
+        del ctx.hs
+        dev = dH.device
+        gs = [g.to(h.device) for g, h in zip(torch.split(dH, [h.shape[0] for h in hs]), hs)]
+        unique = list({id(n): n for n in nets}.values())
+        leaves = [list(n.parameters()) for n in unique]
+        grads = torch.autograd.grad(hs, [p for ps in leaves for p in ps], gs, allow_unused=True)
+        del hs, gs
+        k = len(leaves[0])
+        out = []
+        for j in range(k):
+            parts = [grads[r * k + j] for r in range(len(unique)) if grads[r * k + j] is not None]
+            out.append(reduce_shards(parts, dev) if parts else None)
+        return (None, None, None, *out)
+
+
+def sharded_embed_grad(model, patches: torch.Tensor, mask: torch.Tensor, mesh: Mesh,
+                       axis: str = "inst", replicas=None) -> torch.Tensor:
+    """Differentiable twin of :func:`sharded_embed`, for the training step.
+
+    Returns ``H (N, L)`` on the axis's first device (the model's), with a
+    gradient to ``model``'s backbone weights: each shard back-propagates its
+    instances on its replica, the BN's channel sums reduce across shards in
+    the backward as in the forward, and each weight's gradient is the sum of
+    its replicas' gradients, taken on the first device in shard order.  So
+    the gradient equals the whole-bag embed's up to the order of those sums
+    (JAX's ``sharded_embed_grad`` sums the shards' cotangents with
+    ``psum``).  ``replicas``: the model on each device of the axis
+    (``replicated(mesh, model, axis)``, made here if not given); their
+    weights must equal the model's (``parallel/mesh.py::refresh_replicas``
+    after every update)."""
+    xs, ms = _split(patches, mesh, axis), _split(mask, mesh, axis)
+    replicas = replicas or replicated(mesh, model, axis)
+    weights = list(model.feature_extractor.parameters())
+    return _ShardedEmbedGrad.apply([r.feature_extractor for r in replicas], xs, ms, *weights)
+
+
 def _head_shards(hs, ms, params: GatedAttentionParams, seeds, p_feat: float, p_att: float):
     """The gated-attention head over instance shards ``hs[s] (n_s, L)`` with
     validity ``ms[s]``: with ``seeds`` (T sample keys) the T dropout samples,

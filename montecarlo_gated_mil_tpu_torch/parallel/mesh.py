@@ -146,6 +146,18 @@ def replicated(mesh: Mesh, module: torch.nn.Module, axis: str = "data") -> list[
     return out
 
 
+def refresh_replicas(module: torch.nn.Module, replicas: Sequence[torch.nn.Module]) -> None:
+    """Copy ``module``'s weights into each of ``replicas`` that is a
+    separate copy: the training steps call it before every step, since only
+    ``module`` (on the first device, beside the optimizer) is updated.
+    Replicas that are ``module`` itself cost nothing."""
+    params = list(module.parameters())
+    with torch.no_grad():
+        for r in {id(r): r for r in replicas if r is not module}.values():
+            for dst, src in zip(r.parameters(), params):
+                dst.copy_(src)
+
+
 def data_sharded(mesh: Mesh, x: torch.Tensor) -> list[torch.Tensor]:
     """``x``'s leading axis split evenly over ``data``: part ``d`` on data
     device ``d`` (the rest of each part whole)."""

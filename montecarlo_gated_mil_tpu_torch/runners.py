@@ -20,14 +20,19 @@ Every random stream derives from ``cfg.seed`` (``core/rng.py``): a fold's
 from ``(seed, fold)`` alone, never from loop position, so a resumed run
 trains the remaining folds as an uninterrupted one would.
 
-Evaluation follows JAX's routing: a bag padded past the largest registry
-bucket (``_shard_over``) evaluates instance-sharded over every visible CUDA
-device where there are several (``train/loops.py``), and the MC test runs
-data-parallel (``evaluation/dp_eval.py``) under ``tpu.data_parallel_eval``
-on such a host with one process.  On one card both stay sequential and
-whole, as JAX's do on one chip.  Training keeps running oversized bags whole
-on one device, and data-parallel training and multi-process fold fan-out
-are not ported yet (ROADMAP.md queue 1, item 1).
+Training and evaluation follow JAX's routing: a bag padded past the
+largest registry bucket (``_shard_over``) trains and evaluates
+instance-sharded over every visible CUDA device where there are several
+(``train/loops.py``); training runs data-parallel
+(``train/loops.py::train_epoch_dp``) under ``tpu.data_parallel_train`` and
+the MC test (``evaluation/dp_eval.py``) under ``tpu.data_parallel_eval`` on
+such a host with one process.  On one card all of it stays sequential and
+whole, as JAX's does on one chip.  ``tpu.async_checkpointing`` writes the
+epoch checkpoints on a background thread.  Under multi-process fold fan-out
+(``tpu.coordinator_address``, ``parallel/distributed.py::initialize``)
+each process runs its share of the folds and keeps its own progress file
+and manifest (``_p{index}``), whose fold accuracies are gathered from all
+processes.
 """
 
 from __future__ import annotations
@@ -60,13 +65,14 @@ from montecarlo_gated_mil_tpu_torch.parallel.distributed import (
     process_count,
     process_index,
 )
-from montecarlo_gated_mil_tpu_torch.parallel.mesh import Mesh, instance_mesh
+from montecarlo_gated_mil_tpu_torch.parallel.mesh import Mesh, instance_mesh, replicated
 from montecarlo_gated_mil_tpu_torch.train.loops import (
     ensemble_mc_test,
     mc_test,
     mc_validate,
     test,
     train_epoch,
+    train_epoch_dp,
     validate,
 )
 from montecarlo_gated_mil_tpu_torch.train.state import (
@@ -74,6 +80,7 @@ from montecarlo_gated_mil_tpu_torch.train.state import (
     EarlyStopping,
     TrainState,
     make_train_step,
+    make_train_step_sharded,
 )
 from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics
 
@@ -143,9 +150,13 @@ def _fit(
     ``cross_validation.py:96-109``); with ``fold`` the metrics carry its
     prefix.  With a ``checkpointer`` the full state persists every
     ``cfg.tpu.checkpoint_every`` epochs and ``resume=True`` continues from
-    the latest; a fresh run purges the directory's old steps first.
-    ``tpu.debug_nans`` / ``debug_infs`` check every step's loss and
-    gradients and raise ``FloatingPointError`` on a NaN / an Inf."""
+    the latest; a fresh run purges the directory's old steps first, and the
+    checkpointer is closed at the end (after the saves in flight).  ``tpu.debug_nans`` /
+    ``debug_infs`` check every step's loss and gradients and raise
+    ``FloatingPointError`` on a NaN / an Inf (the one-bag step's).
+    Data-parallel training (``tpu.data_parallel_train``) and the
+    instance-sharded step of oversized bags need one process and several
+    cards (JAX ``runners.py``)."""
     params = cfg.training_plan.parameters
     k = params.grad_acc_steps
     criterion = build_criterion(cfg)
@@ -154,8 +165,24 @@ def _fit(
     steps_per_epoch = max(1, -(-len(data.train) // k))
     optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch)
     state = TrainState(model, optimizer, scheduler)
-    step_fn = make_train_step(model, criterion, optimizer, k, debug_nans=cfg.tpu.debug_nans,
-                              debug_infs=cfg.tpu.debug_infs)
+    inst_mesh = _eval_mesh(model)
+    use_dp = cfg.tpu.data_parallel_train and inst_mesh is not None
+    replicas = replicated(inst_mesh, model, "inst") if inst_mesh is not None else None
+    sharded_step = None
+    if inst_mesh is not None:
+        sharded_step = make_train_step_sharded(model, criterion, optimizer, k, inst_mesh,
+                                               mean_scaling=use_dp, replicas=replicas)
+    if use_dp:
+        from montecarlo_gated_mil_tpu_torch.parallel.dp import make_dp_train_step
+
+        dp_mesh = inst_mesh.flat("data")
+        dp_step, dp_apply = make_dp_train_step(model, criterion, optimizer, dp_mesh,
+                                               replicas=replicas)
+    else:
+        step_fn = make_train_step(model, criterion, optimizer, k,
+                                  debug_nans=cfg.tpu.debug_nans, debug_infs=cfg.tpu.debug_infs)
+    train_routing = {"sharded_step_fn": sharded_step, "shard_over": _shard_over(cfg)}
+    routing = {"shard_over": _shard_over(cfg), "mesh": inst_mesh}
     stopper = EarlyStopping(params.patience, metrics.scoped(fold))
     train_key = rng.named_seed(cfg.seed, "train-dropout")
     val_key = rng.named_seed(cfg.seed, "mc-val")
@@ -171,9 +198,13 @@ def _fit(
             print(f"Fresh run: purging stale checkpoints in {checkpointer.directory}")
             checkpointer.purge_steps()
     for epoch in range(start_epoch, params.epochs + 1):
-        state = train_epoch(step_fn, state, data.train, epoch=epoch, accumulation_steps=k,
-                            key=train_key, metrics=metrics, fold=fold)
-        routing = {"shard_over": _shard_over(cfg), "mesh": _eval_mesh(model)}
+        if use_dp:
+            state = train_epoch_dp(dp_step, dp_apply, state, data.train, dp_mesh, epoch=epoch,
+                                   accumulation_steps=k, key=train_key, metrics=metrics,
+                                   fold=fold, **train_routing)
+        else:
+            state = train_epoch(step_fn, state, data.train, epoch=epoch, accumulation_steps=k,
+                                key=train_key, metrics=metrics, fold=fold, **train_routing)
         if cfg.is_mcdo_val:
             val_loss = mc_validate(model, data.val, criterion, epoch=epoch, num_samples=cfg.N,
                                    key=val_key, metrics=metrics, fold=fold, **routing)
@@ -188,6 +219,8 @@ def _fit(
         if stop:
             print(f"Early stopping at epoch {epoch}")
             break
+    if checkpointer is not None:
+        checkpointer.close()  # waits for the saves in flight, then stops their thread
     return state, stopper
 
 
@@ -209,7 +242,9 @@ def run_training(
     data = get_dataloaders(cfg, device=device)
     state, stopper = _fit(
         cfg, model, data, metrics,
-        checkpointer=Checkpointer(os.path.join(cfg.model_path, "train_state")), resume=resume,
+        checkpointer=Checkpointer(os.path.join(cfg.model_path, "train_state"),
+                                  async_save=cfg.tpu.async_checkpointing),
+        resume=resume,
     )
     best = stopper.best_params
     if best is None:
@@ -301,7 +336,8 @@ def run_cross_validation(
         data = get_fold_dataloaders(cfg, fold, device=device)
         state, stopper = _fit(
             cfg, model, data, metrics, fold=k,
-            checkpointer=Checkpointer(os.path.join(cfg.model_path, f"fold_{k}", "train_state")),
+            checkpointer=Checkpointer(os.path.join(cfg.model_path, f"fold_{k}", "train_state"),
+                                      async_save=cfg.tpu.async_checkpointing),
             resume=resume,
         )
         best = stopper.best_params

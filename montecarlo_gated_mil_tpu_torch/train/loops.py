@@ -1,13 +1,19 @@
 """Training, validation and test loops.
 
 Counterpart of ``montecarlo_gated_mil_tpu/train/loops.py`` (reference
-``net_utils.py``) on one device:
+``net_utils.py``):
 
 - ``train_epoch`` (``train_gacc``, ``net_utils.py:33-78``): CE(+scaled aux),
   an optimizer step every k bags and at epoch end, epoch metrics
   ``train/epoch_loss|epoch_acc|aux_loss``, and per step ``train/step`` =
   ``{"ms", "bucket", "instances"}`` (time by CUDA events on the card, the
   host clock on the CPU; the padded and the valid bag size);
+- ``train_epoch_dp``: the same epoch data-parallel over a mesh's ``data``
+  axis (``parallel/dp.py::make_dp_train_step``, bags grouped per bucket by
+  ``BucketBatcher``; the mean of the accumulated gradients applied once
+  ``accumulation_steps`` real bags have accumulated, and at epoch end);
+  the runners take it under ``tpu.data_parallel_train`` with one process
+  and several cards;
 - ``train_epoch_plain`` (``net_utils.py:6-30``): the single-head model's
   plain loop, sigmoid + BCE against the binary label, an optimizer step
   every bag, prediction = P > 0.5, epoch metrics
@@ -28,13 +34,15 @@ With ``fold=k`` the epoch metrics carry the reference's fold prefix
 (``k/train/epoch_loss``) and the test metrics its suffix
 (``test/accuracy_fold{k}``).
 
-``shard_over``: the four evaluation loops send an OVERSIZED bag (its bucket
-above ``shard_over``, as the loader pads it under ``oversized_bags=
-'extend'``) through the instance-sharded path (``parallel/instance.py``)
-over every device of ``mesh`` (default: every visible CUDA device), on the
-float embed; on one device, or when the bucket does not divide over the
-devices, it runs whole, as JAX's does on one chip.  Training keeps running
-oversized bags whole (ROADMAP.md queue 1, item 1).
+``shard_over``: every loop sends an OVERSIZED bag (its bucket above
+``shard_over``, as the loader pads it under ``oversized_bags='extend'``)
+through the instance-sharded path (``parallel/instance.py``) over every
+device of ``mesh`` (default: every visible CUDA device), on the float
+embed; the training loops through their ``sharded_step_fn``
+(``train/state.py::make_train_step_sharded``).  On one device, or when the
+bucket does not divide over the devices, it runs whole, as JAX's does on
+one chip; a training bag that would then not fit the card raises first
+(:func:`_check_unrouted_train_bag`).
 
 A loader is anything with ``epoch(e)`` yielding ``(Bag, record)``, or a
 plain iterable of such pairs.
@@ -60,6 +68,57 @@ from montecarlo_gated_mil_tpu_torch.utils.metrics import Metrics
 
 def _items(loader, epoch: int):
     return loader.epoch(epoch) if hasattr(loader, "epoch") else iter(loader)
+
+
+# Training-step memory per input element on the card: the shipped step
+# (r18, f32, CE + aux) peaked at 26.15 GiB at bucket 1024 of 224x224x3
+# patches, 182 B per element (PERF.md section 5, chip_smoke.py phase 7 on an
+# H100), about linear in the bucket; rounded up to 192, which also covers
+# the 27.5-27.8 GiB that phase 7's whole run_training has since read with
+# the loader's bags in flight.
+_TRAIN_BYTES_PER_INPUT_ELEM = 192.0
+
+
+def _train_step_bytes(bag) -> float:
+    """The card memory a whole-bag training step of ``bag`` is estimated to
+    take at its peak."""
+    return bag.patches.numel() * _TRAIN_BYTES_PER_INPUT_ELEM + (1 << 29)
+
+
+def _check_unrouted_train_bag(bag, shard_over: int | None) -> None:
+    """Fail fast, with what to do, when an OVERSIZED training bag could not
+    route to the instance-sharded step and would not fit the card.
+
+    Routing fails on one device, under multi-process fold fan-out, or when
+    the extended bucket does not divide over the devices
+    (``parallel/mesh.py::shard_mesh_for``); the bag then trains whole, and
+    past about 3000 tiles at 224 px that exceeds an 80 GB card, which would
+    fail with an out-of-memory error deep in the backward.  The limit is the
+    bag's card's memory (``MCGMIL_HBM_LIMIT_BYTES`` overrides it, as in the
+    JAX package); on the CPU, with no override, there is none.
+    """
+    if shard_over is None or bag.bucket <= shard_over:
+        return
+    import os
+
+    env = os.environ.get("MCGMIL_HBM_LIMIT_BYTES")
+    if env is not None:
+        limit = float(env)
+    elif bag.patches.is_cuda:
+        limit = float(torch.cuda.get_device_properties(bag.patches.device).total_memory)
+    else:
+        return
+    est = _train_step_bytes(bag)
+    if est > 0.95 * limit:
+        raise ValueError(
+            f"oversized training bag (bucket {bag.bucket}, patches "
+            f"{tuple(bag.patches.shape)}) needs ~{est / 2**30:.1f} GiB for the training step "
+            f"but the device has {limit / 2**30:.1f} GiB; it could not instance-shard "
+            "(single device, multi-process fold fan-out, or bucket not divisible by the "
+            "device count). Options: run on several cards (oversized bags then train "
+            "instance-sharded), reduce the tile count (lower overlap, raise "
+            "empty_threshold), or accept truncation with tpu.oversized_bags='truncate'."
+        )
 
 
 def warn_float_shard(quantized: bool = False) -> None:
@@ -178,16 +237,31 @@ def train_epoch(
     key: int,
     metrics: Metrics | None = None,
     fold: int | None = None,
+    sharded_step_fn=None,
+    shard_over: int | None = None,
+    mesh: Mesh | None = None,
 ) -> TrainState:
     """One epoch of gradient-accumulated training.  Bag ``i`` of epoch ``e``
-    draws its dropout from ``fold_in(fold_in(key, e), i)`` (``core/rng.py``)."""
+    draws its dropout from ``fold_in(fold_in(key, e), i)`` (``core/rng.py``).
+
+    ``sharded_step_fn`` + ``shard_over``: an OVERSIZED bag trains through the
+    instance-sharded step (``make_train_step_sharded(mean_scaling=False)``,
+    built over ``mesh``'s devices, default every visible card) where it can
+    shard, else whole after :func:`_check_unrouted_train_bag`.  The two
+    steps share the accumulator, so the route is chosen bag by bag."""
     m = (metrics or Metrics([])).scoped(fold)
     running_loss = running_aux = correct = total = 0.0
     for batch_idx, ((bag, _rec), is_last) in enumerate(_with_last_flag(_items(loader, epoch))):
         seed = rng.fold_in(rng.fold_in(key, epoch), batch_idx)
         do_update = ((batch_idx + 1) % accumulation_steps == 0) or is_last
+        fn = step_fn
+        if sharded_step_fn is not None and shard_mesh_for(
+                bag.bucket, shard_over, mesh) is not None:
+            fn = sharded_step_fn
+        else:
+            _check_unrouted_train_bag(bag, shard_over)
         timer = _StepTimer(bag.patches.device)
-        state, out = step_fn(state, bag, seed, do_update)
+        state, out = fn(state, bag, seed, do_update)
         ms = timer.stop()
         m.log("train/step", {"ms": ms, "bucket": int(bag.mask.shape[0]),
                              "instances": int(bag.mask.sum())}, step=batch_idx)
@@ -202,6 +276,94 @@ def train_epoch(
     m.log("train/aux_loss", running_aux / total, step=epoch)
     print(f"Epoch {epoch} - Train Loss: {running_loss / total:.4f}, "
           f"Accuracy: {correct / total:.4f}")
+    return state
+
+
+def train_epoch_dp(
+    step_fn,
+    apply_pending,
+    state: TrainState,
+    loader: Iterable,
+    mesh: Mesh,
+    *,
+    epoch: int,
+    accumulation_steps: int,
+    key: int,
+    metrics: Metrics | None = None,
+    fold: int | None = None,
+    sharded_step_fn=None,
+    shard_over: int | None = None,
+) -> TrainState:
+    """One epoch of data-parallel training over ``mesh``'s ``data`` axis
+    (JAX ``train_epoch_dp``).
+
+    Bags group per bucket into mesh-sized groups (``parallel/dp.py::
+    BucketBatcher``); a partial group pads with weight-0 repeats
+    (``pad_group_to_batch``), and ``step_fn`` (``make_dp_train_step``'s)
+    takes each group.  Bag ``i`` draws its dropout from ``fold_in(fold_in(key,
+    e), i)``, as in :func:`train_epoch`, whichever group it lands in.  The
+    optimizer updates once ``accumulation_steps`` real bags have
+    accumulated (a group of B bags is B of the reference's microbatches),
+    and what is left applies at epoch end through ``apply_pending``.  An
+    OVERSIZED bag that can shard over the mesh's devices never enters the
+    batcher: it trains through ``sharded_step_fn``
+    (``make_train_step_sharded(mean_scaling=True)``, the same accumulator
+    contract).  With ``accumulation_steps`` equal to the number of bags
+    (one update at epoch end) this epoch equals :func:`train_epoch` up to
+    the order of the gradient sums, dropout on.
+    """
+    from montecarlo_gated_mil_tpu_torch.parallel.dp import BucketBatcher, pad_group_to_batch
+
+    batch = mesh.shape["data"]
+    running_loss = running_aux = correct = total = 0.0
+    pending = 0  # real bags accumulated since the last optimizer update
+    ekey = rng.fold_in(key, epoch)
+
+    def flush(group, state, pending):
+        bags = [b for b, _ in group]
+        shards, seeds, n_real = pad_group_to_batch(
+            mesh, bags, [rng.fold_in(ekey, i) for _, i in group])
+        pending += n_real
+        do_update = pending >= accumulation_steps
+        state, out = step_fn(state, shards, seeds, [1.0] * n_real + [0.0] * (batch - n_real),
+                             do_update)
+        return state, 0 if do_update else pending, out
+
+    def add(out):
+        nonlocal running_loss, running_aux, correct, total
+        running_loss += float(out["loss_sum"])
+        running_aux += float(out["aux_sum"])
+        correct += float(out["correct_sum"])
+        total += float(out["count"])
+
+    batcher = BucketBatcher(batch)
+    for i, (bag, _rec) in enumerate(_items(loader, epoch)):
+        if sharded_step_fn is not None and shard_mesh_for(
+                bag.bucket, shard_over, mesh) is not None:
+            pending += 1
+            do_update = pending >= accumulation_steps
+            state, out = sharded_step_fn(state, bag, rng.fold_in(ekey, i), do_update)
+            pending = 0 if do_update else pending
+            add({"loss_sum": out["loss"], "aux_sum": out["aux_loss"],
+                 "correct_sum": out["correct"], "count": 1})
+            continue
+        _check_unrouted_train_bag(bag, shard_over)
+        for group in batcher.add(bag, i):
+            state, pending, out = flush(group, state, pending)
+            add(out)
+    for group in batcher.drain():
+        state, pending, out = flush(group, state, pending)
+        add(out)
+    if pending > 0:  # epoch-end flush (reference net_utils.py:55-57)
+        state = apply_pending(state)
+    if total == 0:
+        raise ValueError("empty training loader")
+    m = (metrics or Metrics([])).scoped(fold)
+    m.log("train/epoch_loss", running_loss / total, step=epoch)
+    m.log("train/epoch_acc", correct / total, step=epoch)
+    m.log("train/aux_loss", running_aux / total, step=epoch)
+    print(f"Epoch {epoch} - Train Loss: {running_loss / total:.4f}, "
+          f"Accuracy: {correct / total:.4f} (dp x{batch})")
     return state
 
 

@@ -1,5 +1,6 @@
 """The port's command line (cli.py) on the CPU: ``serve`` over JSONL,
-``train`` on a tiny geometry, and what is not ported exiting non-zero with
+``train`` on a tiny geometry, the process group joined first under
+``tpu.coordinator_address``, and what is not ported exiting non-zero with
 its ROADMAP item."""
 
 import json
@@ -108,21 +109,16 @@ def test_cli_train(tmp_path, capsys):
     assert (tmp_path / "models" / "best").is_file()
 
 
-_COORDINATOR = {"tpu": {"coordinator_address": "localhost:1234"}}
+_COORDINATOR = {"tpu": {"coordinator_address": "localhost:1234", "num_processes": 3,
+                        "process_id": 2}}
 
 
 @pytest.mark.parametrize("argv, raw, item", [
-    (["cv"], _COORDINATOR, "queue 1, item 1"),
-    (["cv-eval", "--manifest", "m.json"], _COORDINATOR, "queue 1, item 1"),
-    (["infer", "--out", "figs"], _COORDINATOR, "queue 1, item 1"),
-    (["bench"], _COORDINATOR, "queue 1, item 1"),
     (["serve", "--aot-cache", "cache"], {}, "'Never to be ported'"),
-    (["serve", "--input", "r.jsonl"], _COORDINATOR, "queue 1, item 1"),
-    (["train"], _COORDINATOR, "queue 1, item 1"),
 ])
 def test_unported_exits_nonzero_naming_roadmap(tmp_path, argv, raw, item):
     """Each refusal names its item in ROADMAP.md's current numbering:
-    multi-process runs on every subcommand, and ``--aot-cache``."""
+    ``--aot-cache``."""
     path, _ = _write_config(tmp_path, raw)
     with pytest.raises(SystemExit) as exc:
         main([argv[0], "--config", path, *argv[1:]], device="cpu")
@@ -131,11 +127,49 @@ def test_unported_exits_nonzero_naming_roadmap(tmp_path, argv, raw, item):
     assert item in exc.value.code
 
 
-def test_module_entry_point(tmp_path):
-    """``python -m montecarlo_gated_mil_tpu_torch.cli`` runs ``main``."""
+# Each subcommand and the call that runs it, replaced by a recorder.
+_RUNNERS = {
+    "train": ("montecarlo_gated_mil_tpu_torch.runners", "run_training", []),
+    "cv": ("montecarlo_gated_mil_tpu_torch.runners", "run_cross_validation", []),
+    "cv-eval": ("montecarlo_gated_mil_tpu_torch.runners", "run_cv_eval", ["--manifest", "m.json"]),
+    "infer": ("montecarlo_gated_mil_tpu_torch.viz.infer", "run_inference", ["--out", "figs"]),
+    "bench": ("montecarlo_gated_mil_tpu_torch.bench", "run_bench", []),
+    "serve": ("montecarlo_gated_mil_tpu_torch.server", "run_server", []),
+}
+
+
+@pytest.mark.parametrize("command", list(_RUNNERS))
+def test_cli_joins_the_process_group_first(tmp_path, monkeypatch, command):
+    """With ``tpu.coordinator_address`` set, every subcommand calls
+    ``parallel/distributed.py::initialize`` with the config's
+    ``coordinator_address``, ``num_processes`` and ``process_id`` before
+    anything else runs, as the JAX package's ``cli.main`` does."""
+    import importlib
+
+    from montecarlo_gated_mil_tpu_torch.parallel import distributed
+
     path, _ = _write_config(tmp_path, _COORDINATOR)
+    events = []
+    monkeypatch.setattr(distributed, "initialize",
+                        lambda *args: events.append(("initialize", args)) or False)
+    monkeypatch.setattr("montecarlo_gated_mil_tpu_torch.utils.metrics.Metrics.__init__",
+                        lambda self, *a, **k: events.append(("metrics",)) or setattr(
+                            self, "sinks", []))
+    module, name, extra = _RUNNERS[command]
+    monkeypatch.setattr(importlib.import_module(module), name,
+                        lambda *a, **k: events.append((name,)) or {})
+    assert main([command, "--config", path, *extra], device="cpu") == 0
+    assert events[0] == ("initialize", ("localhost:1234", 3, 2))
+    assert events[-1] == (name,) and ("metrics",) in events
+
+
+def test_module_entry_point(tmp_path):
+    """``python -m montecarlo_gated_mil_tpu_torch.cli`` runs ``main``: a
+    refusal exits 1 with its message on stderr."""
+    path, _ = _write_config(tmp_path, {})
     proc = subprocess.run(
-        [sys.executable, "-m", "montecarlo_gated_mil_tpu_torch.cli", "cv", "--config", path],
+        [sys.executable, "-m", "montecarlo_gated_mil_tpu_torch.cli", "serve", "--config", path,
+         "--aot-cache", "cache"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 1 and "ROADMAP.md" in proc.stderr and proc.stdout == ""

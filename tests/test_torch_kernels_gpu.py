@@ -1013,3 +1013,89 @@ def test_ensemble_sharded_on_the_card_matches_sequential(cuda):
     assert cuda_build.KERNELS["mc_head_sep"].launches - before == 4
     torch.testing.assert_close(got.predictions, want.predictions, atol=2e-5, rtol=0)
     torch.testing.assert_close(got.attention, want.attention, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_sharded_train_step_on_the_card_matches_whole(cuda):
+    """The instance-sharded training step on an ``inst`` mesh of 4 of the
+    card (cuDNN f32, TF32 off, dropout on) equals the whole-bag step: loss
+    rtol 1e-4, gradients rtol 2e-3 / atol 2e-5; each step ran K1 and K5 once."""
+    import copy
+
+    from montecarlo_gated_mil_tpu_torch.core.bag import Bag
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.train.criteria import cross_entropy
+    from montecarlo_gated_mil_tpu_torch.train.state import (
+        TrainState,
+        make_train_step,
+        make_train_step_sharded,
+    )
+
+    torch.manual_seed(3)
+    base = MultiHeadGatedAttentionMIL(shared_attention=False).to(cuda)
+    g = torch.Generator().manual_seed(5)
+    mask = (torch.arange(32) < 27).to(cuda)
+    x = (torch.randn(32, 64, 64, 3, generator=g).to(cuda)) * mask[:, None, None, None]
+    bag = Bag(x, mask, torch.tensor(1, device=cuda), torch.arange(32, device=cuda))
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for sharded in (False, True):
+            model = copy.deepcopy(base)
+            opt = torch.optim.SGD(model.parameters(), lr=0.01)
+            step = (make_train_step_sharded(model, cross_entropy, opt, 2,
+                                            _cuda_mesh(cuda, data=1, inst=4))
+                    if sharded else make_train_step(model, cross_entropy, opt, 2))
+            k1, k5 = (cuda_build.KERNELS[n].launches for n in ("mc_head_sep", "mc_head_bwd_sep"))
+            _, out = step(TrainState(model, opt), bag, 7, False)
+            assert cuda_build.KERNELS["mc_head_sep"].launches - k1 == 1
+            assert cuda_build.KERNELS["mc_head_bwd_sep"].launches - k5 == 1
+            runs.append((float(out["loss"]), {n: p.grad for n, p in model.named_parameters()}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    (loss, want), (got_loss, got) = runs
+    assert abs(got_loss - loss) <= 1e-4 * abs(loss)
+    for n in want:
+        torch.testing.assert_close(got[n], want[n], rtol=2e-3, atol=2e-5, msg=n)
+
+
+@pytest.mark.gpu
+def test_train_epoch_dp_on_the_card_equals_sequential(cuda):
+    """``train_epoch_dp`` on a ``data`` mesh of 2 of the card over three bags
+    (a full group and a padded one), one update at epoch end, dropout on:
+    the weights equal ``train_epoch``'s within 2e-5; K1 and K5 ran once per
+    real bag."""
+    import copy
+
+    from montecarlo_gated_mil_tpu_torch.core.bag import Bag
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.parallel.dp import make_dp_train_step
+    from montecarlo_gated_mil_tpu_torch.train import loops
+    from montecarlo_gated_mil_tpu_torch.train.criteria import cross_entropy
+    from montecarlo_gated_mil_tpu_torch.train.state import TrainState, make_train_step
+
+    torch.manual_seed(4)
+    base = MultiHeadGatedAttentionMIL(shared_attention=False).to(cuda)
+    g = torch.Generator().manual_seed(6)
+    items = []
+    for i, n in enumerate((13, 16, 9)):
+        mask = (torch.arange(16) < n).to(cuda)
+        x = (torch.randn(16, 32, 32, 3, generator=g).to(cuda)) * mask[:, None, None, None]
+        items.append((Bag(x, mask, torch.tensor(i % 2, device=cuda),
+                          torch.arange(16, device=cuda)), None))
+    kw = dict(epoch=1, accumulation_steps=3, key=2)
+    seq, dp = copy.deepcopy(base), copy.deepcopy(base)
+    opt = torch.optim.SGD(seq.parameters(), lr=0.01)
+    loops.train_epoch(make_train_step(seq, cross_entropy, opt, 3), TrainState(seq, opt), items,
+                      **kw)
+    opt = torch.optim.SGD(dp.parameters(), lr=0.01)
+    mesh = _cuda_mesh(cuda, data=2)
+    step, apply_pending = make_dp_train_step(dp, cross_entropy, opt, mesh)
+    k1, k5 = (cuda_build.KERNELS[n].launches for n in ("mc_head_sep", "mc_head_bwd_sep"))
+    state = loops.train_epoch_dp(step, apply_pending, TrainState(dp, opt), items, mesh, **kw)
+    assert state.step == 1
+    assert cuda_build.KERNELS["mc_head_sep"].launches - k1 == 3
+    assert cuda_build.KERNELS["mc_head_bwd_sep"].launches - k5 == 3
+    for (n, a), b in zip(seq.state_dict().items(), dp.state_dict().values()):
+        torch.testing.assert_close(b, a, atol=2e-5, rtol=0, msg=n)

@@ -92,3 +92,40 @@ def test_multichannel_gather_clamps_like_dynamic_slice():
     got = tp.gather_tiles(torch.from_numpy(img), torch.from_numpy(starts), 16)
     want = jp.gather_tiles(jnp.asarray(img), jnp.asarray(starts), 16)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_tile_fill_scores_equal_jax():
+    """Percent of nonzero channel-0 pixels per gathered tile
+    (``tests/test_patching.py:76``), on JAX's case and on random tiles."""
+    patches = np.zeros((3, 4, 4, 3), np.float32)
+    patches[0] = 1.0  # 100 %
+    patches[1, :2] = 1.0  # 50 %
+    rng = np.random.default_rng(1)
+    for x in (patches, rng.standard_normal((5, 8, 8, 2)).astype(np.float32)):
+        got = tp.tile_fill_scores(torch.from_numpy(x))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jp.tile_fill_scores(jnp.asarray(x))))
+    np.testing.assert_array_equal(tp.tile_fill_scores(torch.from_numpy(patches)).numpy(),
+                                  [100.0, 50.0, 0.0])
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("bucket,threshold,bag_size", [(16, 0.5, 5), (8, 0.3, -1), (64, 0.0, -1)])
+def test_extract_bag_on_device_equals_jax(channels, bucket, threshold, bag_size):
+    """Image -> padded bag (``tests/test_patching.py:129``): patches, mask,
+    tile indices and label equal JAX's bit for bit, on an image with empty
+    regions and a grid with snapped border tiles; one channel takes the
+    gather kernel's path (its plain version here), three the crop."""
+    rng = np.random.default_rng(2)
+    img = rng.random((150, 110, channels)).astype(np.float32)
+    img[:40] = 0.0
+    img[:, 80:, 0] = 0.0
+    grid = tp.compute_tile_grid(150, 110, 32, 0.5)
+    got = tp.extract_bag_on_device(torch.from_numpy(img), grid, bucket, threshold, bag_size,
+                                   label=1, device="cpu")
+    want = jp.extract_bag_on_device(jnp.asarray(img), jp.compute_tile_grid(150, 110, 32, 0.5),
+                                    bucket, threshold, bag_size, label=1)
+    for f in ("patches", "mask", "tile_indices", "label"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    if bag_size > 0:
+        assert int(got.num_instances) == bag_size

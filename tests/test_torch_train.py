@@ -255,6 +255,27 @@ def test_classification_report_equals_jax(seed):
         assert got.data == want.data
 
 
+@pytest.mark.parametrize("seed", range(2))
+def test_classification_report_text_and_dict_equal_jax(seed):
+    """The exported ``classification_report_text`` / ``_dict`` equal the JAX
+    package's (scikit-learn's) and the two forms of ``classification_report``."""
+    from montecarlo_gated_mil_tpu.evaluation import report as jreport
+    from montecarlo_gated_mil_tpu_torch.evaluation import (
+        classification_report_dict,
+        classification_report_text,
+    )
+
+    rng = np.random.default_rng(10 + seed)
+    for n in (1, 9):
+        y, p = rng.integers(0, 2, n).tolist(), rng.integers(0, 2, n).tolist()
+        names = ("Normal", "Cancer") if seed else ("Negative", "Positive")
+        text = classification_report_text(y, p, names)
+        assert text == jreport.classification_report_text(y, p, names) == str(
+            classification_report(y, p, names))
+        assert classification_report_dict(y, p, names) == jreport.classification_report_dict(
+            y, p, names)
+
+
 def test_rng_names_and_folds():
     """FNV-1a names equal the JAX package's; seeds are stable and distinct
     per stream, epoch and batch."""
@@ -299,13 +320,18 @@ def test_early_stopping_semantics_and_copy():
 
 
 def test_training_imports_no_jax():
-    """The training slice's modules pull in none of JAX, flax, optax, orbax,
-    scikit-learn, pandas or the JAX package."""
+    """The training slice's modules, the parallel ones (data-parallel and
+    instance-sharded training, fold fan-out) and the CLI pull in none of
+    JAX, flax, optax, orbax, scikit-learn, pandas or the JAX package."""
     code = (
         "import sys\n"
         "import montecarlo_gated_mil_tpu_torch.runners, montecarlo_gated_mil_tpu_torch.train.loops\n"
         "import montecarlo_gated_mil_tpu_torch.train.state, montecarlo_gated_mil_tpu_torch.train.optim\n"
         "import montecarlo_gated_mil_tpu_torch.evaluation.report, montecarlo_gated_mil_tpu_torch.data.splits\n"
+        "import montecarlo_gated_mil_tpu_torch.parallel, montecarlo_gated_mil_tpu_torch.parallel.dp\n"
+        "import montecarlo_gated_mil_tpu_torch.parallel.instance, montecarlo_gated_mil_tpu_torch.cli\n"
+        "import montecarlo_gated_mil_tpu_torch.parallel.distributed, montecarlo_gated_mil_tpu_torch.ops\n"
+        "import montecarlo_gated_mil_tpu_torch.evaluation, montecarlo_gated_mil_tpu_torch.models.resnet\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sklearn', 'pandas', 'montecarlo_gated_mil_tpu')]\n"
         "assert not bad, bad\n"
