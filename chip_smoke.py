@@ -117,12 +117,26 @@ Phases, each of which raises on failure:
    again equal; (e) ``cli cv`` with phase 10's config fanned out over two
    processes on a ``gloo`` group, each manifest's fold accuracies equal to
    phase 10's.  K1, K3 and K5 are counted around each path;
-15. prints the ``kernels`` JSON line, the total seconds, the card's line and
-   the result line.
+15. the measurement tools (``montecarlo_gated_mil_tpu_torch/tools``) at
+   full width, each once through its ``main``: first ``slope_time`` of K1
+   (a) against phase 3's event time (10 %), and of K1 (c) beside the
+   carry's own slope; then ``profile_embed`` (the f32 stages must sum to
+   within 15 % of the whole embed), ``profile_train`` (its kernel tables
+   must time every hand-written kernel the step launched), ``measure_train``,
+   ``measure_fullscale``, ``measure_serving`` (10 requests, then a 10 s HTTP
+   soak at concurrency 1 and 4 with no failed request: a check that the
+   server answers, too short for its tails), ``measure_hbm`` at
+   buckets 256, 1024 and 2048 (the memory guard's estimate at or above each
+   training-step peak), ``profile_int8_attrib`` and ``probe_build_phases``,
+   with K1-K8 counted around them;
+16. prints each phase's seconds, the ``kernels`` JSON line, the total
+   seconds, the card's line and the result line.
 
-Every timed call prints three numbers (``Timing``): its device time, the
-back-to-back time of the timer of earlier versions of this script, and the
-host's time to queue it.  ``python3 chip_smoke.py --heads-from DIR`` only
+The timers and profiler readers are ``montecarlo_gated_mil_tpu_torch/utils/
+profiling.py``'s, loaded from its file.  Every timed call prints three
+numbers (``profiling.time_ms``): its device time, the back-to-back time of
+the timer of earlier versions of this script, and the host's time to queue
+it.  ``python3 chip_smoke.py --heads-from DIR`` only
 times the MC head kernels (K1, K2, K4, K5) of the port found under DIR,
 another checkout such as the parent commit or ``.``, at phases 3 and 6's
 shapes and inputs with this script's timer, and prints them as one JSON
@@ -147,17 +161,35 @@ import sys
 import tempfile
 import time
 import warnings
-from dataclasses import asdict, dataclass, replace
+from dataclasses import asdict, replace
 from pathlib import Path
 
 import numpy as np
 import torch
 
+
+def _load_profiling():
+    """This checkout's ``utils/profiling.py``, loaded from its file: the
+    timers and profiler readers of every phase.  By path, not through the
+    package, so that ``--heads-from`` and ``--kernels-from`` can import
+    another tree's port package and still time it with this script's
+    timer."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "montecarlo_gated_mil_tpu_torch/utils/profiling.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_profiling", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # dataclasses look their module up
+    spec.loader.exec_module(module)
+    return module
+
+
+profiling = _load_profiling()
+device_line, kernel_table, peak_gib, time_ms = (
+    profiling.device_line, profiling.kernel_table, profiling.peak_gib, profiling.time_ms)
 # H100 SXM data-sheet peaks used for the bounds.
-PEAK_FP32_FLOPS = 67e12  # FP32 cores, outside the tensor cores
-PEAK_TF32_FLOPS = 495e12  # tensor cores, dense TF32
-PEAK_INT8_OPS = 1979e12  # tensor cores, dense int8
-PEAK_BYTES = 3.35e12
+PEAK_FP32_FLOPS, PEAK_TF32_FLOPS = profiling.PEAK_FP32_FLOPS, profiling.PEAK_TF32_FLOPS
+PEAK_INT8_OPS, PEAK_BYTES = profiling.PEAK_INT8_OPS, profiling.PEAK_BYTES
 # Limits against f64 (tests/test_torch_tf32_split.py shows on the CPU that
 # 3xTF32 meets them and plain TF32 fails them; A and Y alone cannot tell).
 LOGITS_VS_F64 = 5e-6  # max |logit - exact logit| on the valid rows
@@ -178,90 +210,6 @@ BWD_SHAPES = (
     ("K5 T=4", "mc_head_bwd_sep", False, 1024, 650, "random", 4, 6),
     ("K4", "mc_head_bwd_shared", True, 256, 200, "random", 1, 7),
 )
-
-
-def _gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-@dataclass
-class Timing:
-    """One timed call, in ms.  ``ms``: device time, with the calls queued
-    before the device reached the first.  ``b2b_ms``: CUDA events around
-    back-to-back calls on an idle device, the timer of earlier versions
-    of this script, which includes any gap while the host queues a call.
-    ``host_ms``: the host's time to queue one call."""
-
-    ms: float
-    b2b_ms: float
-    host_ms: float
-
-    def __str__(self) -> str:
-        return (f"{self.ms:.4f} ms (back to back {self.b2b_ms:.4f} ms, host "
-                f"{self.host_ms:.4f} ms per call)")
-
-
-def _time_ms(fn, iters: int = 5, warm: int = 1, what: str = "") -> Timing:
-    """Times ``fn`` twice by CUDA events.  First back to back on an idle
-    device, the host's queueing time taken meanwhile.  Then behind a sleep
-    kernel that holds the stream for three times that long, so that the
-    events see device time, not the wrappers' Python; when the device still
-    catches up with the host (as it does for the plain versions, whose many
-    small ops the host cannot queue ahead), a line names ``what`` was
-    timed."""
-    for _ in range(warm):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    host_s = (time.perf_counter() - t0) / iters
-    torch.cuda.synchronize()
-    b2b_ms = start.elapsed_time(end) / iters
-    # Cycles at 2 GHz, above the H100's highest SM clock: the sleep is no shorter.
-    torch.cuda._sleep(int(2e9 * min(1.0, 3 * iters * host_s + 1e-3)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    host_ahead = not start.query()
-    torch.cuda.synchronize()
-    if not host_ahead:
-        print(f"    ({what or 'timed call'}: the device caught up with the host, so its time "
-              "includes host gaps)")
-    return Timing(start.elapsed_time(end) / iters, b2b_ms, host_s * 1e3)
-
-
-def _function_ms(fn, source: str, iters: int = 5) -> str:
-    """Device time per call of each ``__global__`` function of one kernel
-    source (``cuda_build.DEVICE_FUNCTIONS``), by ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = dict.fromkeys(cuda_build.DEVICE_FUNCTIONS[source], 0.0)
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for name in times:
-            if name in e.key:
-                ms = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-                times[name] += ms / 1e3 / iters
-    return ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
 
 
 def _bound(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
@@ -353,9 +301,9 @@ def check_mc_head(name, shared, n, n_valid, layout, T, seed):
           f"{LOGITS_VS_F64:g}; plain TF32 products would give about 2e-4)", flush=True)
     if e64 > LOGITS_VS_F64:
         raise RuntimeError(f"{name}: logits {e64:.3e} from f64, over {LOGITS_VS_F64:g}")
-    ms = _time_ms(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1), iters=10,
+    ms = time_ms(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1), iters=10,
                   what=name)
-    plain_ms = _time_ms(lambda: mc_head_reference(H, mask, params, T, 17, 0.1, 0.1), iters=2,
+    plain_ms = time_ms(lambda: mc_head_reference(H, mask, params, T, 17, 0.1, 0.1), iters=2,
                         what="plain version").ms
     G = C if params.separate else 1
     # Work this data needs: the gate product (the tensor-core part) over the
@@ -369,8 +317,9 @@ def check_mc_head(name, shared, n, n_valid, layout, T, seed):
           f"{b['fp32_bound_ms']:.4f} ms on the FP32 cores (share "
           f"{b['fp32_bound_ms'] / ms.ms:.1%}); {(products + rest) / 1e9:.2f} GFLOP at N={n} "
           f"({n_valid} valid, {layout}) L={L} D={D} C={C} T={T}", flush=True)
-    print("    by device function (ms per call, profiler): " + _function_ms(
-        lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1), "mc_head.cu"), flush=True)
+    table = kernel_table(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1), calls=5)
+    print("    by device function (ms per call, profiler): " + ", ".join(
+        f"{f} {ms:.4f}" for f, ms in table.functions("mc_head.cu").items()), flush=True)
     return dict(max_abs_err=max(errs), ms=ms.ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
@@ -381,7 +330,7 @@ def matmul_yardstick(m: int, k: int, n: int) -> None:
     g = torch.Generator(device="cuda").manual_seed(0)
     a = torch.rand(m, k, device="cuda", generator=g)
     b = torch.rand(k, n, device="cuda", generator=g)
-    ms = _time_ms(lambda: torch.matmul(a, b), iters=10).ms
+    ms = time_ms(lambda: torch.matmul(a, b), iters=10).ms
     tflops = 2 * m * k * n / ms / 1e9
     print(f"  yardstick: torch.matmul ({m} x {k}) @ ({k} x {n}) f32, TF32 off: {ms:.4f} ms "
           f"({tflops:.1f} TFLOP/s)", flush=True)
@@ -469,12 +418,12 @@ def check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed):
     if max(rel.values()) > PRODUCTS_VS_F64:
         raise RuntimeError(f"{name}: products against f64 {rel}, over {PRODUCTS_VS_F64:g}")
     _, A = _mc_head_cuda(H, mask, params, T, 17, 0.1, 0.1)
-    ms = _time_ms(lambda: kernel(0.1, A), iters=10, what=name)
-    plain_ms = _time_ms(
+    ms = time_ms(lambda: kernel(0.1, A), iters=10, what=name)
+    plain_ms = time_ms(
         lambda: mc_head_backward_reference(H, mask, params, T, 17, 0.1, 0.1, dM, dA), iters=2,
         what="plain version",
     ).ms
-    autograd_ms = _time_ms(lambda: autograd_ref(0.1), iters=2,
+    autograd_ms = time_ms(lambda: autograd_ref(0.1), iters=2,
                            what="autograd of the plain version").ms
     # Work this data needs: gate recompute, dH and dW products over the valid
     # rows (the tensor-core part), plus the row dot and pooling terms.
@@ -488,8 +437,9 @@ def check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed):
           f"the FP32 cores (share {b['fp32_bound_ms'] / ms.ms:.1%}); "
           f"{(products + rest) / 1e9:.2f} GFLOP at N={n} ({n_valid} valid) L={L} D={D} C={C} "
           f"G={G} T={T}", flush=True)
-    print("    by device function (ms per call, profiler): "
-          + _function_ms(lambda: kernel(0.1, A), "mc_head_bwd.cu"), flush=True)
+    table = kernel_table(lambda: kernel(0.1, A), calls=5)
+    print("    by device function (ms per call, profiler): " + ", ".join(
+        f"{f} {ms:.4f}" for f, ms in table.functions("mc_head_bwd.cu").items()), flush=True)
     return dict(max_abs_err=max(errs), ms=ms.ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
@@ -506,8 +456,8 @@ def check_gather(image: torch.Tensor, starts: torch.Tensor, p: int):
     print(f"  gather_tiles: K={starts.shape[0]} p={p}: max|d|={err} (tol 0, bit-exact)")
     if not torch.equal(got, want):
         raise RuntimeError("gather_tiles disagrees with its plain version")
-    ms = _time_ms(lambda: gather_selected(image, starts, p), iters=20)
-    plain_ms = _time_ms(lambda: gather_tiles_reference(image, starts, p), iters=5).ms
+    ms = time_ms(lambda: gather_selected(image, starts, p), iters=20)
+    plain_ms = time_ms(lambda: gather_tiles_reference(image, starts, p), iters=5).ms
     nbytes = 2 * starts.shape[0] * p * p * 4 + starts.numel() * 8
     bound_ms, bound_by = _bound(nbytes)
     print(f"  gather_tiles: kernel {ms}; plain {plain_ms:.3f} ms, bound "
@@ -528,16 +478,22 @@ def main() -> int:
     from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
 
     t_start = time.perf_counter()
+    marks = [("1-2", t_start)]  # each phase's start, for its seconds
+
+    def header(phase: str, text: str) -> None:
+        marks.append((phase, time.perf_counter()))
+        print(f"[{phase}] {text}", flush=True)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gpu = _gpu_line()
+    gpu = device_line("cuda")
     print(f"[1] card: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     print(f"[2] built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[3] kernels against their plain versions (TF32 off)", flush=True)
+    header("3", "kernels against their plain versions (TF32 off)")
     rows = {}
     for label, name, shared, n, n_valid, layout, T, seed in HEAD_SHAPES:
         print(f"  {label}: N={n}, {n_valid} valid ({layout}), T={T}", flush=True)
@@ -564,7 +520,7 @@ def main() -> int:
         raise RuntimeError("uint16 pixels did not survive upload and conversion on the card")
     print("  uint16 upload + conversion on the card: exact", flush=True)
 
-    print("[4] serving: MCDOPredictor.from_config(Config(), seeded weights)", flush=True)
+    header("4", "serving: MCDOPredictor.from_config(Config(), seeded weights)")
     weights = build_model(cfg, seed=0).state_dict()
     pred = MCDOPredictor.from_config(cfg, weights)
     t0 = time.perf_counter()
@@ -611,73 +567,73 @@ def main() -> int:
     request_breakdown(pred, d)
     check_small_request_against_cpu()
 
-    print("[4b] serving front-ends: serve_jsonl, cli serve, HTTP server (full-size requests)",
-          flush=True)
+    header("4b", "serving front-ends: serve_jsonl, cli serve, HTTP server (full-size requests)")
     front_launches = check_front_ends(pred, d)
 
-    print("[4q] int8 serving path: K6-K8, then quantized requests at full width", flush=True)
+    header("4q", "int8 serving path: K6-K8, then quantized requests at full width")
     quant_launches = check_quantized(rows, pred, weights, results, requests, d)
 
-    print("[5] shared-gate workload (256x224 bag, r18, T=30) through mc_inference", flush=True)
+    header("5", "shared-gate workload (256x224 bag, r18, T=30) through mc_inference")
     cfg2 = Config(shared_att=True)
     model2 = build_model(cfg2, seed=4).cuda().eval()
     patches = torch.randn(256, 224, 224, 3, generator=g).cuda()
     mask2 = torch.ones(256, dtype=torch.bool, device="cuda")
     mc_inference(model2, patches, mask2, 30, 0)  # warm
     cuda_build.reset_launch_counts()
-    bench_ms = _time_ms(lambda: mc_inference(model2, patches, mask2, 30, 0), iters=5, warm=0).ms
+    bench_ms = time_ms(lambda: mc_inference(model2, patches, mask2, 30, 0), iters=5, warm=0).ms
     shared_launches = cuda_build.KERNELS["mc_head_shared"].launches
     print(f"  mc_inference: {bench_ms:.2f} ms per bag; mc_head_shared launches {shared_launches}")
     if shared_launches < 1:
         raise RuntimeError("the shared-gate workload did not go through its kernel")
 
-    print("[6] backward kernels against their plain versions (TF32 off)", flush=True)
+    header("6", "backward kernels against their plain versions (TF32 off)")
     for label, name, shared, n, n_valid, layout, T, seed in BWD_SHAPES:
         print(f"  {label}: N={n}, {n_valid} valid ({layout}), T={T}", flush=True)
         rows.setdefault(name, check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed))
 
-    print("[7] training: run_training(Config(synthetic_count=8, epochs=1)), shipped widths",
-          flush=True)
+    header("7", "training: run_training(Config(synthetic_count=8, epochs=1)), shipped widths")
     train_launches = check_run_training()
 
-    print("[8] one full-size training bag: the step's breakdown; the shared-gate step", flush=True)
+    header("8", "one full-size training bag: the step's breakdown; the shared-gate step")
     shared_train_launches = check_train_bag_paths()
     check_small_train_step_against_cpu()
 
-    print("[9] bench: run_bench_both() at the JAX package's workload (256x224 bag, r18, T=30)",
-          flush=True)
+    header("9", "bench: run_bench_both() at the JAX package's workload (256x224 bag, r18, T=30)")
     bench_launches = check_bench()
 
-    print("[10] cross-validation: cli cv, cv-eval --ensemble, cv --resume at Config()'s widths",
-          flush=True)
+    header("10", "cross-validation: cli cv, cv-eval --ensemble, cv --resume at Config()'s widths")
     with tempfile.TemporaryDirectory() as cv_tmp:
         cv_launches, cv_cfg, cv_peak = check_cv(cv_tmp)
-        print("[11] DICOM and infer: full-size DICOM files, DICOM bags, cli infer per fold and "
-              "--ensemble", flush=True)
+        header("11", "DICOM and infer: full-size DICOM files, DICOM bags, cli infer per fold and "
+               "--ensemble")
         infer_launches = check_dicom_and_infer(cv_cfg, cv_peak)
         members, member_bag = phase10_members(cv_cfg)
         cv_accuracies = json.loads(
             Path(cv_cfg.model_path, "cv_manifest.json").read_text())["all_fold_accuracies"]
 
-    print("[12] the model surface: the single-head request, serial MC, counterfactual dropout, "
-          "train_epoch_plain, the uncertainty acceptance, the TensorBoard sink", flush=True)
+    header("12", "the model surface: the single-head request, serial MC, counterfactual dropout, "
+           "train_epoch_plain, the uncertainty acceptance, the TensorBoard sink")
     surface_launches = check_model_surface(pred, d)
 
-    print("[13] parallel paths on the card: instance-sharded requests, mc_test_dp, "
-          "predict_many(dp=True), the member-sharded ensemble (meshes of repeated cuda:0)",
-          flush=True)
+    header("13", "parallel paths on the card: instance-sharded requests, mc_test_dp, "
+           "predict_many(dp=True), the member-sharded ensemble (meshes of repeated cuda:0)")
     parallel_launches = check_parallel_paths(pred, weights, requests, d, members, member_bag)
     del members, member_bag
     torch.cuda.empty_cache()
 
-    print("[14] parallel training on the card: train_epoch_dp, the sharded training step of an "
-          "oversized bag, the memory guard, async checkpoints, cli cv over two processes",
-          flush=True)
+    header("14", "parallel training on the card: train_epoch_dp, the sharded training step of an "
+           "oversized bag, the memory guard, async checkpoints, cli cv over two processes")
     training_launches = check_parallel_training(cv_cfg, cv_accuracies)
+    torch.cuda.empty_cache()
+
+    header("15", "the measurement tools at full width: profile_embed, profile_train, "
+           "measure_train, measure_fullscale, measure_serving, measure_hbm, "
+           "profile_int8_attrib, probe_build_phases")
+    tool_launches = check_tools(rows["mc_head_sep"]["ms"])
 
     # Serving kernels: phase 4's direct requests, phase 4b's front-ends and
     # phase 4q's quantized requests; then the bench's, CV's and infer's runs
-    # and phases 12, 13 and 14's paths.
+    # and phases 12, 13, 14 and 15's paths.
     launches = dict(
         {k: n + front_launches.get(k, 0) + quant_launches.get(k, 0)
          for k, n in serve_launches.items()},
@@ -687,7 +643,7 @@ def main() -> int:
     )
     launches = {k: n + bench_launches[k] + cv_launches[k] + infer_launches[k]
                 + surface_launches[k] + parallel_launches[k] + training_launches[k]
-                for k, n in launches.items()}
+                + tool_launches[k] for k, n in launches.items()}
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in cuda_build.KERNELS.values():
@@ -695,8 +651,12 @@ def main() -> int:
             name=k.name, route="cuda", source=f"montecarlo_gated_mil_tpu_torch/csrc/{k.source}",
             replaces=k.replaces, launches=launches[k.name], **{x: rows[k.name][x] for x in keys},
         ))
+    t_end = time.perf_counter()
+    print("phase seconds: " + ", ".join(
+        f"{phase} {end - start:.1f}"
+        for (phase, start), end in zip(marks, [t for _, t in marks[1:]] + [t_end])), flush=True)
     print(json.dumps({"kernels": kernels}))
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+    print(f"chip_smoke: {t_end - t_start:.1f} s in all", flush=True)
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -852,44 +812,17 @@ def check_train_bag_paths() -> dict:
 
 
 def profile_train_step(state, step, bag) -> None:
-    """Device time of one training step by kernel, from ``torch.profiler``.
-    K1 and K5 are found by the device functions ``cuda_build`` lists for
-    their sources; either reading 0 ms in a step that launched it fails."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
-
-    k1, k5 = cuda_build.KERNELS["mc_head_sep"], cuda_build.KERNELS["mc_head_bwd_sep"]
-    before = (k1.launches, k5.launches)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, bag, 3, True)
-        torch.cuda.synchronize()
-    launched = (k1.launches - before[0], k5.launches - before[1])
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-    def dev_ms(e):
-        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
-
-    def kernel_ms(k):
-        names = cuda_build.DEVICE_FUNCTIONS[k.source]
-        return sum(dev_ms(e) for e in kernels if any(n in e.key for n in names))
-
-    total = sum(dev_ms(e) for e in kernels)
-    if total <= 0:
-        print("  profiler: no device time recorded; the CUDA events above stand alone")
-        return
-    k1, k5 = kernel_ms(k1), kernel_ms(k5)
-    for name, ms, n in (("K1", k1, launched[0]), ("K5", k5, launched[1])):
-        if n > 0 and ms <= 0:
-            raise RuntimeError(f"profiler: {name} was launched {n} times in the step but its "
-                               "device functions read 0 ms: cuda_build.DEVICE_FUNCTIONS is stale")
-    top = sorted(kernels, key=dev_ms, reverse=True)[:6]
+    """Device time of one training step by kernel (``kernel_table``).  K1
+    and K5 are found by the device functions ``cuda_build`` lists for their
+    sources; either reading 0 ms in a step that launched it fails."""
+    table = kernel_table(lambda: step(state, bag, 3, True))
+    table.check_launched()
+    k1, k5 = (sum(table.functions(src).values()) for src in ("mc_head.cu", "mc_head_bwd.cu"))
+    total = table.total_ms
     print(f"  profiler, one step: device kernels {total:.2f} ms; K1 {k1:.3f} ms, K5 {k5:.3f} ms "
           f"({100 * (k1 + k5) / total:.2f} %); the rest is the r18 embed forward and backward, "
           "BN and the optimizer", flush=True)
-    for e in top:
-        print(f"    {dev_ms(e):9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    print(table.lines(6), flush=True)
 
 
 def check_small_train_step_against_cpu() -> None:
@@ -1343,11 +1276,11 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -
             err = float((got.float() - want.float()).abs().max())
             raise RuntimeError(f"K6 {label} {store}: differs from its plain version (max|d| {err})")
         del got, want
-        ms = _time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, store), iters=5,
+        ms = time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, store), iters=5,
                       what=f"K6 {label} {store}")
         plain = None
         if full:
-            plain = _time_ms(lambda: qk.qconv_reference(a, wt, scale, stride, pad, store),
+            plain = time_ms(lambda: qk.qconv_reference(a, wt, scale, stride, pad, store),
                              iters=2, what="plain K6").ms
         nbytes = (n * _pixels_read(h, w, k, stride, pad) * cin + wt.numel()
                   + m * cout * (2 if store == "bf16" else 1) + 4 * cout)
@@ -1365,13 +1298,13 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -
     try:  # yardsticks: the GEMM alone, and cuDNN's bf16 conv of the same shape
         A = _int8((m, K), g)
         B = _int8((cout, K), g).t()
-        mm = _time_ms(lambda: torch._int_mm(A, B), iters=5, what="torch._int_mm").ms
+        mm = time_ms(lambda: torch._int_mm(A, B), iters=5, what="torch._int_mm").ms
         del A, B
         x = torch.randn(n, cin, h + pad[0] + pad[1], w + pad[2] + pad[3], device="cuda",
                         dtype=torch.bfloat16).to(memory_format=torch.channels_last)
         wb = torch.randn(cout, cin, k, k, device="cuda", dtype=torch.bfloat16).to(
             memory_format=torch.channels_last)
-        cd = _time_ms(lambda: F.conv2d(x, wb, stride=stride), iters=5, what="cuDNN bf16").ms
+        cd = time_ms(lambda: F.conv2d(x, wb, stride=stride), iters=5, what="cuDNN bf16").ms
         del x, wb
         print(f"  yardsticks, {label}: torch._int_mm ({m} x {K}) @ ({K} x {cout}) int8, the "
               f"GEMM alone without its im2col: {mm:.4f} ms ({ops / mm / 1e9:.1f} TOP/s); cuDNN "
@@ -1459,8 +1392,8 @@ def check_bn_epilogues(g) -> tuple[dict, dict]:
         err = max(float((s1 - r1).abs().max() / r1.abs().max()),
                   float((s2 - r2).abs().max() / r2.abs().max()))
         del s1, s2, r1, r2
-        ms = _time_ms(lambda: qk.bn_stats(t), iters=5, what=f"K7 {label}")
-        plain = _time_ms(lambda: qk.bn_stats_reference(t), iters=2, what="plain K7").ms
+        ms = time_ms(lambda: qk.bn_stats(t), iters=5, what=f"K7 {label}")
+        plain = time_ms(lambda: qk.bn_stats_reference(t), iters=2, what="plain K7").ms
         bound, by = _bound(t.numel() * 2 + 2 * n * hwc[-1] * 4)
         print(f"  K7 bn_stats {label} {tuple(t.shape)} bf16, {launches} per request: "
               f"max|d| / max|plain| {err:.2e} (limit 1e-6); kernel {ms}; plain {plain:.3f} ms; "
@@ -1495,8 +1428,8 @@ def check_bn_epilogues(g) -> tuple[dict, dict]:
                        f"codes above 0: {float((got > 0).float().mean()):.1%}")
             bad = err > 1 or flips > K8_FLIP_LIMIT * got.numel()
         del got, want
-        ms = _time_ms(kernel, iters=5, what=f"K8 {label}")
-        plain = _time_ms(plain_fn, iters=2, what="plain K8").ms
+        ms = time_ms(kernel, iters=5, what=f"K8 {label}")
+        plain = time_ms(plain_fn, iters=2, what="plain K8").ms
         bound, by = _bound(in_bytes + _k8_out_bytes(t, mode))
         print(f"  K8 bn_relu_quant {label} {tuple(t.shape)} mode {mode}, residual {res}, "
               f"{launches} per request: {verdict}; kernel {ms}; plain {plain:.3f} ms; bound "
@@ -1519,9 +1452,6 @@ def check_int8_embed(qpred, d) -> float:
     the int8 features against the f32 embed (same weights), and the int8
     embed's device time by kernel (``torch.profiler``), which must show
     each of its convs on K6's wgmma kernel.  Returns the cosine."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from montecarlo_gated_mil_tpu_torch.data.pipeline import image_to_bag
     from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
     from montecarlo_gated_mil_tpu_torch.ops import cuda_build
@@ -1537,38 +1467,27 @@ def check_int8_embed(qpred, d) -> float:
         hf = qpred.model.embed(bag.patches, bag.mask)
         cos = torch.nn.functional.cosine_similarity(hq[bag.mask], hf[bag.mask], dim=-1)
         del hf
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            qpred._embed(bag.patches, bag.mask)
-            torch.cuda.synchronize()
+        table = kernel_table(lambda: qpred._embed(bag.patches, bag.mask))
     print(f"  int8 features against the f32 embed, image 2 R, bucket {bucket}, "
           f"{int(bag.mask.sum())} valid tiles: per-instance cosine min {float(cos.min()):.5f}, "
           f"mean {float(cos.mean()):.5f} (limit 0.97)", flush=True)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-    def dev_ms(e):
-        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
-
-    total = sum(dev_ms(e) for e in kernels)
-    if total <= 0:
-        raise RuntimeError("profiler: no device time recorded for the int8 embed, so K6's "
-                           "device functions cannot be checked")
+    table.check_launched()
     wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
     groups = {f"K6 {wgmma_fn}": (wgmma_fn,), f"K6 {gather_fn}": (gather_fn,),
               "K7": ("bn_stats_kernel",),
               "K8": ("bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel")}
-    parts, counted, launches = [], set(), {}
-    for name, fns in groups.items():
-        es = [e for e in kernels if any(f in e.key for f in fns)]
-        counted.update(id(e) for e in es)
-        launches[name] = sum(e.count for e in es)
-        parts.append(f"{name} {sum(dev_ms(e) for e in es):.2f} ms in {launches[name]} launches")
-    rest = sorted((e for e in kernels if id(e) not in counted), key=dev_ms, reverse=True)
+    launches = {name: table.count(*fns) for name, fns in groups.items()}
+    parts = [f"{name} {table.ms(*fns):.2f} ms in {launches[name]} launches"
+             for name, fns in groups.items()]
+    grouped = [f for fns in groups.values() for f in fns]
+    rest = [(k, ms, n) for k, ms, n in table.top(len(table.kernels))
+            if not any(f in k for f in grouped)]
     print(f"  int8 embed by kernel (torch.profiler, one call at bucket {bucket}): device "
-          f"{total:.2f} ms; " + "; ".join(parts) + f"; other {sum(dev_ms(e) for e in rest):.2f} "
-          f"ms in {sum(e.count for e in rest)} launches, the largest:", flush=True)
-    for e in rest[:5]:
-        print(f"    {dev_ms(e):9.3f} ms  x{e.count:<4d} {e.key[:90]}", flush=True)
+          f"{table.total_ms:.2f} ms; " + "; ".join(parts) + f"; other "
+          f"{sum(ms for _, ms, _ in rest):.2f} ms in {sum(n for _, _, n in rest)} launches, the "
+          "largest:", flush=True)
+    for k, ms, n in rest[:5]:
+        print(f"    {ms:9.3f} ms  x{n:<4d} {k[:90]}", flush=True)
     convs = sum(shape[-1] for shape in QCONV_SHAPES)
     print(f"  K6 by device function in that embed: {wgmma_fn} {launches[f'K6 {wgmma_fn}']} "
           f"(need {convs}, one per conv), {gather_fn} {launches[f'K6 {gather_fn}']} (need 0)",
@@ -1865,7 +1784,7 @@ def check_bench() -> dict:
     numbers = [rec["value"], rec["value_exact_bf16"], rec["train_step_ms"], rec["vs_baseline"]]
     if not all(isinstance(v, float) and np.isfinite(v) and v > 0 for v in numbers):
         raise RuntimeError(f"bench: a number is not finite and positive: {rec}")
-    if launches != want or rec["device"] != _gpu_line() or "int8" not in rec["metric"]:
+    if launches != want or rec["device"] != device_line("cuda") or "int8" not in rec["metric"]:
         raise RuntimeError(f"bench: launches {launches} (need {want}) or device line wrong")
     return launches
 
@@ -1875,9 +1794,6 @@ def profile_bench_bag(quantized: bool, bags: int = 5) -> None:
     back to back as ``run_bench`` queues them, beside the device time of
     their kernels by ``torch.profiler``; the difference is time the device
     waits for the host."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from montecarlo_gated_mil_tpu_torch import bench
     from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn, mc_head
     from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
@@ -1896,25 +1812,15 @@ def profile_bench_bag(quantized: bool, bags: int = 5) -> None:
 
     with torch.inference_mode():
         run()
-        wall = _time_ms(run, iters=1, warm=0, what="bench bags").b2b_ms / bags
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-    def dev_ms(e):
-        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3 / bags
-
-    total = sum(dev_ms(e) for e in kernels)
-    launches = sum(e.count for e in kernels) / bags
-    top = sorted(kernels, key=dev_ms, reverse=True)[:6]
+        wall = time_ms(run, iters=1, warm=0, what="bench bags").b2b_ms / bags
+        table = kernel_table(run)
+    total, launches = table.total_ms / bags, sum(n for _, n in table.kernels.values()) / bags
     print(f"  bench bag, {'int8' if quantized else 'bf16 float'} embed: {wall:.3f} ms a bag back "
           f"to back (CUDA events); device kernels {total:.3f} ms in {launches:.0f} launches a bag "
-          f"(torch.profiler); device idle {max(0.0, 1 - total / wall):.1%} of the bag; largest:",
-          flush=True)
-    for e in top:
-        print(f"    {dev_ms(e):8.3f} ms a bag  x{e.count // bags:<4d} {e.key[:90]}", flush=True)
+          f"(torch.profiler); device idle {table.idle_share(wall * bags):.1%} of the bag; "
+          "largest:", flush=True)
+    for k, ms, n in table.top(6):
+        print(f"    {ms / bags:8.3f} ms a bag  x{n // bags:<4d} {k[:90]}", flush=True)
 
 
 class _Capture:
@@ -2153,16 +2059,6 @@ def _dicom_bytes(px: np.ndarray, bits: int, syntax: str, patient: str, age: str,
     return out + struct.pack("<HHI", 0xFFFE, 0xE0DD, 0)
 
 
-def _peak_gib(fn):
-    """``fn()`` and its peak device memory above its start, in GiB."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.memory_allocated()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (torch.cuda.max_memory_allocated() - start) / 2**30
-
-
 def check_dicom_and_infer(cv_cfg, cv_peak: float) -> dict:
     """Phase 11: full-size DICOM files through the port's reader, their
     CC+MLO records through ``BagLoader`` and the MC head, then ``cli infer``
@@ -2301,7 +2197,7 @@ def check_dicom_and_infer(cv_cfg, cv_peak: float) -> dict:
             start.record()
             bag, _ = loader._make_bag(i, 0, raw)
             mid.record()
-            _, peak = _peak_gib(lambda: mc_inference(model, bag.patches, bag.mask, cfg.N, 11))
+            _, peak = peak_gib(lambda: mc_inference(model, bag.patches, bag.mask, cfg.N, 11))
             end.record()
             torch.cuda.synchronize()
             print(f"  {rec.view} pair: host read {host_ms:.1f} ms, bag (upload, resize "
@@ -2348,7 +2244,7 @@ def check_infer_cli(cfg, cv_peak: float, count) -> None:
 
     def spy(kind, fn):
         def run(*args, **kw):
-            out, peak = _peak_gib(lambda: fn(*args, **kw))
+            out, peak = peak_gib(lambda: fn(*args, **kw))
             peaks[kind].append(peak)
             calls.append({"out": out})
             return out
@@ -2568,7 +2464,7 @@ def check_single_head_request(pred, d, main):
         return bag, out, [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
     request()  # warm
-    ((bag, out, ms), peak), launches = main(lambda: _peak_gib(request))
+    ((bag, out, ms), peak), launches = main(lambda: peak_gib(request))
     with torch.inference_mode():
         e0, e1 = _events(2)
         e0.record()
@@ -2757,7 +2653,7 @@ def check_train_epoch_plain(main, tb) -> None:
         marks.append(_events(1)[0])
         marks[-1].record()
 
-    (state, peak), _ = main(lambda: _peak_gib(lambda: train_epoch_plain(
+    (state, peak), _ = main(lambda: peak_gib(lambda: train_epoch_plain(
         model, TrainState(model, opt), timed(bags), opt, epoch=1, key=cfg.seed, metrics=metrics)))
     metrics.close()
     torch.cuda.synchronize()
@@ -2896,7 +2792,7 @@ def check_parallel_paths(pred, weights, requests, d, members, member_bag) -> dic
 
     def timed(p, img, lat, seed):
         t0 = time.perf_counter()
-        r, peak = _peak_gib(lambda: p.predict(img, lat, seed=seed))
+        r, peak = peak_gib(lambda: p.predict(img, lat, seed=seed))
         return r, (time.perf_counter() - t0) * 1e3, peak
 
     def stats_err(a, b) -> float:
@@ -2988,7 +2884,7 @@ def check_parallel_paths(pred, weights, requests, d, members, member_bag) -> dic
         ("uint16", "L", 13, 203))])
     want = [cp.predict(img, lat, seed=seed) for img, lat, seed in zip(imgs, lats, seeds)]
     t0 = time.perf_counter()
-    (many, peak), got = main(lambda: _peak_gib(
+    (many, peak), got = main(lambda: peak_gib(
         lambda: cp.predict_many(list(imgs), list(lats), seeds=list(seeds), dp=True)))
     many_s = time.perf_counter() - t0
     same = [torch.equal(w.stats.mean_probs, m.stats.mean_probs)
@@ -3008,9 +2904,9 @@ def check_parallel_paths(pred, weights, requests, d, members, member_bag) -> dic
 
     # (d) the member-sharded ensemble against the sequential one.
     patches, mask = member_bag
-    ref, ref_peak = _peak_gib(lambda: ensemble_mc_inference(model, members, patches, mask,
+    ref, ref_peak = peak_gib(lambda: ensemble_mc_inference(model, members, patches, mask,
                                                             cfg.N, 1))
-    (out, peak), got = main(lambda: _peak_gib(lambda: ensemble_mc_inference_sharded(
+    (out, peak), got = main(lambda: peak_gib(lambda: ensemble_mc_inference_sharded(
         model, members, patches, mask, cfg.N, 1, mesh2)))
     err = max(float((out.predictions - ref.predictions).abs().max()),
               float((out.attention - ref.attention).abs().max()))
@@ -3100,7 +2996,7 @@ def check_parallel_training(cv_cfg, cv_accuracies: dict) -> dict:
     def timed(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, peak = _peak_gib(fn)
+        out, peak = peak_gib(fn)
         return out, (time.perf_counter() - t0) * 1e3, peak
 
     flags = torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
@@ -3380,6 +3276,98 @@ def check_fold_fanout(cv_cfg, cv_accuracies: dict, totals: dict) -> None:
         raise RuntimeError(f"(e) fold fan-out: accuracies {accs} against {cv_accuracies}")
 
 
+SLOPE_VS_EVENTS = 0.10  # slope_time of K1 (a) against phase 3's event time
+STAGES_VS_EMBED = 0.15  # the f32 embed's stages summed against the whole embed
+
+
+def check_tools(k1_event_ms: float) -> dict:
+    """Phase 15: each tool of ``montecarlo_gated_mil_tpu_torch/tools`` once at
+    full width, as a user runs it (``main(argv)``), with launches counted
+    around them.  Raises when ``slope_time`` of K1 (a) differs from phase
+    3's sleep-ahead event time by more than 10 %; when the f32 embed's
+    stages do not sum to within 15 % of the whole embed's slope time; when
+    a kernel table reads 0 ms for a hand-written kernel its call launched;
+    or when the memory guard's estimate lies below a measured training-step
+    peak.  Returns the tools' launch counts."""
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.ops.gated_attention import mc_gated_attention
+    from montecarlo_gated_mil_tpu_torch.tools import (
+        measure_fullscale,
+        measure_hbm,
+        measure_serving,
+        measure_train,
+        probe_build_phases,
+        profile_embed,
+        profile_int8_attrib,
+        profile_train,
+    )
+
+    t_phase = time.perf_counter()
+    # The slope timer against the event timer on K1 (a); the carry's own
+    # slope beside it, and K1 (c), where the carry is a larger share.
+    slope = {}
+    for label, _, shared, n, n_valid, layout, T, seed in HEAD_SHAPES[:3:2]:
+        _, params, H, mask, _ = _head_inputs(shared, n, n_valid, layout, seed)
+        slope[label] = profiling.slope_time(
+            lambda h: mc_gated_attention(h, mask, params, T, 17, 0.1, 0.1)[0], H,
+            what=label) * 1e3
+        carry = profiling.slope_time(lambda h: h[:1], H, what=f"{label}'s carry") * 1e3
+        table = kernel_table(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1))
+        table.check_launched()
+        print(f"  slope_time {label}: {slope[label]:.4f} ms (the carry alone {carry:.4f} ms); "
+              f"kernel table {sum(table.functions('mc_head.cu').values()):.4f} ms", flush=True)
+    err = abs(slope["K1 (a)"] - k1_event_ms) / k1_event_ms
+    print(f"  K1 (a): slope {slope['K1 (a)']:.4f} ms against phase 3's event time "
+          f"{k1_event_ms:.4f} ms: {err:.1%} apart (limit {SLOPE_VS_EVENTS:.0%})", flush=True)
+    if err > SLOPE_VS_EVENTS:
+        raise RuntimeError(f"slope_time of K1 (a) is {err:.1%} from the event time")
+
+    cuda_build.reset_launch_counts()
+    times = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        print(f"  -- {name}", flush=True)
+        out = fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    emb = run("profile_embed", lambda: profile_embed.main(["--reps", "2"]))
+    f32 = emb["float32"]
+    staged, whole = sum(f32["stages"].values()), f32["embed"]
+    print(f"  f32 embed: stages sum {staged * 1e3:.3f} ms against the whole {whole * 1e3:.3f} ms "
+          f"({abs(staged - whole) / whole:.1%} apart, limit {STAGES_VS_EMBED:.0%})", flush=True)
+    if abs(staged - whole) > STAGES_VS_EMBED * whole:
+        raise RuntimeError("profile_embed: the f32 stages do not sum to the whole embed")
+    run("profile_train", lambda: profile_train.main(
+        ["--ks", "1,2,3", "--reps", "1", "--steps", "2"]))
+    run("measure_train", lambda: measure_train.main(["--reps", "2"]))
+    run("measure_fullscale", lambda: measure_fullscale.main(["--reps", "1"]))
+    serving = run("measure_serving", lambda: measure_serving.main(
+        ["--requests", "10", "--concurrency", "1,4", "--duration", "10"]))
+    if any(r["errors"] or not r["ok"] for r in serving["soak"].values()):
+        raise RuntimeError(f"measure_serving: the HTTP soak failed requests: {serving['soak']}")
+    hbm = run("measure_hbm", lambda: measure_hbm.main(["256", "1024", "2048"]))
+    for bucket, row in hbm.items():
+        if row["train"] is None or row["guard"] < row["train"]:
+            raise RuntimeError(f"measure_hbm: at bucket {bucket} the guard's estimate "
+                               f"{row['guard'] / 2**30:.3f} GiB lies below the training step's "
+                               f"peak {row['train']} or the step did not run")
+    run("profile_int8_attrib", lambda: profile_int8_attrib.main(["--rounds", "1", "--reps", "2"]))
+    run("probe_build_phases", lambda: probe_build_phases.main([]))
+    launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()) + f"); launches {launches}",
+          flush=True)
+    for name in ("mc_head_sep", "mc_head_shared", "mc_head_bwd_sep", "mc_head_bwd_shared",
+                 "gather_tiles", "qconv_i8", "bn_stats", "bn_relu_quant"):
+        if not launches[name]:
+            raise RuntimeError(f"phase 15: the tools never launched {name}")
+    return launches
+
+
 def time_heads(root: str) -> int:
     """Times the MC head kernels of the port under ``root`` at the shapes
     and inputs of phases 3 and 6 with this script's timer, and prints one
@@ -3397,18 +3385,18 @@ def time_heads(root: str) -> int:
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"card: {_gpu_line()}; port {Path(port.__file__).parent}", flush=True)
+    print(f"card: {device_line("cuda")}; port {Path(port.__file__).parent}", flush=True)
     cuda_build.build_all()
     times = {}
     for label, _, shared, n, n_valid, layout, T, seed in HEAD_SHAPES:
         _, params, H, mask, _ = _head_inputs(shared, n, n_valid, layout, seed)
-        times[label] = _time_ms(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1),
+        times[label] = time_ms(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1),
                                 iters=10, what=label)
     for label, _, shared, n, n_valid, layout, T, seed in BWD_SHAPES:
         model, params, H, mask, g = _head_inputs(shared, n, n_valid, layout, seed)
         _, dA, dM = _cotangents(model, params, n, T, g)
         _, A = _mc_head_cuda(H, mask, params, T, 17, 0.1, 0.1)
-        times[label] = _time_ms(lambda: _mc_head_bwd_cuda(H, params, T, 17, 0.1, 0.1, A, dM, dA),
+        times[label] = time_ms(lambda: _mc_head_bwd_cuda(H, params, T, 17, 0.1, 0.1, A, dM, dA),
                                 iters=10, what=label)
     for label, t in times.items():
         print(f"  {label}: {t}", flush=True)
@@ -3450,7 +3438,7 @@ def time_int8_kernels(root: str) -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True  # the bf16 stem conv, for the embed's digest
-    print(f"card: {_gpu_line()}; port {Path(port.__file__).parent}", flush=True)
+    print(f"card: {device_line("cuda")}; port {Path(port.__file__).parent}", flush=True)
     cuda_build.build_all()
     g = torch.Generator(device="cuda").manual_seed(21)
     times, digests, per_request = {}, {}, {"K6": 0.0, "K7": 0.0, "K8": 0.0}
@@ -3460,7 +3448,7 @@ def time_int8_kernels(root: str) -> int:
         scale = (torch.rand(cout, generator=g, device="cuda") + 0.5) * (
             2.0 / ((k * k * cin) ** 0.5 * 127**2 / 3))
         digests[f"K6 {label}"] = sha(qk.qconv(a[:QUANT_CHECK_N], wt, scale, stride, pad, "bf16"))
-        t = _time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, "bf16"), iters=10, what=label)
+        t = time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, "bf16"), iters=10, what=label)
         times[f"K6 {label}"] = t.ms
         per_request["K6"] += launches * t.ms
         print(f"  K6 {label}: {t}", flush=True)
@@ -3470,7 +3458,7 @@ def time_int8_kernels(root: str) -> int:
     for label, hwc, launches in K7_SHAPES:
         x = _bn_stored((QUANT_N, *hwc), g)
         digests[f"K7 {label}"] = sha(torch.cat(qk.bn_stats(x)))
-        t = _time_ms(lambda: qk.bn_stats(x), iters=10, what=f"K7 {label}")
+        t = time_ms(lambda: qk.bn_stats(x), iters=10, what=f"K7 {label}")
         times[f"K7 {label}"] = t.ms
         per_request["K7"] += launches * t.ms
         print(f"  K7 {label}: {t}", flush=True)
@@ -3478,7 +3466,7 @@ def time_int8_kernels(root: str) -> int:
     for label, hwc, mode, res, launches in K8_SHAPES:
         x, A, B, residual, _ = _k8_inputs((QUANT_N, *hwc), res, g)
         digests[f"K8 {label}"] = sha(qk.bn_relu_quant(x, None, A, B, residual, mode=mode))
-        t = _time_ms(lambda: qk.bn_relu_quant(x, None, A, B, residual, mode=mode), iters=10,
+        t = time_ms(lambda: qk.bn_relu_quant(x, None, A, B, residual, mode=mode), iters=10,
                      what=f"K8 {label}")
         times[f"K8 {label}"] = t.ms
         per_request["K8"] += launches * t.ms

@@ -30,7 +30,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import time
 
 import torch
@@ -38,6 +37,7 @@ import torch
 from montecarlo_gated_mil_tpu_torch.core.config import Config
 from montecarlo_gated_mil_tpu_torch.data.pipeline import torch_dtype
 from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+from montecarlo_gated_mil_tpu_torch.utils.profiling import device_line
 
 _BASELINE_FILE = os.path.join(os.path.dirname(__file__), "..", "BASELINE_measured.json")
 TRIALS = 5  # timed runs of ``repeats`` bags (or steps); the median is reported
@@ -50,23 +50,6 @@ def load_baseline() -> dict | None:
             return json.load(f)
     except (OSError, json.JSONDecodeError):
         return None
-
-
-def device_line(device: torch.device) -> str:
-    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
-    power.limit --format=csv,noheader`` prints them; ``"cpu"`` on the CPU."""
-    if device.type != "cuda":
-        return "cpu"
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        )
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return f"{torch.cuda.get_device_name(index)}, power limit not read (no nvidia-smi)"
 
 
 def _median_ms(run, device: torch.device, count: int) -> float:
@@ -159,13 +142,12 @@ def run_bench(
     }
 
 
-def measure_train_step_ms(
-    *, bag_size: int = 256, patch: int = 224, device: str | torch.device = "cuda"
-) -> float:
-    """ms per full training step (embed and head forward with dropout,
-    CE + aux, backward, Adam update) of r18 in bf16 with dropout 0.25 and
-    Adam at 3e-5, on the benchmark's bag.  The head's forward and backward
-    are K2 and K4 on the card."""
+def train_workload(*, bag_size: int = 256, patch: int = 224,
+                   device: str | torch.device = "cuda"):
+    """The bench's training step and its inputs: r18 in bf16 with dropout
+    0.25, Adam at 3e-5, CE + aux, the benchmark's bag with label 1.  Returns
+    ``(state, step, bag)``; the head's forward and backward are K2 and K4
+    on the card."""
     from montecarlo_gated_mil_tpu_torch.core.bag import Bag
     from montecarlo_gated_mil_tpu_torch.train.criteria import cross_entropy
     from montecarlo_gated_mil_tpu_torch.train.state import TrainState, make_train_step
@@ -175,11 +157,20 @@ def measure_train_step_ms(
         backbone="r18", dtype=torch.bfloat16, feature_dropout=0.25, attention_dropout=0.25,
     )).to(device)
     opt = torch.optim.Adam(model.parameters(), lr=3e-5)
-    state = TrainState(model, opt)
     step = make_train_step(model, cross_entropy, opt, accumulation_steps=1)
     patches, mask = _workload(bag_size, patch, torch.bfloat16, device)
     bag = Bag(patches, mask, torch.tensor(1, device=device),
               torch.arange(bag_size, dtype=torch.int32, device=device))
+    return TrainState(model, opt), step, bag
+
+
+def measure_train_step_ms(
+    *, bag_size: int = 256, patch: int = 224, device: str | torch.device = "cuda"
+) -> float:
+    """ms per full training step (embed and head forward with dropout,
+    CE + aux, backward, Adam update) of :func:`train_workload`."""
+    device = torch.device(device)
+    state, step, bag = train_workload(bag_size=bag_size, patch=patch, device=device)
     step(state, bag, 0, True)  # warm
 
     def steps():

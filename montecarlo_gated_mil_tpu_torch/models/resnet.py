@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn as nn
@@ -465,6 +465,13 @@ class ResNetFeatures(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         return _walk([self], [x], _whole_norm(mask))[0]
 
+    def stages(self, mask: torch.Tensor | None = None) -> list[tuple[str, Callable]]:
+        """:meth:`forward` cut at its stage boundaries, for per-stage timing:
+        ``[("stem", f), ("l1", f), ...]`` (see :func:`_stages`).  Applied in
+        order to the patches they compute :meth:`forward`."""
+        return [(name, lambda x, run=run: run([x])[0])
+                for name, run in _stages([self], _whole_norm(mask))]
+
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC patches -> the stem conv's NCHW output."""
         if self.space_to_depth:
@@ -473,23 +480,51 @@ class ResNetFeatures(nn.Module):
         return _conv(self.conv1, x.permute(0, 3, 1, 2))
 
 
+def _stages(nets: Sequence[ResNetFeatures], norm) -> list[tuple[str, Callable]]:
+    """The backbone over instance shards cut at its stage boundaries:
+    ``[("stem", f), ("l1", f), ...]``, each ``f`` taking the shards' inputs
+    (``nets[s]`` on shard ``s``'s device) to the shards' outputs.  The stem
+    is the conv, BN, ReLU and max pool; each layer its blocks, the last
+    with the global pool.  ``f`` empties the list it is given, so a caller's
+    name does not keep a stage's input alive through its later blocks.
+    ``norm`` is as in :func:`_walk_block`."""
+    net = nets[0]
+
+    def stem(given: list) -> list:
+        xs = [x.to(net.dtype) for x in given]
+        given.clear()
+        with _exact_float_convs(net.dtype):
+            # The stem's output goes to ``norm`` in a temporary list: held by
+            # a name, it would stay alive through the BN and the ReLU (9.9 GB
+            # at bucket 3072).
+            xs = norm([n.bn1 for n in nets], [n._stem(x) for n, x in zip(nets, xs)], True)
+            return [F.max_pool2d(x, kernel_size=3, stride=2, padding=1) for x in xs]
+
+    def layer(i: int):
+        def run(given: list) -> list:
+            xs = list(given)
+            given.clear()
+            with _exact_float_convs(net.dtype):
+                for j in range(len(getattr(net, f"layer{i}"))):
+                    xs = _walk_block([getattr(n, f"layer{i}")[j] for n in nets], xs, norm)
+            if i < net.num_stages:
+                return xs
+            # Global average pool, accumulated in >= f32.
+            return [x.to(_stats_dtype(x.dtype)).mean(dim=(2, 3)) for x in xs]
+
+        return run
+
+    return [("stem", stem)] + [(f"l{i}", layer(i)) for i in range(1, net.num_stages + 1)]
+
+
 def _walk(nets: Sequence[ResNetFeatures], xs: list, norm) -> list:
     """The backbone over instance shards, ``nets[s]`` on shard ``s``'s
     device with input ``xs[s] (n_s, H, W, 3)``; returns each shard's pooled
     features ``(n_s, L)``.  ``norm`` is as in :func:`_walk_block`."""
-    net = nets[0]
-    xs = [x.to(net.dtype) for x in xs]
-    with _exact_float_convs(net.dtype):
-        # The stem's output goes to ``norm`` in a temporary list: held by a
-        # name, it would stay alive through the BN and the ReLU (9.9 GB at
-        # bucket 3072).
-        xs = norm([n.bn1 for n in nets], [n._stem(x) for n, x in zip(nets, xs)], True)
-        xs = [F.max_pool2d(x, kernel_size=3, stride=2, padding=1) for x in xs]
-        for i in range(1, net.num_stages + 1):
-            for j in range(len(getattr(net, f"layer{i}"))):
-                xs = _walk_block([getattr(n, f"layer{i}")[j] for n in nets], xs, norm)
-    # Global average pool, accumulated in >= f32.
-    return [x.to(_stats_dtype(x.dtype)).mean(dim=(2, 3)) for x in xs]
+    xs = list(xs)
+    for _, run in _stages(nets, norm):
+        xs = run(xs)
+    return xs
 
 
 def sharded_features(nets: Sequence[ResNetFeatures], xs: list, masks: list) -> list:

@@ -39,7 +39,7 @@ Opt in with ``MCDOPredictor(..., quantized=True)`` or
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -334,6 +334,40 @@ def _block(q: dict, x_q, x_scale, m, *, stride: int, store: str, bottleneck: boo
     return bn_relu_quant(tf, tqf, sef * inv, bef * inv, residual, mode="mean" if last else "i8")
 
 
+def quantized_stages(
+    plan: dict,
+    mask: torch.Tensor,
+    *,
+    backbone: str = "r18",
+) -> list[tuple[str, Callable]]:
+    """:func:`quantized_embed_static` cut at its stage boundaries, for
+    per-stage timing: ``[("stem", f), ("l1", f), ...]``, the stem to layer
+    1's int8 input, then each layer's blocks (int8 in, int8 out; the last
+    returns the f32 features).  Applied in order to the patches they compute
+    the embed."""
+    m = mask.to(torch.float32)
+    stages, bottleneck = STAGES[backbone]
+
+    def stage(i: int, blocks: int):
+        def run(x_q):
+            # The dequant scale of x_q: the stem's, then the last block's.
+            x_scale = (plan["layer1_0"]["in_scale"] if i == 1
+                       else plan[f"layer{i - 1}_{stages[i - 2] - 1}"]["out_scale"])
+            for blk_i in range(blocks):
+                q = plan[f"layer{i}_{blk_i}"]
+                last = i == len(stages) and blk_i == blocks - 1
+                x_q = _block(q, x_q, x_scale, m, stride=2 if i > 1 and blk_i == 0 else 1,
+                             store=plan["conv_store"], bottleneck=bottleneck, last=last)
+                x_scale = q["out_scale"]
+            return x_q
+
+        return run
+
+    return [("stem", lambda patches: _stem_quant(plan, patches, m))] + [
+        (f"l{i}", stage(i, blocks)) for i, blocks in enumerate(stages, start=1)
+    ]
+
+
 def quantized_embed_static(
     plan: dict,
     patches: torch.Tensor,
@@ -347,15 +381,7 @@ def quantized_embed_static(
     the normalize + requantize epilogue (K8), the int8 activation written."""
     if mask is None:
         mask = torch.ones(patches.shape[0], dtype=torch.bool, device=patches.device)
-    m = mask.to(torch.float32)
-    x_q = _stem_quant(plan, patches, m)
-    x_scale = plan["layer1_0"]["in_scale"]  # dequant scale of x_q
-    stages, bottleneck = STAGES[backbone]
-    for stage, blocks in enumerate(stages, start=1):
-        for blk_i in range(blocks):
-            q = plan[f"layer{stage}_{blk_i}"]
-            last = stage == len(stages) and blk_i == blocks - 1
-            x_q = _block(q, x_q, x_scale, m, stride=2 if stage > 1 and blk_i == 0 else 1,
-                         store=plan["conv_store"], bottleneck=bottleneck, last=last)
-            x_scale = q["out_scale"]
-    return x_q  # the last block's f32 features
+    x = patches
+    for _, run in quantized_stages(plan, mask, backbone=backbone):
+        x = run(x)
+    return x  # the last block's f32 features

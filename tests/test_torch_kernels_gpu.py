@@ -16,6 +16,12 @@ import torch
 from montecarlo_gated_mil_tpu_torch.ops import cuda_build
 from montecarlo_gated_mil_tpu_torch.ops import gated_attention as tga
 from montecarlo_gated_mil_tpu_torch.ops import patching as tp
+from montecarlo_gated_mil_tpu_torch.utils.profiling import (
+    PhaseTimer,
+    kernel_table,
+    slope_time,
+    time_ms,
+)
 
 FIELDS = ("w_V", "b_V", "w_U", "b_U", "w_att", "b_att")
 # Limits against f64, as in tests/test_torch_tf32_split.py, which shows on
@@ -369,48 +375,17 @@ def test_qconv_kernel_bit_exact(cuda, case, store):
                        want.view(torch.int8) if store == "f8" else want)
 
 
-# A trace can drop its first record: in some processes, after a few traces,
-# every trace comes back one record short, the first launch of the trace
-# missing, so a test counted its first kernel once too few.  So each trace
-# begins with a short spin kernel that may be dropped, then marks the call
-# with a long spin kernel on either side; a trace that lost a mark, or
-# holds anything outside them but the short spin, is taken again.  A trace
-# that dropped the short spin prints a line saying so.
-_TRACE_TRIES = 3
-_SHORT_SPIN, _LONG_SPIN = 1_000, 200_000  # cycles: about 1 and 100 microseconds
-_LONG_SPIN_US = 20.0  # a recorded spin at least this long is a mark
-
-
 def _device_launches(fn, source: str = "qconv.cu") -> dict:
     """Launches of each device function of ``source`` while ``fn`` runs, by
-    the kernel names the profiler records: ``qconv_i8`` alone picks K6's
-    path.  Raises if no trace of ``_TRACE_TRIES`` kept both marks."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # built and warm
-    torch.cuda.synchronize()  # a launch still running as tracing starts can go unrecorded
-    for _ in range(_TRACE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(_SHORT_SPIN)
-            torch.cuda.synchronize()
-            torch.cuda._sleep(_LONG_SPIN)
-            fn()
-            torch.cuda._sleep(_LONG_SPIN)
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        spins = ["spin_kernel" in e.name for e in events]
-        marks = [i for i, e in enumerate(events)
-                 if spins[i] and e.time_range.elapsed_us() >= _LONG_SPIN_US]
-        short = marks[:1] == [1] and spins[0]
-        if len(marks) == 2 and marks[-1] == len(events) - 1 and (marks[0] == 0 or short):
-            if not short:
-                print(f"trace dropped its first record ({len(events)} kept)")
-            inside = [e.name for e in events[marks[0] + 1:marks[1]]]
-            return {f: sum(f in n for n in inside) for f in cuda_build.DEVICE_FUNCTIONS[source]}
-        print(f"trace retaken: {len(marks)} of 2 marks kept in {len(events)} records")
-    raise AssertionError(f"{_TRACE_TRIES} traces each lost a mark")
+    the kernel names the profiler records (``utils/profiling.py::
+    kernel_table``, whose spin-kernel marks and retakes keep a trace that
+    drops its first records exact): ``qconv_i8`` alone picks K6's path.
+    Prints a line when the trace dropped its first records."""
+    fn()  # warm, untraced
+    table = kernel_table(fn)
+    if table.dropped:
+        print(f"trace dropped its first {table.dropped} record(s)")
+    return {f: table.count(f) for f in cuda_build.DEVICE_FUNCTIONS[source]}
 
 
 @pytest.mark.gpu
@@ -1099,3 +1074,67 @@ def test_train_epoch_dp_on_the_card_equals_sequential(cuda):
     assert cuda_build.KERNELS["mc_head_bwd_sep"].launches - k5 == 3
     for (n, a), b in zip(seq.state_dict().items(), dp.state_dict().values()):
         torch.testing.assert_close(b, a, atol=2e-5, rtol=0, msg=n)
+
+
+@pytest.mark.gpu
+def test_slope_time_of_k1_matches_the_event_time(cuda):
+    """K1 (a) (N=3072, 2400 valid at random, T=50, shipped widths): the
+    chained slope is within 10 % of the sleep-ahead event time."""
+    _, params, H, mask, _ = _chip_smoke()._head_inputs(False, 3072, 2400, "random", 1)
+
+    def k1(h):
+        return tga.mc_gated_attention(h, mask, params, 50, 17, 0.1, 0.1)
+
+    event = time_ms(lambda: k1(H), iters=10).ms
+    slope = slope_time(k1, H) * 1e3
+    assert abs(slope - event) <= 0.10 * event, (slope, event)
+
+
+@pytest.mark.gpu
+def test_kernel_table_times_k1_and_k5_in_a_train_step(cuda):
+    """A profiled training step of the shipped model (separate gates) names
+    K1's and K5's device functions with device time, and the launch check
+    holds."""
+    from montecarlo_gated_mil_tpu_torch.core.bag import Bag
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.train.criteria import cross_entropy
+    from montecarlo_gated_mil_tpu_torch.train.state import TrainState, make_train_step
+
+    torch.manual_seed(2)
+    model = MultiHeadGatedAttentionMIL(shared_attention=False).to(cuda)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    step = make_train_step(model, cross_entropy, opt, 1)
+    state = TrainState(model, opt)
+    mask = torch.arange(64, device=cuda) < 50
+    x = torch.randn(64, 64, 64, 3, device=cuda) * mask[:, None, None, None]
+    bag = Bag(x, mask, torch.tensor(1, device=cuda), torch.arange(64, device=cuda))
+    step(state, bag, 2, True)  # warm, untraced
+    table = kernel_table(lambda: step(state, bag, 3, True))
+    table.check_launched()
+    assert table.launched["mc_head_sep"] == table.launched["mc_head_bwd_sep"] == 1
+    for source in ("mc_head.cu", "mc_head_bwd.cu"):
+        assert table.ms(*cuda_build.DEVICE_FUNCTIONS[source]) > 0, source
+    assert all(ms > 0 for ms in table.functions("mc_head_bwd.cu").values())
+
+
+@pytest.mark.gpu
+def test_phase_timer_on_the_card_holds_its_device_work(cuda):
+    """A sleep kernel inside a phase: with the card as its device the phase
+    lasts at least the sleep's event time; without a device it ends as soon
+    as the host has queued the sleep."""
+    cycles = 100_000_000  # about 50-60 ms at the H100's SM clocks
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    sleep_s = start.elapsed_time(end) / 1e3
+    synced, host = PhaseTimer(device=cuda), PhaseTimer()
+    with synced.phase("sleep"):
+        torch.cuda._sleep(cycles)
+    with host.phase("sleep"):
+        torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    assert 0.9 * sleep_s <= synced.seconds("sleep") <= sleep_s + 0.02
+    assert host.seconds("sleep") < 0.5 * sleep_s
