@@ -129,7 +129,24 @@ Phases, each of which raises on failure:
    buckets 256, 1024 and 2048 (the memory guard's estimate at or above each
    training-step peak), ``profile_int8_attrib`` and ``probe_build_phases``,
    with K1-K8 counted around them;
-16. prints each phase's seconds, the ``kernels`` JSON line, the total
+16. (a) one f32 training step of the shipped model at bucket 1024 in a
+   process of its own with TF32 at PyTorch's defaults: its gradients within
+   phase 14's limits (rtol 2e-3, atol 2e-5) of an f64 step of the same
+   weights, bag and dropout, printed beside those of the same loss
+   back-propagated outside ``exact_float_grads`` (TF32 backward
+   convolutions, as before that repair), and its ms per step beside phase
+   7's; (b) each kernel of the ``kernels`` line beside the one PyTorch call
+   that computes its function (K3: an index of the image's unfolded
+   windows; K6: cuDNN's bf16 conv at each 3x3 shape, ``torch._int_mm`` at
+   each 1x1/2; K7: ``torch.var_mean``), or the reason none does, which
+   fills ``library_ms``; (c) ``tools/validate_uncertainty.py`` at seed 0
+   (the figure where matplotlib imports), whose fit and uncertainty ratios
+   must pass; (d) ``tools/profile_int8.py all`` at 256 patches of 224 px,
+   whose two stems must agree code for code; (e) ``tools/fuzz_dicom.py``
+   with 100 trials a seed under ASan and UBSan, which must find no fault
+   (or, where the compiler cannot build with sanitizers, its refusal on a
+   line of its own);
+17. prints each phase's seconds, the ``kernels`` JSON line, the total
    seconds, the card's line and the result line.
 
 The timers and profiler readers are ``montecarlo_gated_mil_tpu_torch/utils/
@@ -147,8 +164,8 @@ every ``K7_SHAPES``/``K8_SHAPES`` launch, with each kernel's per-request sum
 and SHA-256 digests of every output and of a seeded int8 embed, which two
 bit-exact trees share.
 
-Imports nothing of JAX.  TF32 is off throughout: the shipped configuration
-computes in float32.
+Imports nothing of JAX.  TF32 is off throughout (phase 16 (a)'s process
+apart): the shipped configuration computes in float32.
 """
 
 from __future__ import annotations
@@ -592,7 +609,7 @@ def main() -> int:
         rows.setdefault(name, check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed))
 
     header("7", "training: run_training(Config(synthetic_count=8, epochs=1)), shipped widths")
-    train_launches = check_run_training()
+    train_launches, phase7_ms = check_run_training()
 
     header("8", "one full-size training bag: the step's breakdown; the shared-gate step")
     shared_train_launches = check_train_bag_paths()
@@ -631,9 +648,16 @@ def main() -> int:
            "profile_int8_attrib, probe_build_phases")
     tool_launches = check_tools(rows["mc_head_sep"]["ms"])
 
+    header("16", "the exact f32 backward under PyTorch's default TF32 flags, the kernels' library "
+           "calls, validate_uncertainty, profile_int8, fuzz_dicom")
+    exact_launches = check_exact_step(phase7_ms)
+    check_library_calls(rows, d)
+    with tempfile.TemporaryDirectory() as tool_tmp:
+        new_tool_launches = check_new_tools(tool_tmp)
+
     # Serving kernels: phase 4's direct requests, phase 4b's front-ends and
     # phase 4q's quantized requests; then the bench's, CV's and infer's runs
-    # and phases 12, 13, 14 and 15's paths.
+    # and phases 12-16's paths.
     launches = dict(
         {k: n + front_launches.get(k, 0) + quant_launches.get(k, 0)
          for k, n in serve_launches.items()},
@@ -643,7 +667,8 @@ def main() -> int:
     )
     launches = {k: n + bench_launches[k] + cv_launches[k] + infer_launches[k]
                 + surface_launches[k] + parallel_launches[k] + training_launches[k]
-                + tool_launches[k] for k, n in launches.items()}
+                + tool_launches[k] + exact_launches[k] + new_tool_launches[k]
+                for k, n in launches.items()}
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in cuda_build.KERNELS.values():
@@ -665,10 +690,10 @@ def main() -> int:
     return 0
 
 
-def check_run_training() -> dict:
+def check_run_training() -> tuple[dict, float]:
     """``run_training`` on the card: the shipped configuration with only
     ``data.synthetic_count``, ``epochs`` and ``model_path`` replaced.
-    Returns the launch counts of that run."""
+    Returns the launch counts of that run and its ms per train step."""
     from montecarlo_gated_mil_tpu_torch.core.config import Config
     from montecarlo_gated_mil_tpu_torch.ops import cuda_build
     from montecarlo_gated_mil_tpu_torch.runners import initial_model, run_training
@@ -723,7 +748,7 @@ def check_run_training() -> dict:
     if not (finite and all(moved.values()) and reloads and len(train_loss) == 1):
         raise RuntimeError("run_training: a loss is not finite, the params did not move, "
                            "or the saved best did not reload")
-    return launches
+    return launches, step_ms
 
 
 def check_train_bag_paths() -> dict:
@@ -3365,6 +3390,370 @@ def check_tools(k1_event_ms: float) -> dict:
                  "gather_tiles", "qconv_i8", "bn_stats", "bn_relu_quant"):
         if not launches[name]:
             raise RuntimeError(f"phase 15: the tools never launched {name}")
+    return launches
+
+
+EXACT_STEP_TIMEOUT = 900  # seconds, phase 16 (a)'s process
+_EXACT_STEP_PROCESS = """
+import json
+import chip_smoke
+print("EXACT_STEP " + json.dumps([chip_smoke.default_flags_step(),
+                                  chip_smoke.default_flags_step(64, 0.75, 64, 1)]))
+"""
+
+
+def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int = 224,
+                       steps: int = 3) -> dict:
+    """One f32 training step of the shipped model (``tools/profile_train.py::
+    shipped_step``: seeded weights, a seeded bag at ``bucket`` with that
+    share of valid tiles, dropout seed 5) with TF32 left at PyTorch's
+    defaults (cuDNN's on, the matrix products' off), which it checks first.
+
+    Gradients, with cuDNN deterministic so that one computation gives one
+    set of bits: ``exact``, the step (``make_train_step``: K1 forward, K5
+    backward, the backward inside ``exact_float_grads``); ``off``, the same
+    step with both TF32 flags off for the whole process, as phase 7 runs;
+    ``tf32``, the same loss back-propagated outside ``exact_float_grads``,
+    as the port's steps did before it; ``plain head``, the step with the
+    plain head.  Each is held against an f64 step of the same weights, bag
+    and dropout (the plain head in f64).  Then ``exact`` and ``tf32`` are
+    timed by CUDA events with cuDNN's default algorithm choice, the
+    optimizer included (mean of ``steps`` after one).  Returns, per
+    variant, whether its gradients equal ``off``'s bit for bit, its excess
+    over phase 14's gradient limits against f64 (<= 0: within), its worst
+    ``max|d| / max|f64|``, its norm-wise error over all weights and the
+    weights of the largest excess; the losses, ms per step, the peak GiB,
+    and the launches of the ``exact`` step alone."""
+    import copy
+
+    from montecarlo_gated_mil_tpu_torch.core.bag import Bag
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.tools.profile_train import plain_head, shipped_step
+    from montecarlo_gated_mil_tpu_torch.train.state import TrainState, make_train_step
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    if flags != (True, False):
+        raise RuntimeError(f"TF32 flags (cuDNN, matmul) {flags}, not PyTorch's defaults")
+    state, step, bag, crit = shipped_step(bucket, patch, "cuda", valid)
+    model, seed = state.model, 5
+
+    def grads(m, run) -> dict:
+        m.zero_grad(set_to_none=True)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=torch.backends.cudnn.allow_tf32):
+            loss = run()
+        torch.cuda.synchronize()
+        out = {k: p.grad.detach().to("cpu", torch.float64) for k, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return out, float(loss)
+
+    def tf32_step(apply: bool):
+        """``make_train_step``'s body as it was: no ``exact_float_grads``."""
+        y, _, aux = model(bag.patches, bag.mask, bag.label, train=True, seed=seed)
+        loss = crit(y[None, :], bag.label[None]) + aux
+        loss.backward()
+        if apply:
+            state.apply_update()
+        return loss.detach()
+
+    def all_off():
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return step(state, bag, seed, False)[1]["loss"]
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    m64 = copy.deepcopy(model).to(torch.float64)
+    m64.dtype = m64.feature_extractor.dtype = torch.float64
+    bag64 = Bag(bag.patches.double(), bag.mask, bag.label, bag.tile_indices)
+    opt64 = torch.optim.SGD(m64.parameters(), lr=0.0)
+    step64 = make_train_step(m64, crit, opt64, 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_head():
+        want, loss64 = grads(m64, lambda: step64(TrainState(m64, opt64), bag64, seed,
+                                                 False)[1]["loss"])
+    out = {"flags": flags, "f64_seconds": time.perf_counter() - t0, "bucket": bucket,
+           "f64_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss_f64": loss64,
+           "valid": int(bag.mask.sum())}
+    del m64, bag64, opt64, step64
+    torch.cuda.empty_cache()
+    cuda_build.reset_launch_counts()
+    got = {"exact": grads(model, lambda: step(state, bag, seed, False)[1]["loss"])}
+    out["launches"] = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    got["off"] = grads(model, all_off)
+    got["tf32"] = grads(model, lambda: tf32_step(False))
+    with plain_head():
+        got["plain head"] = grads(model, lambda: step(state, bag, seed, False)[1]["loss"])
+    for name, (g, loss) in got.items():
+        excess = {k: _excess({k: g[k]}, {k: want[k]}, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL)
+                  for k in want}
+        rel = {k: float((g[k] - want[k]).abs().max() / max(float(want[k].abs().max()), 1e-30))
+               for k in want}
+        out[name] = dict(
+            loss=loss, equal_to_off=all(torch.equal(g[k], got["off"][0][k]) for k in g),
+            excess=max(excess.values()), rel=max(rel.values()),
+            norm=sum(float((g[k] - want[k]).square().sum()) for k in want) ** 0.5
+            / sum(float(want[k].square().sum()) for k in want) ** 0.5,
+            worst=[(k, excess[k], rel[k], float((g[k] - want[k]).abs().max()),
+                    float(want[k].abs().max())) for k in sorted(want, key=lambda k: -excess[k])[:3]])
+    torch.cuda.reset_peak_memory_stats()
+    for name, run in (("exact", lambda i: step(state, bag, 100 + i, True)),
+                      ("tf32", lambda i: tf32_step(True))):
+        run(0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for i in range(steps):
+            run(1 + i)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out[name]["ms"] = ev[0].elapsed_time(ev[1]) / steps
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def check_exact_step(phase7_ms: float) -> dict:
+    """Phase 16 (a): :func:`default_flags_step` in a process of its own,
+    since this one runs with TF32 off throughout: at bucket 1024 of 224 px,
+    and at the card test's 64 instances of 64 px.  Raises when the process
+    fails; when at either size the step's gradients under the default flags
+    differ by one bit from the TF32-off step's, or the TF32 backward's do
+    not; or when at 64 px the step's gradients exceed phase 14's limits
+    against f64.  At bucket 1024 no f32 step meets those limits at the stem
+    conv's weights, TF32 or not (PERF.md), so the f64 comparison there is
+    printed.  Returns the launches of both steps."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-c", _EXACT_STEP_PROCESS], cwd=root,
+                          env={**os.environ, "PYTHONPATH": str(root)}, capture_output=True,
+                          text=True, timeout=EXACT_STEP_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"(a) the default-flags step's process exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    runs = json.loads(next(ln for ln in proc.stdout.splitlines()
+                           if ln.startswith("EXACT_STEP "))[len("EXACT_STEP "):])
+    launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    for r in runs:
+        print(f"  (a) one f32 step at bucket {r['bucket']} ({r['valid']} valid), TF32 flags at "
+              f"PyTorch's defaults (cuDNN {r['flags'][0]}, matmul {r['flags'][1]}); f64 step "
+              f"{r['f64_seconds']:.1f} s, peak {r['f64_peak_gib']:.2f} GiB; loss f64 "
+              f"{r['loss_f64']:.9f}", flush=True)
+        for name, what in (("exact", "the step (exact_float_grads)"),
+                           ("off", "the step with TF32 off in the whole process (phase 7's)"),
+                           ("tf32", "the same loss back-propagated outside exact_float_grads, "
+                                    "as before the repair"),
+                           ("plain head", "the step with the plain head")):
+            x = r[name]
+            print(f"  (a) {what}: loss {x['loss']:.9f}; gradients bit for bit equal to the "
+                  f"TF32-off step's: {x['equal_to_off']}; against f64: excess over rtol "
+                  f"{SHARD_GRAD_RTOL:g} / atol {SHARD_GRAD_ATOL:g} {x['excess']:.3e} "
+                  f"({'within' if x['excess'] <= 0 else 'over'}), worst max|d|/max|f64| "
+                  f"{x['rel']:.3e}, over all weights ||d|| / ||f64|| {x['norm']:.3e}"
+                  + (f"; {x['ms']:.1f} ms per step (CUDA events, optimizer included)"
+                     if "ms" in x else ""), flush=True)
+            print("      largest excess (weight: excess, max|d|/max|f64|, max|d|, max|f64|): "
+                  + "; ".join(f"{k}: {e:.2e}, {q:.2e}, {dm:.2e}, {wm:.2e}"
+                              for k, e, q, dm, wm in x["worst"]), flush=True)
+        if not r["exact"]["equal_to_off"] or r["tf32"]["equal_to_off"]:
+            raise RuntimeError(f"(a) at bucket {r['bucket']}: the default-flags step equals the "
+                               f"TF32-off step {r['exact']['equal_to_off']}, the TF32 backward "
+                               f"does {r['tf32']['equal_to_off']}")
+    full, small = runs
+    print(f"  (a) step time under the default flags {full['exact']['ms']:.1f} ms against phase "
+          f"7's {phase7_ms:.1f} ms (run_training, TF32 off throughout) and "
+          f"{full['tf32']['ms']:.1f} ms with a TF32 backward; peak {full['peak_gib']:.2f} GiB; "
+          f"launches {launches}", flush=True)
+    if small["exact"]["excess"] > 0:
+        raise RuntimeError(f"(a) at 64 px the step's gradients are {small['exact']['excess']:.3e}"
+                           " over phase 14's limits against f64")
+    if not (launches["mc_head_sep"] and launches["mc_head_bwd_sep"]):
+        raise RuntimeError(f"(a) the steps did not launch K1 and K5: {launches}")
+    return launches
+
+
+def _library_line(label: str, kernel_ms: float, library: str, library_ms: float | None,
+                  bound_ms: float) -> None:
+    if library_ms is None:
+        print(f"  {label}: kernel {kernel_ms:.4f} ms, bound {bound_ms:.4f} ms; library call: "
+              f"none: {library}", flush=True)
+        return
+    verdict = "the kernel wins" if kernel_ms <= library_ms else "the kernel LOSES to it"
+    print(f"  {label}: kernel {kernel_ms:.4f} ms, {library} {library_ms:.4f} ms ({verdict}, "
+          f"{library_ms / kernel_ms:.2f}x), bound {bound_ms:.4f} ms (kernel at "
+          f"{bound_ms / kernel_ms:.1%}, library call at {bound_ms / library_ms:.1%})", flush=True)
+
+
+NO_LIBRARY_CALL = {
+    "mc_head_sep": "no PyTorch call computes the gated-attention score (tanh(H V) * "
+                   "sigmoid(H U)) w per class with Philox dropout, its masked softmax and the "
+                   "pooling; scaled_dot_product_attention takes queries and keys, not a gate",
+    "mc_head_shared": "the same head at one shared gate: no single call",
+    "mc_head_bwd_sep": "the backward of K1's function replaying its dropout masks: no single call",
+    "mc_head_bwd_shared": "the backward of K2's function: no single call",
+    "bn_relu_quant": "no call normalizes with a per-channel affine, adds a residual, applies "
+                     "ReLU and rounds to int8 codes in one (torch.quantize_per_channel takes no "
+                     "shift before a ReLU and returns a quantized tensor type); the stem mode "
+                     "pools besides",
+}
+
+
+def check_library_calls(rows: dict, d) -> None:
+    """Phase 16 (b): each kernel of the ``kernels`` line beside the one
+    PyTorch call that computes the same function on the same inputs, timed
+    by ``time_ms`` with the kernel again, or the reason no call does:
+    K3 against an index of the image's unfolded windows (the starts are all
+    inside the image, where the zero tile of an outside start is never
+    needed); K6 against cuDNN's bf16 conv at each 3x3 shape (the row is
+    layer 1's) and ``torch._int_mm`` of the subsampled pixels at each 1x1/2
+    shape (int32 sums, without K6's store epilogue); K7 against
+    ``torch.var_mean`` over (h, w) at every launch shape (the statistics as
+    moments, in bf16; the row is the stem's).  Fills the rows'
+    ``library_ms``."""
+    import torch.nn.functional as F
+
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+    from montecarlo_gated_mil_tpu_torch.ops.patching import compute_tile_grid, gather_selected
+
+    for name, why in NO_LIBRARY_CALL.items():
+        _library_line(name, rows[name]["ms"], why, None, rows[name]["bound_ms"])
+    # K3 at phase 3's 3072 starts.
+    grid = compute_tile_grid(d.H, d.W, d.patch_size, d.overlap_val_test)
+    g = torch.Generator().manual_seed(3)
+    image = torch.from_numpy(synthetic_image(d.H, d.W, positive=True, seed=0)).cuda()
+    starts = torch.from_numpy(grid.tiles_array()[:, :2]).long()
+    starts = starts[torch.randperm(grid.num_tiles, generator=g)[:3072]].cuda()
+    p = d.patch_size
+    windows = image.unfold(0, p, 1).unfold(1, p, 1)  # a view: (H-p+1, W-p+1, p, p)
+
+    def index():
+        return windows[starts[:, 0], starts[:, 1]]
+
+    if not torch.equal(index(), gather_selected(image, starts, p)):
+        raise RuntimeError("(b) the unfolded windows' index differs from K3")
+    kernel = time_ms(lambda: gather_selected(image, starts, p), iters=20, what="K3").ms
+    rows["gather_tiles"]["library_ms"] = time_ms(index, iters=20, what="K3's library call").ms
+    _library_line("gather_tiles (K3, 3072 starts)", kernel,
+                  "image.unfold(0, p, 1).unfold(1, p, 1)[starts[:, 0], starts[:, 1]]",
+                  rows["gather_tiles"]["library_ms"], rows["gather_tiles"]["bound_ms"])
+    del image, starts, windows
+    # K6 at every r18 conv shape of a request, bf16 store.
+    gq = torch.Generator(device="cuda").manual_seed(16)
+    n = QUANT_N
+    sums = [0.0, 0.0]
+    for label, h, w, cin, cout, k, stride, pad, per_request in QCONV_SHAPES:
+        if not per_request:
+            continue
+        a = _int8((n, h, w, cin), gq)
+        wt = _int8((cout, k, k, cin), gq)
+        scale = torch.rand(cout, generator=gq, device="cuda") * 1e-3
+        oh, ow = qk.conv_out_hw(h, w, k, k, stride, pad)
+        m, K = n * oh * ow, k * k * cin
+        t_ops = 2.0 * m * cout * K / PEAK_INT8_OPS * 1e3
+        t_bytes = (n * _pixels_read(h, w, k, stride, pad) * cin + wt.numel() + m * cout * 2
+                   + 4 * cout) / PEAK_BYTES * 1e3
+        kernel = time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, "bf16"), iters=5,
+                         what=f"K6 {label}").ms
+        if k == 1:
+            A = a[:, ::stride, ::stride].reshape(m, cin).contiguous()
+            B = wt.reshape(cout, cin).t()
+            lib_ms = time_ms(lambda: torch._int_mm(A, B), iters=5, what="torch._int_mm").ms
+            lib = f"torch._int_mm ({m} x {K}) @ ({K} x {cout}), int32 sums"
+            del A, B
+        else:
+            x = a.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels_last storage
+            wb = wt.to(torch.bfloat16).permute(0, 3, 1, 2)
+            lib_ms = time_ms(lambda: F.conv2d(x, wb, stride=stride, padding=pad[0]), iters=5,
+                             what="cuDNN bf16").ms
+            lib = "cuDNN bf16 conv2d, channels_last"
+            del x, wb
+        _library_line(f"qconv_i8 (K6) {label}, N={n}", kernel, lib, lib_ms, max(t_ops, t_bytes))
+        if label == QCONV_SHAPES[0][0]:
+            rows["qconv_i8"]["library_ms"] = lib_ms
+        sums[0] += per_request * kernel
+        sums[1] += per_request * lib_ms
+        del a, wt
+    print(f"  K6 per request (launch-weighted): kernel {sums[0]:.4f} ms, the library calls "
+          f"{sums[1]:.4f} ms", flush=True)
+    # K7 at every launch shape of a request.
+    sums = [0.0, 0.0]
+    for label, hwc, per_request in K7_SHAPES:
+        t = _bn_stored((n, *hwc), gq)
+        s1, _ = qk.bn_stats(t)
+        var, mean = torch.var_mean(t, dim=(1, 2), correction=0)
+        hw = hwc[0] * hwc[1]
+        err = float((mean.float() * hw - s1).abs().max() / s1.abs().max())
+        kernel = time_ms(lambda: qk.bn_stats(t), iters=5, what=f"K7 {label}").ms
+        lib_ms = time_ms(lambda: torch.var_mean(t, dim=(1, 2), correction=0), iters=5,
+                         what="torch.var_mean").ms
+        bound, _ = _bound(t.numel() * 2 + 2 * n * hwc[-1] * 4)
+        _library_line(f"bn_stats (K7) {label} {tuple(t.shape)}", kernel,
+                      f"torch.var_mean(t, dim=(1, 2), correction=0) (bf16 moments; its mean "
+                      f"x hw against K7's sums {err:.1e} of max)", lib_ms, bound)
+        if label == "stem":
+            rows["bn_stats"]["library_ms"] = lib_ms
+        sums[0] += per_request * kernel
+        sums[1] += per_request * lib_ms
+        del t, s1, var, mean
+    print(f"  K7 per request (launch-weighted): kernel {sums[0]:.4f} ms, torch.var_mean "
+          f"{sums[1]:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+
+def check_new_tools(tmp: str) -> dict:
+    """Phase 16 (c)-(e): ``validate_uncertainty`` at seed 0 (the figure
+    where matplotlib imports), ``profile_int8 all`` at the JAX tool's bag
+    (256 patches at 224 px) and ``fuzz_dicom`` with 100 trials a seed
+    (its refusal, where the compiler has no sanitizers, printed on a line
+    of its own).  Raises when the acceptance's fit or an uncertainty ratio
+    fails at seed 0, when the two stems' codes differ, or when the fuzzer
+    finds a fault.  Returns the launches of (c) and (d)."""
+    import importlib.util
+
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.tools import fuzz_dicom, profile_int8, validate_uncertainty
+
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    figure = importlib.util.find_spec("matplotlib") is not None
+    if not figure:
+        print("  (c) matplotlib is not installed here: validate_uncertainty runs with "
+              "--no-figure", flush=True)
+    out = str(Path(tmp, "uncertainty_validation.png"))
+    res = validate_uncertainty.main(["--seeds", "0", "--out", out]
+                                    + ([] if figure else ["--no-figure"]))[0]
+    if figure and not Path(out).stat().st_size:
+        raise RuntimeError("(c) validate_uncertainty wrote no figure")
+    if not all(res["oks"][:3]):
+        raise RuntimeError(f"(c) the acceptance's fit or an uncertainty ratio failed at seed 0: "
+                           f"{res['values']}")
+    print(f"  (c) validate_uncertainty: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    res = profile_int8.main(["all", "--reps", "2"])
+    if res["stem"]["agreement"] != 1.0:
+        raise RuntimeError(f"(d) the two stems' codes agree at {res['stem']['agreement']}")
+    torch.cuda.empty_cache()
+    print(f"  (d) profile_int8 all: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    t0 = time.perf_counter()
+    try:
+        res = fuzz_dicom.main(["--trials-per-seed", "100", "--out", str(Path(tmp, "fuzz"))])
+    except SystemExit as e:
+        if not str(e.code).startswith("fuzz_dicom: cannot build the reader with sanitizers"):
+            raise
+        print(f"  (e) {e.code}", flush=True)
+    else:
+        if res["faults"] or res["missing"]:
+            raise RuntimeError(f"(e) fuzz_dicom: faults {res['faults']}, seeds missing "
+                               f"{res['missing']}")
+    print(f"  (e) fuzz_dicom: {time.perf_counter() - t0:.1f} s; launches of (c) and (d) "
+          f"{launches}", flush=True)
+    for name in ("mc_head_shared", "mc_head_bwd_shared", "qconv_i8", "bn_stats",
+                 "bn_relu_quant"):
+        if not launches[name]:
+            raise RuntimeError(f"phase 16: the tools never launched {name}")
     return launches
 
 

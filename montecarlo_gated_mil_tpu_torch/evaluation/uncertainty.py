@@ -128,36 +128,61 @@ def mc_stats(model, bag: Bag, seed: int = 0):
             out.attention.cpu().numpy())
 
 
-def uncertainty_ratios(model) -> tuple[float, float]:
-    """Mean MC std and entropy of 8 constructed-ambiguous bags (lesion
-    contrast 0.28, far below the trained 0.9) over those of 8 clear bags:
-    ``(std ratio, entropy ratio)``."""
+def predictive_values(model) -> tuple[np.ndarray, np.ndarray]:
+    """Per bag ``(P(class 1) mean, MC std, predictive entropy)`` of 8 clear
+    bags (positive at even index) and of 8 constructed-ambiguous bags
+    (lesion contrast 0.28, far below the trained 0.9): two ``(8, 3)``
+    arrays."""
     device = next(model.parameters()).device
     clear, ambig = [], []
     for i in range(8):
         bag, _ = make_bag(2000 + i, positive=i % 2 == 0, device=device)
-        clear.append(mc_stats(model, bag, seed=i)[1:3])
+        clear.append(mc_stats(model, bag, seed=i)[:3])
     for i in range(8):
         bag, _ = make_bag(3000 + i, positive=True, amp=0.28, device=device)
-        ambig.append(mc_stats(model, bag, seed=100 + i)[1:3])
-    clear, ambig = np.mean(clear, axis=0), np.mean(ambig, axis=0)
+        ambig.append(mc_stats(model, bag, seed=100 + i)[:3])
+    return np.array(clear), np.array(ambig)
+
+
+def spread_ratios(clear: np.ndarray, ambig: np.ndarray) -> tuple[float, float]:
+    """Mean MC std and entropy of the ambiguous bags over those of the clear
+    bags, from :func:`predictive_values`: ``(std ratio, entropy ratio)``."""
+    clear, ambig = clear[:, 1:].mean(axis=0), ambig[:, 1:].mean(axis=0)
     return float(ambig[0] / clear[0]), float(ambig[1] / clear[1])
 
 
-def attention_ratios(model) -> tuple[float, float]:
-    """On 8 clear positive bags: the class-1 attention mass on the lesion
-    tiles over the uniform share, and the MC attention std (ddof=1) on the
-    lesion tiles over that on the background, each a mean over the bags:
-    ``(mass ratio, spread ratio)``."""
+def uncertainty_ratios(model) -> tuple[float, float]:
+    """:func:`spread_ratios` of the model's bags."""
+    return spread_ratios(*predictive_values(model))
+
+
+def lesion_attention(model) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """On 8 clear positive bags, per bag: the class-1 attention mass on the
+    lesion tiles, and the MC attention std (ddof=1) averaged over the lesion
+    tiles and over the background: three ``(8,)`` arrays."""
     device = next(model.parameters()).device
-    mass_ratios, spread_ratios = [], []
+    mass, lesion_std, background_std = [], [], []
     for i in range(8):
         bag, lesion = make_bag(4000 + i, positive=True, device=device)
         A = mc_stats(model, bag, seed=200 + i)[3][:, 1, :]  # (T, N), class-1 head
-        mass_ratios.append(float(A.mean(0)[lesion].sum()) / (N_LESION / N_TILES))
+        mass.append(float(A.mean(0)[lesion].sum()))
         a_std = A.std(0, ddof=1)
-        spread_ratios.append(float(a_std[lesion].mean()) / max(float(a_std[~lesion].mean()), 1e-9))
-    return float(np.mean(mass_ratios)), float(np.mean(spread_ratios))
+        lesion_std.append(float(a_std[lesion].mean()))
+        background_std.append(float(a_std[~lesion].mean()))
+    return np.array(mass), np.array(lesion_std), np.array(background_std)
+
+
+def lesion_ratios(mass, lesion_std, background_std) -> tuple[float, float]:
+    """From :func:`lesion_attention`, each a mean over the bags: the lesion
+    mass over the uniform share, and the lesion over the background MC
+    attention std: ``(mass ratio, spread ratio)``."""
+    spread = [float(s) / max(float(b), 1e-9) for s, b in zip(lesion_std, background_std)]
+    return float(np.mean([float(m) / (N_LESION / N_TILES) for m in mass])), float(np.mean(spread))
+
+
+def attention_ratios(model) -> tuple[float, float]:
+    """:func:`lesion_ratios` of the model's clear positive bags."""
+    return lesion_ratios(*lesion_attention(model))
 
 
 def criteria(accs, ratios) -> tuple[tuple[float, ...], tuple[bool, ...]]:

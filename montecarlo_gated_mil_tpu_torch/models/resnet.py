@@ -430,6 +430,26 @@ def _exact_float_convs(dtype: torch.dtype):
         torch.backends.cudnn.allow_tf32 = old
 
 
+@contextlib.contextmanager
+def exact_float_grads(dtype: torch.dtype):
+    """Where a float32 (or float64) model's gradient is taken: neither
+    cuDNN's convolutions nor the matrix products run in TF32 meanwhile, and
+    both flags are restored as they were found.  Autograd runs the backward
+    convolutions after :func:`_exact_float_convs` has closed, under the
+    process's flags (cuDNN's TF32 is on by PyTorch's default), so every
+    ``backward()`` and ``torch.autograd.grad`` of the port runs inside this.
+    Other dtypes pass through."""
+    if dtype not in (torch.float32, torch.float64):
+        yield
+        return
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
 class ResNetFeatures(nn.Module):
     """Headless ResNet: ``(N, H, W, 3) -> (N, L)`` global-pooled features.
 

@@ -26,6 +26,7 @@ import torch
 
 from montecarlo_gated_mil_tpu_torch.core.bag import Bag, stack_bags
 from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn, mc_head
+from montecarlo_gated_mil_tpu_torch.models.resnet import exact_float_grads
 from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
 from montecarlo_gated_mil_tpu_torch.parallel.mesh import (
     Mesh,
@@ -83,7 +84,9 @@ def make_dp_train_step(model, criterion, optimizer, mesh: Mesh, *,
             label = shard.label[b]
             y, a = replica(shard.patches[b], shard.mask[b], train=True, seed=seed)
             loss, aux = bag_loss(replica, criterion, y, a, label)
-            grads = torch.autograd.grad(loss * w, list(replica.parameters()), allow_unused=True)
+            with exact_float_grads(replica.dtype):
+                grads = torch.autograd.grad(loss * w, list(replica.parameters()),
+                                            allow_unused=True)
             for p, g in zip(params, grads):
                 if g is not None:
                     if p.grad is None:

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from montecarlo_gated_mil_tpu_torch.models.resnet import sharded_features
+from montecarlo_gated_mil_tpu_torch.models.resnet import exact_float_grads, sharded_features
 from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
     ATTENTION_DRAW,
     FEATURE_DRAW,
@@ -108,7 +108,9 @@ class _ShardedEmbedGrad(torch.autograd.Function):
         gs = [g.to(h.device) for g, h in zip(torch.split(dH, [h.shape[0] for h in hs]), hs)]
         unique = list({id(n): n for n in nets}.values())
         leaves = [list(n.parameters()) for n in unique]
-        grads = torch.autograd.grad(hs, [p for ps in leaves for p in ps], gs, allow_unused=True)
+        with exact_float_grads(nets[0].dtype):
+            grads = torch.autograd.grad(hs, [p for ps in leaves for p in ps], gs,
+                                        allow_unused=True)
         del hs, gs
         k = len(leaves[0])
         out = []

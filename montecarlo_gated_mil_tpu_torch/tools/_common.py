@@ -38,18 +38,15 @@ def start(device) -> torch.device:
 def main_path_settings():
     """The main path's numerics as ``chip_smoke.py`` drives it: cuDNN
     chooses its algorithms by its defaults (no autotuning, not
-    deterministic), and no convolution or matrix product runs in TF32.
-    The model turns TF32 off around its float32 forward convolutions
-    (``models/resnet.py::_exact_float_convs``), but autograd runs their
-    backward outside that context, so the setting is global here."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic).  TF32 is left as the process has it: the model runs
+    its float32 forward convolutions and every gradient exactly
+    (``models/resnet.py::_exact_float_convs``, ``exact_float_grads``)."""
+    old = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = torch.backends.cudnn.deterministic = False
     try:
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
-                                        allow_tf32=False):
-            yield
+        yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = old
 
 
 def shipped_model(device, cfg=None, dtype: str | None = None, seed: int = 0):

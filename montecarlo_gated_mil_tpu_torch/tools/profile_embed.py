@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from montecarlo_gated_mil_tpu_torch.models.resnet import _exact_float_convs
 from montecarlo_gated_mil_tpu_torch.tools import _common
 from montecarlo_gated_mil_tpu_torch.utils.profiling import (
     PEAK_BF16_FLOPS,
@@ -82,7 +83,8 @@ def _isolated_pass(n: int, h: int, c: int, dtype: torch.dtype, device, g):
 
     def run(x):
         a = torch.relu(x.float() * scale + shift).to(dtype)
-        y = F.conv2d(a, w, padding=1)
+        with _exact_float_convs(dtype):
+            y = F.conv2d(a, w, padding=1)
         yf = y.float()
         return y, torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
 

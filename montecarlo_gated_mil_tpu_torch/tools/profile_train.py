@@ -23,6 +23,7 @@ import contextlib
 
 import torch
 
+from montecarlo_gated_mil_tpu_torch.models.resnet import exact_float_grads
 from montecarlo_gated_mil_tpu_torch.tools import _common
 from montecarlo_gated_mil_tpu_torch.utils.profiling import (
     PhaseTimer,
@@ -61,7 +62,7 @@ def phase_step(timer: PhaseTimer, state, criterion, bag, seed: int) -> None:
         y, a = model.head(H, bag.mask, train=True, seed=seed)
     with timer.phase("loss"):
         loss, _ = bag_loss(model, criterion, y, a, bag.label)
-    with timer.phase("backward"):
+    with timer.phase("backward"), exact_float_grads(model.dtype):
         loss.backward()
     with timer.phase("optimizer"):
         state.apply_update()

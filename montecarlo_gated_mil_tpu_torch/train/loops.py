@@ -59,6 +59,7 @@ import torch
 from montecarlo_gated_mil_tpu_torch.core import rng
 from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn, mc_head
 from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
+from montecarlo_gated_mil_tpu_torch.models.resnet import exact_float_grads
 from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
 from montecarlo_gated_mil_tpu_torch.parallel.mesh import Mesh, replicated, shard_mesh_for
 from montecarlo_gated_mil_tpu_torch.train.criteria import bce_on_probs
@@ -375,7 +376,8 @@ def _plain_step(model, optimizer, state: TrainState, bag, seed: int):
     p = torch.sigmoid(y)
     loss = bce_on_probs(p, torch.full_like(p, float(bag.label)))
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with exact_float_grads(model.dtype):
+        loss.backward()
     optimizer.step()
     if state.scheduler is not None:
         state.scheduler.step()

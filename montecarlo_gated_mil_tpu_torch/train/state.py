@@ -36,6 +36,7 @@ import torch
 
 from montecarlo_gated_mil_tpu_torch.core.bag import Bag
 from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
+from montecarlo_gated_mil_tpu_torch.models.resnet import exact_float_grads
 
 
 @dataclass
@@ -111,7 +112,8 @@ def make_train_step(
     def step(state: TrainState, bag: Bag, seed: int, do_update: bool):
         y, _, aux = model(bag.patches, bag.mask, bag.label, train=True, seed=seed)
         loss = criterion(y[None, :], bag.label[None]) + aux
-        (loss / accumulation_steps).backward()
+        with exact_float_grads(model.dtype):
+            (loss / accumulation_steps).backward()
         if debug_nans or debug_infs:
             _check_finite(model, loss, debug_nans, debug_infs)
         return _finish_step(state, do_update, False, y, bag.label, loss, aux)
@@ -158,7 +160,8 @@ def make_train_step_sharded(
         mask, label = bag.mask.to(H.device), bag.label.to(H.device)
         y, a = model.head(H, mask, train=True, seed=seed)
         loss, aux = bag_loss(model, criterion, y, a, label)
-        (loss if mean_scaling else loss / accumulation_steps).backward()
+        with exact_float_grads(model.dtype):
+            (loss if mean_scaling else loss / accumulation_steps).backward()
         return _finish_step(state, do_update, mean_scaling, y, label, loss, aux)
 
     return step

@@ -1138,3 +1138,24 @@ def test_phase_timer_on_the_card_holds_its_device_work(cuda):
     torch.cuda.synchronize()
     assert 0.9 * sleep_s <= synced.seconds("sleep") <= sleep_s + 0.02
     assert host.seconds("sleep") < 0.5 * sleep_s
+
+
+@pytest.mark.gpu
+def test_default_flags_step_gradients_match_f64(cuda):
+    """One f32 training step of the shipped model (64 instances of 64 px, 48
+    valid) with TF32 at PyTorch's defaults (cuDNN's on, the matrix
+    products' off), through K1 and K5 (``chip_smoke.default_flags_step``):
+    its gradients equal bit for bit those of the same step with TF32 off in
+    the whole process, which the loss back-propagated outside
+    ``exact_float_grads`` does not, and lie within phase 14's limits of an
+    f64 step of the same weights, bag and dropout."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        r = _chip_smoke().default_flags_step(bucket=64, valid=0.75, patch=64, steps=1)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    print({k: v for k, v in r.items() if k != "launches"})
+    assert r["exact"]["equal_to_off"] and not r["tf32"]["equal_to_off"]
+    assert r["exact"]["excess"] <= 0, r["exact"]
+    assert r["launches"]["mc_head_sep"] == r["launches"]["mc_head_bwd_sep"] == 1

@@ -1,6 +1,8 @@
 """The port's measurement tools (``montecarlo_gated_mil_tpu_torch/tools``)
 and quickstart on the CPU at test size: each ``main([...], device="cpu")``
-prints its rows; the embed's FLOP count equals the JAX tool's closed form;
+prints its rows (``validate_uncertainty`` after a toy training of 2 bags
+and 1 epoch, ``fuzz_dicom`` a few trials a seed in a subprocess with its
+own timeout); the embed's FLOP count equals the JAX tool's closed form;
 the stage splits compose to the whole embeds; and no module of the port,
 nor ``chip_smoke.py``, imports JAX or the JAX package.  A slope on a busy
 CPU can come out at or below 0 (the median pairwise slope of host-clock
@@ -15,14 +17,17 @@ import pytest
 import torch
 
 from montecarlo_gated_mil_tpu_torch.tools import (
+    dicom_encoders,
     measure_fullscale,
     measure_hbm,
     measure_serving,
     measure_train,
     probe_build_phases,
     profile_embed,
+    profile_int8,
     profile_int8_attrib,
     profile_train,
+    validate_uncertainty,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -224,6 +229,127 @@ def test_quickstart_runs_on_the_cpu(tmp_path, monkeypatch):
     assert res["serving"]["attention_map_shape"] == [2, 32, 32]
     assert 0.0 <= res["serving"]["p_cancer_mean"] <= 1.0
     assert len(drawn) == len(res["figures"]) == 2
+
+
+TOY = ["--bags", "2", "--epochs", "1"]  # the acceptance's training cut to 2 bags, 1 epoch
+
+
+@pytest.fixture(scope="module")
+def uncertainty_run(tmp_path_factory):
+    """``validate_uncertainty`` at seed 0 on a briefly trained toy model: its
+    results, printed lines and figure."""
+    import contextlib
+    import io
+
+    torch.set_num_threads(1)
+    out = tmp_path_factory.mktemp("uncertainty") / "figure.png"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = validate_uncertainty.main(["--seeds", "0", "--out", str(out), *TOY], device="cpu")
+    return res, buf.getvalue().splitlines(), out
+
+
+def test_validate_uncertainty_writes_the_figure_and_the_criteria(uncertainty_run):
+    res, out, png = uncertainty_run
+    assert out[0] == "cpu" and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert f"figure: wrote {png}" in out
+    line = next(ln for ln in out if ln.startswith("seed 0: fit accuracy"))
+    assert all(name in line for name, _ in validate_uncertainty.u.CRITERIA)
+    assert all(np.isfinite(v) for v in res[0]["values"]) and len(res[0]["values"]) == 5
+    panels = res[0]["panels"]
+    assert panels["clear"].shape == panels["ambig"].shape == (8, 3)
+    assert panels["mass"].shape == panels["lesion_std"].shape == (8,)
+
+
+def test_validate_uncertainty_ratios_equal_the_harness(uncertainty_run):
+    """At one seed the tool's four ratios are those of
+    ``evaluation/uncertainty.py`` called directly on the same training."""
+    from montecarlo_gated_mil_tpu_torch.evaluation import uncertainty as u
+
+    model, accs = u.train_toy_model(2, 1, seed=0, device="cpu")
+    assert list(uncertainty_run[0][0]["accuracies"]) == accs
+    assert uncertainty_run[0][0]["values"][1:] == (*u.uncertainty_ratios(model),
+                                                   *u.attention_ratios(model))
+
+
+def test_validate_uncertainty_seed_table_without_the_figure(capsys):
+    res = validate_uncertainty.main(["--seeds", "0-1", "--no-figure", *TOY], device="cpu")
+    out = _lines(capsys)
+    assert list(res) == [0, 1] and "figure: not drawn (--no-figure)" in out
+    assert out[-1].startswith("  all five criteria met at ") and "of 2 seeds" in out[-1]
+    assert validate_uncertainty.seeds("0-2,5") == [0, 1, 2, 5]
+
+
+@pytest.mark.parametrize("which", ["stem", "blocks"])
+def test_profile_int8_rows_on_the_cpu(capsys, which):
+    """The plain versions of K6-K8 at 4 patches of 32 px: every row a finite
+    slope; the two stems agree code for code."""
+    res = profile_int8.main([which, "--patches", "4", "--patch", "32", *QUICK], device="cpu")
+    out = _lines(capsys)
+    rows = {k: v for k, v in res[which].items() if k != "agreement"}
+    assert rows and all(np.isfinite(r["slope"]) and "events" not in r for r in rows.values())
+    assert sum("events not measured (CPU)" in ln for ln in out) == len(rows)
+    if which == "stem":
+        assert res["stem"]["agreement"] == 1.0 and len(rows) == 5
+    else:
+        assert set(rows) == {(s, t) for s in ("l1", "l2") for t in profile_int8.STORES}
+
+
+def test_fuzz_dicom_few_trials_finds_no_fault(tmp_path):
+    """A few mutations of every seed through the reader built with ASan and
+    UBSan: no fault; where this host's compiler cannot link sanitizers, a
+    non-zero exit that says so."""
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "montecarlo_gated_mil_tpu_torch.tools.fuzz_dicom",
+         "--trials-per-seed", "3", "--out", str(tmp_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=400)
+    if proc.returncode != 0:
+        assert "cannot build the reader with sanitizers" in proc.stderr, proc.stderr[-2000:]
+        return
+    assert "12 seeds read cleanly" in proc.stdout and ", 0 faults" in proc.stdout, proc.stdout
+    assert len(list((tmp_path / "seeds").glob("*.dcm"))) == 12
+
+
+def _fixture_encoders():
+    """The JAX package's test fixtures the encoders were copied from."""
+    from tests import test_dicom_native as t
+
+    px = np.random.default_rng(5).integers(0, 2**12, size=(24, 20), dtype=np.uint16)
+    return {
+        "rle": (dicom_encoders.rle_frame(px), t._rle_frame(px)),
+        "jpeg_lossless": (dicom_encoders.jpeg_lossless_frame(px, 12, predictor=4, restart=7),
+                          t._jpeg_lossless_frame(px, 12, predictor=4, restart=7)),
+        "jpeg_ls": (dicom_encoders.jls_frame(px, 12, near=1), t._jls_frame(px, 12, near=1)),
+        "jpeg_dct": (dicom_encoders.dct_frame(px, 12, restart=3)[0],
+                     t._dct_frame(px, 12, restart=3)[0]),
+    }
+
+
+@pytest.mark.parametrize("codec", ["rle", "jpeg_lossless", "jpeg_ls", "jpeg_dct"])
+def test_dicom_encoders_equal_the_jax_fixtures(codec):
+    ours, theirs = _fixture_encoders()[codec]
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("name", ["explicit", "implicit", "deflated", "rle", "jpeg_lossless",
+                                  "jpeg_ls", "j2k_basic", "j2k_jp2"])
+def test_fuzz_seeds_read_back_through_the_port_reader(tmp_path, name):
+    """Each lossless seed ``fuzz_dicom`` writes reads back through the port's
+    reader (``data/dicom_native.py``) as its pixels."""
+    from PIL import features
+
+    from montecarlo_gated_mil_tpu_torch.data.dicom_native import read_dicom_native
+    from montecarlo_gated_mil_tpu_torch.tools.fuzz_dicom import make_seeds
+
+    if name.startswith("j2k") and not features.check_codec("jpg_2000"):
+        pytest.skip("Pillow lacks the OpenJPEG codec")
+    seeds, _ = make_seeds(tmp_path, np.random.default_rng(0))
+    px = np.random.default_rng(0).integers(0, 2**12, size=(24, 20), dtype=np.uint16)
+    img, _ = read_dicom_native(next(p for p in seeds if p.stem == name))
+    np.testing.assert_array_equal(np.round(img * 4095).astype(np.uint16), px)
 
 
 _FORBIDDEN = re.compile(
