@@ -39,7 +39,8 @@ Phases, each of which raises on failure:
    per-request sums weighted by launches; then
    ``MCDOPredictor.from_config`` with ``tpu.quantized_inference`` serving phase 4's five requests beside their
    float results (a profile of one int8 embed shows each of its 19 convs
-   on K6's wgmma kernel), ``cli serve`` on a quantized YAML, and a small
+   on the wgmma kernel ``QCONV_PATH`` names: 9 on the paired kernel),
+   ``cli serve`` on a quantized YAML, and a small
    quantized request held against the CPU plain path;
 5. the shared-gate workload of the JAX package's ``bench.py`` (a 256-tile
    224x224 bag, r18, T=30) through ``mc_inference``;
@@ -137,8 +138,9 @@ Phases, each of which raises on failure:
    convolutions, as before that repair), and its ms per step beside phase
    7's; (b) each kernel of the ``kernels`` line beside the one PyTorch call
    that computes its function (K3: an index of the image's unfolded
-   windows; K6: cuDNN's bf16 conv at each 3x3 shape, ``torch._int_mm`` at
-   each 1x1/2; K7: ``torch.var_mean``), or the reason none does, which
+   windows, at 3072 and at 6144 starts; K6: cuDNN's bf16 conv at each 3x3
+   shape, ``torch._int_mm`` at each 1x1/2; K7: ``torch.var_mean``), or the
+   reason none does, which
    fills ``library_ms``; (c) ``tools/validate_uncertainty.py`` at seed 0
    (the figure where matplotlib imports), whose fit and uncertainty ratios
    must pass; (d) ``tools/profile_int8.py all`` at 256 patches of 224 px,
@@ -1248,6 +1250,14 @@ QCONV_SHAPES = (
     ("layer4 3x3", 7, 7, 512, 512, 3, 1, (1, 1, 1, 1), 3),
     ("stem s2d 4x4", 112, 112, 12, 64, 4, 1, (2, 1, 2, 1), 0),
 )
+# The device function of K6 each shape runs on the main path (``qconv_i8``
+# picks it): the paired kernel where the column tile is 256 channels and the
+# weights do not stay resident in one block; the gather kernel for the s2d
+# stem, which the main path does not launch.
+QCONV_PATH = {label: "qconv_wgmma_kernel" for label, *_ in QCONV_SHAPES}
+QCONV_PATH.update({label: "qconv_wgmma_pair_kernel" for label in (
+    "layer3 3x3/2", "layer3 3x3", "layer4 3x3/2", "layer4 1x1/2", "layer4 3x3")})
+QCONV_PATH["stem s2d 4x4"] = "qconv_gather_kernel"
 QUANT_N = 3072  # instances: the bucket of a full-size request
 QUANT_CHECK_N = 256  # instances held bit for bit against the plain version
 K8_FLIP_LIMIT = 1e-5  # share of K8's codes allowed one off
@@ -1497,10 +1507,10 @@ def check_int8_embed(qpred, d) -> float:
           f"{int(bag.mask.sum())} valid tiles: per-instance cosine min {float(cos.min()):.5f}, "
           f"mean {float(cos.mean()):.5f} (limit 0.97)", flush=True)
     table.check_launched()
-    wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
-    groups = {f"K6 {wgmma_fn}": (wgmma_fn,), f"K6 {gather_fn}": (gather_fn,),
-              "K7": ("bn_stats_kernel",),
-              "K8": ("bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel")}
+    wgmma_fn, pair_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
+    groups = {f"K6 {fn}": (fn,) for fn in (wgmma_fn, pair_fn, gather_fn)}
+    groups.update({"K7": ("bn_stats_kernel",),
+                   "K8": ("bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel")})
     launches = {name: table.count(*fns) for name, fns in groups.items()}
     parts = [f"{name} {table.ms(*fns):.2f} ms in {launches[name]} launches"
              for name, fns in groups.items()]
@@ -1513,12 +1523,12 @@ def check_int8_embed(qpred, d) -> float:
           "largest:", flush=True)
     for k, ms, n in rest[:5]:
         print(f"    {ms:9.3f} ms  x{n:<4d} {k[:90]}", flush=True)
-    convs = sum(shape[-1] for shape in QCONV_SHAPES)
-    print(f"  K6 by device function in that embed: {wgmma_fn} {launches[f'K6 {wgmma_fn}']} "
-          f"(need {convs}, one per conv), {gather_fn} {launches[f'K6 {gather_fn}']} (need 0)",
-          flush=True)
-    if launches[f"K6 {wgmma_fn}"] != convs or launches[f"K6 {gather_fn}"]:
-        raise RuntimeError(f"the int8 embed's {convs} convs did not all run {wgmma_fn}")
+    need = {fn: sum(shape[-1] for shape in QCONV_SHAPES if QCONV_PATH[shape[0]] == fn)
+            for fn in (wgmma_fn, pair_fn, gather_fn)}
+    print("  K6 by device function in that embed: " + ", ".join(
+        f"{fn} {launches[f'K6 {fn}']} (need {need[fn]})" for fn in need), flush=True)
+    if any(launches[f"K6 {fn}"] != n for fn, n in need.items()):
+        raise RuntimeError(f"the int8 embed's convs did not run the device functions {need}")
     return float(cos.min())
 
 
@@ -3638,6 +3648,16 @@ def check_library_calls(rows: dict, d) -> None:
     _library_line("gather_tiles (K3, 3072 starts)", kernel,
                   "image.unfold(0, p, 1).unfold(1, p, 1)[starts[:, 0], starts[:, 1]]",
                   rows["gather_tiles"]["library_ms"], rows["gather_tiles"]["bound_ms"])
+    # K3 at phase 3's 6144 starts (the extended bucket; drawn with repeats).
+    all_starts = torch.from_numpy(grid.tiles_array()[:, :2]).long()
+    starts = all_starts[torch.randint(grid.num_tiles, (6144,), generator=g)].cuda()
+    if not torch.equal(index(), gather_selected(image, starts, p)):
+        raise RuntimeError("(b) the unfolded windows' index differs from K3 at 6144 starts")
+    kernel = time_ms(lambda: gather_selected(image, starts, p), iters=20, what="K3 6144").ms
+    lib_ms = time_ms(index, iters=20, what="K3's library call at 6144").ms
+    _library_line("gather_tiles (K3, 6144 starts)", kernel,
+                  "image.unfold(0, p, 1).unfold(1, p, 1)[starts[:, 0], starts[:, 1]]", lib_ms,
+                  _bound(2 * 6144 * p * p * 4 + 6144 * 2 * 8)[0])
     del image, starts, windows
     # K6 at every r18 conv shape of a request, bf16 store.
     gq = torch.Generator(device="cuda").manual_seed(16)

@@ -20,9 +20,10 @@
 // 0.94 ms for one f32 product on the FP32 cores.  Next come the dropout bits
 // (one Philox4x32-10 call gives four elements, and each (t, n, l) is drawn
 // once per call of this kernel) and the weights, 0.5 MB per gate, read from
-// L2 by every block.  On the H100 the product runs at about a fifth of the
-// tensor-core peak: mma.sync with the split done in registers, eight warps
-// per SM, is bound by the latency of each 16-row weight stage (PERF.md).
+// L2 by every block.  On the H100 the mma.sync pass below runs the product
+// at about a fifth of the tensor-core peak: the split done in registers,
+// eight warps per SM, bound by the latency of each 16-row weight stage; the
+// wgmma pass (further below) takes the shapes where it is faster (PERF.md).
 //
 // Design.  Two launches, every sum in a fixed order (no float atomics: one
 // seed gives bitwise the same output on every call):
@@ -42,15 +43,20 @@
 //      gate c), which draws the tile's bits once per gate, and the 16- and
 //      32-row tiles split L over two warp groups, so that each warp waits on
 //      half as many weight stages.
+//      Where forward_plan picks it, mc_fwd_wgmma_kernel does this pass
+//      instead, for two samples of a 64-row tile per block.
 //   2. mc_fwd_finalize_kernel, one block per (128 outputs, c, t): the global
 //      max m and sum s = sum_j s_j exp(m_j - m), each folded over the tiles
 //      by one warp in a fixed order, then A = exp(logit - m) / s and
 //      M = sum_j exp(m_j - m) P_j / s.
 // Rows are split across blocks in every pass; no ceiling is tied to N.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mc_tile.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -192,6 +198,288 @@ __global__ void __launch_bounds__(256) mc_fwd_tile_kernel(
   }
 }
 
+// ---------------------------------------------------- the wgmma tile pass
+//
+// mc_fwd_wgmma_kernel replaces mc_fwd_tile_kernel where the tile fits and
+// fills the card (forward_plan): T >= 2, D % 64 == 0, L <= 512 (a 64-row H
+// tile in shared memory beside the weight ring) and at least a block per
+// SM over the tiles and sample pairs.  One block per
+// (64-row tile, pair of samples t0 = 2 y, t0 + 1): the gate product runs on
+// wgmma.m64n128k8 in 3xTF32, fed by TMA.
+// - The gate weights come pre-split once per weight set (the wrapper's
+//   `gate_split`, the same rounding as split_tf32): hi and lo planes of
+//   (G, D / 64, 128, L), each 128-row block being 64 columns of Wv and the
+//   same 64 of Wu, K-major as TF32 wgmma takes B.  A stage is 16 rows of L
+//   of one block, both planes (16 KB, 64-byte swizzle), loaded by one
+//   producer warp through a ring of full / empty mbarriers.
+// - The raw H tile stays in shared memory, beside each sample's keep bits
+//   (Philox, as load_hd_tile draws them).  Consumer warpgroup w takes sample
+//   t0 + w: both read every weight stage, so one fetch from L2 feeds two
+//   samples' 64 rows.  A (the dropped-out rows) is formed in registers from
+//   H and the bits and split there; each stage's 16 rows go to a zeroed
+//   partial as lo*hi, hi*lo, hi*hi per 8 rows (mma_3xtf32's order), which
+//   is added to the accumulator on the FP32 cores (the promotion of
+//   mc_tile.cuh).  Passes over 64 columns of D keep the registers to two
+//   64 x 128 tiles, and each pass's tanh * sigmoid and wa dot complete in
+//   the thread that holds both pre-activations.
+// - The epilogue (bias, attention dropout, the tile's softmax partials and
+//   pool) is mc_fwd_tile_kernel's, per warpgroup; sums run in a fixed order.
+constexpr int G_ROWS = 64;                    // rows of a tile: one wgmma M
+constexpr int G_N = 128;                      // gate columns per pass: 64 of Wv, the same 64 of Wu
+constexpr int G_BK = 16;                      // rows of L per weight stage (64 bytes of f32)
+constexpr int G_STAGE = 2 * G_N * G_BK * 4;   // bytes of a stage: the hi and lo planes
+constexpr int G_THREADS = 384;                // two consumer warpgroups and a producer warpgroup
+constexpr int G_MAX_STAGES = 8;
+constexpr int G_MAX_L = 512;                  // the longest H row the pass takes
+
+// Shared memory: the weight ring (1024-byte aligned, for the swizzle), the
+// H tile [64][L + 4], the keep bits [2][64][L / 32], the logits [2][kMaxC][64],
+// the row flags [64], the barriers.
+inline size_t wgmma_smem(int L, int stages) {
+  return 1024 + (size_t)stages * G_STAGE +
+         4 * ((size_t)G_ROWS * (L + 4) + 2 * G_ROWS * (L / 32) + 2 * kMaxC * G_ROWS + G_ROWS) +
+         2 * G_MAX_STAGES * 8;
+}
+
+// As many weight stages as fit, at least three; 0 where three do not fit.
+inline int wgmma_stages(int L) {
+  for (int s = G_MAX_STAGES; s >= 3; --s)
+    if (wgmma_smem(L, s) <= (size_t)kSmemMax) return s;
+  return 0;
+}
+
+__global__ void __launch_bounds__(G_THREADS, 1) mc_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap wmap, const float* __restrict__ H,
+    const float* __restrict__ mask, int N, int L, int D, int C, int G, int T, int stages,
+    const float* __restrict__ bv, const float* __restrict__ bu, const float* __restrict__ wa_full,
+    const float* __restrict__ ba, uint32_t seed, float p_feat, float scale_f, float p_att,
+    float scale_a, float* __restrict__ logits, float* __restrict__ part_ms,
+    float* __restrict__ part_p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  const int ldh = L + 4, words = L / 32, passes = D / 64, ksteps = L / G_BK;
+  float* Hs = reinterpret_cast<float*>(ring + (size_t)stages * G_STAGE);
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(Hs + G_ROWS * ldh);
+  float* lgs = reinterpret_cast<float*>(kbits + 2 * G_ROWS * words);
+  int* ok = reinterpret_cast<int*>(lgs + 2 * kMaxC * G_ROWS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ok + G_ROWS);
+  uint64_t* empty = full + G_MAX_STAGES;
+  const int tile = blockIdx.x, ntiles = gridDim.x, n0 = tile * G_ROWS;
+  const int t0 = 2 * blockIdx.y, nact = t0 + 1 < T ? 2 : 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * nact);  // every warp of the active consumer warpgroups
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!set_row_flags(ok, G_ROWS, n0 + tid < N && mask[n0 + tid] > 0.f)) {
+    for (int e = tid; e < nact * C; e += blockDim.x) {
+      const size_t i = (((size_t)(t0 + e / C) * ntiles + tile) * C + e % C) * 2;
+      part_ms[i] = kMaskFill;
+      part_ms[i + 1] = 0.f;
+    }
+    return;
+  }
+  if (warp < 8) {
+    // The raw H tile (rows without a valid instance are zeros), then each
+    // warpgroup's keep bits: bit l % 32 of word (r, l / 32), all ones
+    // without dropout.  Eight neighbouring lanes hold one word's columns.
+    const int l4 = L / 4;
+    for (int e = tid; e < G_ROWS * l4; e += 256) {
+      const int r = e / l4, l = (e - r * l4) * 4;
+      float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok[r]) h = *reinterpret_cast<const float4*>(H + (size_t)(n0 + r) * L + l);
+      *reinterpret_cast<float4*>(Hs + r * ldh + l) = h;
+    }
+    const int wg = warp / 4, wt = tid % 128;
+    if (wg < nact) {
+      const uint32_t key = seed + (uint32_t)(t0 + wg);
+      uint32_t* kb = kbits + wg * G_ROWS * words;
+      for (int e = wt; e < G_ROWS * l4; e += 128) {
+        const int r = e / l4, l = (e - r * l4) * 4;
+        uint32_t nib = 0xFu;
+        if (p_feat > 0.f) {
+          nib = 0u;
+          if (ok[r]) {
+            const uint4 w = dropout_words4(key, 0u, (uint32_t)((n0 + r) * L + l) >> 2);
+            nib = (uint32_t)(word_uniform(w.x) >= p_feat) |
+                  ((uint32_t)(word_uniform(w.y) >= p_feat) << 1) |
+                  ((uint32_t)(word_uniform(w.z) >= p_feat) << 2) |
+                  ((uint32_t)(word_uniform(w.w) >= p_feat) << 3);
+          }
+        }
+        uint32_t word = nib << (4 * (lane & 7));
+        word |= __shfl_xor_sync(0xffffffffu, word, 1);
+        word |= __shfl_xor_sync(0xffffffffu, word, 2);
+        word |= __shfl_xor_sync(0xffffffffu, word, 4);
+        if ((lane & 7) == 0) kb[r * words + (l >> 5)] = word;
+      }
+    }
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer: every stage of every gate and pass, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      int it = 0;
+      for (int g = 0; g < G; ++g)
+        for (int p = 0; p < passes; ++p)
+          for (int kc = 0; kc < ksteps; ++kc, ++it) {
+            const int s = it % stages;
+            mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+            mbar_expect_tx(&full[s], G_STAGE);
+            const int row = (g * passes + p) * G_N;
+            tma_load_3d(ring + s * G_STAGE, &wmap, kc * G_BK, row, 0, &full[s]);
+            tma_load_3d(ring + s * G_STAGE + G_STAGE / 2, &wmap, kc * G_BK, row, 1, &full[s]);
+          }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp / 4;
+  if (wg >= nact) return;
+  const int wt = tid % 128, gq = lane / 4, q = lane % 4;
+  const int t = t0 + wg;
+  const uint32_t key = seed + (uint32_t)t;
+  const uint32_t* kb = kbits + wg * G_ROWS * words;
+  const int r0 = (warp % 4) * 16 + gq;  // this thread's rows r0 and r0 + 8
+  const float* h0 = Hs + r0 * ldh;
+  const uint32_t* b0 = kb + r0 * words;
+
+  // Each pass adds its share of every class logit into lg, row by row, in
+  // pass order; the accumulators keep the registers meanwhile.
+  float* lg = lgs + wg * kMaxC * G_ROWS;
+  if (q == 0)  // the lane that adds rows r0 and r0 + 8
+    for (int cc = 0; cc < C; ++cc) lg[cc * G_ROWS + r0] = lg[cc * G_ROWS + r0 + 8] = 0.f;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[i] = 0.f;
+  int it = 0;
+  for (int g = 0; g < G; ++g) {
+    for (int p = 0; p < passes; ++p) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int kc = 0; kc < ksteps; ++kc, ++it) {
+        // A: Hd at rows r0 (+8), columns k + q (+4) of each 8-row step.
+        const int k = kc * G_BK;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = k + kk * 8 + q + (i >> 1) * 4;
+            const int row8 = (i & 1) * 8;  // rows r0, r0 + 8
+            const float h = h0[row8 * ldh + col];
+            const float hd = (b0[row8 * words + (col >> 5)] >> (col & 31)) & 1u ? h * scale_f : 0.f;
+            split_tf32(hd, ah[kk][i], al[kk][i]);
+          }
+        const int s = it % stages;
+        mbar_wait(&full[s], (it / stages) & 1);
+        const uint64_t dh = desc_sw64(smem_u32(ring + s * G_STAGE));
+        const uint64_t dl = desc_sw64(smem_u32(ring + s * G_STAGE + G_STAGE / 2));
+        fence_operands(part);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        // The next 8 rows of L: 32 bytes further along each weight row.
+        wgmma_m64n128k8_tf32(part, al[0], dh, 0);
+        wgmma_m64n128k8_tf32(part, ah[0], dl, 1);
+        wgmma_m64n128k8_tf32(part, ah[0], dh, 1);
+        wgmma_m64n128k8_tf32(part, al[1], dh + 2, 1);
+        wgmma_m64n128k8_tf32(part, ah[1], dl + 2, 1);
+        wgmma_m64n128k8_tf32(part, ah[1], dh + 2, 1);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_operands(part);
+        fence_operands(ah[0]);
+        fence_operands(ah[1]);
+        fence_operands(al[0]);
+        fence_operands(al[1]);
+        if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      }
+      // Columns 8 j + 2 q + e of the pass: Wv's column d = 64 p + 8 j + 2 q
+      // + e at j < 8, Wu's same d at j + 8; registers 4 j + {0, 1} row r0,
+      // 4 j + {2, 3} row r0 + 8.  The row sums over the four lanes of a row
+      // go into lg.
+      float s0[kMaxC], s1[kMaxC];
+#pragma unroll
+      for (int cc = 0; cc < kMaxC; ++cc) s0[cc] = s1[cc] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 64 * p + 8 * j + 2 * q + e;
+          const float bvd = bv[g * D + d], bud = bu[g * D + d];
+          const float g0 = tanhf(acc[4 * j + e] + bvd) * sigmoidf_(acc[4 * (j + 8) + e] + bud);
+          const float g1 =
+              tanhf(acc[4 * j + 2 + e] + bvd) * sigmoidf_(acc[4 * (j + 8) + 2 + e] + bud);
+#pragma unroll
+          for (int cc = 0; cc < kMaxC; ++cc)
+            if (cc < C) {
+              const float w = wa_full[((size_t)cc * G + g) * D + d];
+              s0[cc] = fmaf(g0, w, s0[cc]);
+              s1[cc] = fmaf(g1, w, s1[cc]);
+            }
+        }
+#pragma unroll
+      for (int cc = 0; cc < kMaxC; ++cc)
+        if (cc < C) {
+          float a = s0[cc], b = s1[cc];
+          a += __shfl_xor_sync(0xffffffffu, a, 1);
+          b += __shfl_xor_sync(0xffffffffu, b, 1);
+          a += __shfl_xor_sync(0xffffffffu, a, 2);
+          b += __shfl_xor_sync(0xffffffffu, b, 2);
+          if (q == 0) {
+            lg[cc * G_ROWS + r0] += a;
+            lg[cc * G_ROWS + r0 + 8] += b;
+          }
+        }
+    }
+  }
+
+  // The tile's epilogue for sample t, in this warpgroup alone.
+  named_sync(1 + wg, 128);
+  const size_t pbase = ((size_t)t * ntiles + tile) * C;
+  for (int e = wt; e < C * G_ROWS; e += 128) {
+    const int c = e / G_ROWS, r = e - c * G_ROWS, n = n0 + r;
+    float logit = lg[e] + ba[c];
+    if (p_att > 0.f && n < N)
+      logit = dropout_uniform(key, 1u, (uint32_t)(n * C + c)) >= p_att ? logit * scale_a : 0.f;
+    if (n < N) logits[((size_t)t * C + c) * N + n] = logit;
+    lg[e] = ok[r] ? logit : kMaskFill;
+  }
+  named_sync(1 + wg, 128);
+  if (wt < C) {
+    float* w = lg + wt * G_ROWS;
+    float m = kMaskFill;
+    for (int r = 0; r < G_ROWS; ++r) m = fmaxf(m, w[r]);
+    float sum = 0.f;
+    for (int r = 0; r < G_ROWS; ++r) {
+      const float x = w[r] > kMaskFill ? expf(w[r] - m) : 0.f;
+      w[r] = x;
+      sum += x;
+    }
+    part_ms[(pbase + wt) * 2] = m;
+    part_ms[(pbase + wt) * 2 + 1] = sum;
+  }
+  named_sync(1 + wg, 128);
+  // The tile's pool P_j[c, l] = sum_r weight[c, r] Hd[r, l], rows in order.
+  for (int e = wt; e < C * L; e += 128) {
+    const int c = e / L, l = e - c * L;
+    const float* w = lg + c * G_ROWS;
+    float acc_p = 0.f;
+    for (int r = 0; r < G_ROWS; ++r) {
+      const float hd = (kb[r * words + (l >> 5)] >> (l & 31)) & 1u ? Hs[r * ldh + l] * scale_f : 0.f;
+      acc_p = fmaf(w[r], hd, acc_p);
+    }
+    part_p[(pbase + c) * L + l] = acc_p;
+  }
+}
+
 // Fixed-order sum or max over one warp: lanes fold in a butterfly.
 template <bool MAX>
 __device__ __forceinline__ float warp_fold(float v) {
@@ -264,6 +552,55 @@ cudaError_t launch_tile(const RowPlan& plan, int D, cudaStream_t s, const float*
   return cudaGetLastError();
 }
 
+// Which tile pass runs and over how many row tiles: the wgmma pass where
+// it fits (see mc_fwd_wgmma_kernel), else mc_fwd_tile_kernel on plan_rows's
+// tiles.  ntiles = 0: no pass takes the shapes.
+struct ForwardPlan {
+  bool wgmma;
+  int ntiles, stages;
+  RowPlan rows;
+};
+
+inline ForwardPlan forward_plan(int N, int L, int D, int G, int T) {
+  ForwardPlan f = {false, 0, 0, plan_rows(N, L, D, G, T)};
+  f.stages = wgmma_stages(L);
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long blocks = (long)((N + G_ROWS - 1) / G_ROWS) * ((T + 1) / 2);
+  f.wgmma = T >= 2 && D % 64 == 0 && L <= G_MAX_L && f.stages > 0 && blocks >= sms;
+  f.ntiles = f.wgmma ? (N + G_ROWS - 1) / G_ROWS : f.rows.ntiles;
+  return f;
+}
+
+cudaError_t launch_wgmma(const ForwardPlan& f, cudaStream_t s, const float* H, const float* mask,
+                         int N, int L, int D, int C, int G, int T, const float* wsplit,
+                         const float* bv, const float* bu, const float* wa_full, const float* ba,
+                         uint32_t seed, float p_feat, float scale_f, float p_att, float scale_a,
+                         const FwdWork& w) {
+  if (wsplit == nullptr) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // wsplit (2, G, D / 64, 128, L) as (L, G * 2 D, 2): boxes of 16 x 128 x 1.
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)L, (cuuint64_t)G * 2 * D, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)L * 4, (cuuint64_t)G * 2 * D * L * 4};
+  const cuuint32_t box[3] = {G_BK, G_N, 1}, ones[3] = {1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(wsplit), dims, strides,
+             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const size_t smem = wgmma_smem(L, f.stages);
+  static size_t allowed[kMaxDevices] = {};
+  cudaError_t err = allow_smem(mc_fwd_wgmma_kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid(f.ntiles, (T + 1) / 2);
+  mc_fwd_wgmma_kernel<<<grid, G_THREADS, smem, s>>>(map, H, mask, N, L, D, C, G, T, f.stages, bv,
+                                                    bu, wa_full, ba, seed, p_feat, scale_f, p_att,
+                                                    scale_a, w.logits, w.part_ms, w.part_p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -271,34 +608,44 @@ extern "C" {
 // Floats of scratch mc_head_forward needs, or -1 for shapes it cannot take.
 long mc_head_forward_workspace(int N, int L, int D, int C, int G, int T) {
   if (!shapes_ok(N, L, D, C, G, T)) return -1;
-  const RowPlan plan = plan_rows(N, L, D, G, T);
-  if (plan.bm == 0) return -1;
-  return (long)T * C * N + (long)T * plan.ntiles * C * (2 + (long)L);
+  const ForwardPlan f = forward_plan(N, L, D, G, T);
+  if (!f.wgmma && f.rows.bm == 0) return -1;
+  return (long)T * C * N + (long)T * f.ntiles * C * (2 + (long)L);
 }
 
 // Shapes: H (N, L); mask (N,) 1.0/0.0; wv, wu (G, L, D); bv, bu (G, D);
-// wa_full (C, G, D); ba (C,); work: mc_head_forward_workspace(...) floats;
-// A out (T, C, N); M out (T, C, L).  All float32, contiguous, on the device
-// of `stream`.  Returns the cudaError_t of the launches (0 = success).
+// wa_full (C, G, D); ba (C,); wsplit (2, G, D / 64, 128, L), the gate
+// weights' TF32 hi and lo planes, each 128-row block 64 columns of Wv then
+// the same 64 of Wu, K-major (null where D % 64 != 0); work:
+// mc_head_forward_workspace(...) floats; A out (T, C, N); M out (T, C, L).
+// All float32, contiguous, on the device of `stream`.  Returns the
+// cudaError_t of the launches (0 = success).
 int mc_head_forward(const float* H, const float* mask, int N, int L, int D, int C, int G, int T,
                     const float* wv, const float* bv, const float* wu, const float* bu,
-                    const float* wa_full, const float* ba, unsigned int seed, float p_feat,
-                    float scale_f, float p_att, float scale_a, float* work, float* A, float* M,
-                    void* stream) {
+                    const float* wa_full, const float* ba, const float* wsplit, unsigned int seed,
+                    float p_feat, float scale_f, float p_att, float scale_a, float* work, float* A,
+                    float* M, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!shapes_ok(N, L, D, C, G, T)) return (int)cudaErrorInvalidValue;
-  const RowPlan plan = plan_rows(N, L, D, G, T);
-  if (plan.bm == 0) return (int)cudaErrorInvalidValue;
-  const FwdWork w = carve(work, N, L, C, T, plan.ntiles);
+  const ForwardPlan f = forward_plan(N, L, D, G, T);
+  if (!f.wgmma && f.rows.bm == 0) return (int)cudaErrorInvalidValue;
+  const FwdWork w = carve(work, N, L, C, T, f.ntiles);
+  cudaError_t err;
+  if (f.wgmma) {
+    err = launch_wgmma(f, s, H, mask, N, L, D, C, G, T, wsplit, bv, bu, wa_full, ba, seed, p_feat,
+                       scale_f, p_att, scale_a, w);
+  } else {
+    const RowPlan& plan = f.rows;
 #define MCH_LAUNCH_TILE(MT, RW, KS)                                                       \
   launch_tile<MT, RW, KS>(plan, D, s, H, mask, N, L, C, G, T, wv, bv, wu, bu, wa_full, ba, seed, \
                           p_feat, scale_f, p_att, scale_a, w)
-  const cudaError_t err = MCH_DISPATCH_ROWS(plan, MCH_LAUNCH_TILE);
+    err = MCH_DISPATCH_ROWS(plan, MCH_LAUNCH_TILE);
 #undef MCH_LAUNCH_TILE
+  }
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + L + FIN_THREADS - 1) / FIN_THREADS, C, T);
-  mc_fwd_finalize_kernel<<<grid, FIN_THREADS, plan.ntiles * sizeof(float), s>>>(
-      mask, N, L, C, plan.ntiles, w.logits, w.part_ms, w.part_p, A, M);
+  mc_fwd_finalize_kernel<<<grid, FIN_THREADS, f.ntiles * sizeof(float), s>>>(
+      mask, N, L, C, f.ntiles, w.logits, w.part_ms, w.part_p, A, M);
   return (int)cudaGetLastError();
 }
 

@@ -68,6 +68,13 @@
 // Offsets into the activations and the output are 64-bit: at an extended
 // bucket of 6144 instances layer 1's bf16 output passes 2^31 bytes.
 //
+// Where the column tile is 256 channels (r18's layers 3-4), that design
+// gives each 64-row item its whole weight slice from L2: the traffic that
+// bounded the 3x3 and 3x3/2 there.  Those convs run
+// `qconv_wgmma_pair_kernel` (below): both warpgroups share one weight ring,
+// and at the 3x3/2 two blocks of a cluster share each weight stage by TMA
+// multicast, with the same halos, products and epilogue.
+//
 // The s2d stem (Cin = 12, the `stem="s2d_i8"` option, off by default) and
 // any conv outside those shapes run `qconv_gather_kernel`, the first design
 // kept for them: 128-pixel tiles, eight warps of `mma.sync.m16n8k32`, the
@@ -81,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "wgmma_s8.cuh"
 
 namespace {
@@ -116,10 +124,6 @@ __device__ __forceinline__ uint32_t pack_pair(int a0, int a1, float s0, float s1
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // ------------------------------------------------------------ the wgmma path
 
 constexpr int W_T = 8;           // a warpgroup's tile: 8 x 8 output pixels
@@ -146,73 +150,12 @@ struct Tiling {
   int a_stages, b_stages;
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Waits until the barrier's phase differs from `parity`.  A wait of more
-// than about 10 s traps, so that a pipeline fault ends the launch with an
-// error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - start > 20000000000ll) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
 // Descriptor of the A operand in the unswizzled K-major layout: core
 // matrices of 8 rows x 16 bytes, `lbo` bytes apart along K (the halo's
 // 16-channel planes) and `sbo` bytes apart along M (one halo row).
 __device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-// Descriptor of the B operand as TMA writes it with the 64-byte swizzle:
-// rows of 64 bytes, groups of 8 rows 512 bytes apart; the leading byte
-// offset is unused for this layout.
-__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
-         (2ull << 62);
 }
 
 template <int BN>
@@ -223,10 +166,6 @@ __device__ __forceinline__ void wgmma_k32(int (&d)[BN / 2], uint64_t a, uint64_t
     wgmma_m64n128k32(d, a, b, scale_d);
   else
     wgmma_m64n256k32(d, a, b, scale_d);
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The warpgroup tile `st`: instance and top-left pixel.
@@ -259,6 +198,52 @@ __device__ __forceinline__ int parity_index(const Tiling& t, int py, int px) {
 template <int BN, int STORE>
 __host__ __device__ constexpr int staging_row() {
   return BN * store_bytes<STORE>() + 16;
+}
+
+// The paired kernel's epilogue: one warpgroup's 64 x BN accumulator tile
+// (spatial tile `at`, output channels col0 ..) converted as the kernel above
+// converts it, staged in the warpgroup's 64 staging rows and written out in
+// 16-byte stores, rows outside the output left out.  The accumulator
+// fragment of wgmma m64nN: warp w of the warpgroup holds rows 16 w + g and
+// 16 w + g + 8; registers 4 j + {0, 1} are columns 8 j + 2 q + {0, 1} of
+// the first row, 4 j + {2, 3} of the second.  Row r is pixel (r / 8, r % 8)
+// of the tile.
+template <int BN, int STORE>
+__device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], const Tiling& t,
+                                           const TileAt& at, int col0,
+                                           const float* __restrict__ scale, void* __restrict__ out,
+                                           uint8_t* my_staging, int wg) {
+  constexpr int ES = store_bytes<STORE>();
+  constexpr int SROW = staging_row<BN, STORE>();
+  const int tid = threadIdx.x % 128, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4, row_w = (warp % 4) * 16;
+  named_sync(1 + wg, 128);  // the last stores have read the staging rows
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int cc = 8 * j + 2 * q;
+    const float s0 = __ldg(scale + col0 + cc), s1 = __ldg(scale + col0 + cc + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t v = pack_pair<STORE>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], s0, s1);
+      uint8_t* dst = my_staging + (row_w + g + 8 * h) * SROW + cc * ES;
+      if (ES == 2)
+        *reinterpret_cast<uint32_t*>(dst) = v;
+      else
+        *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(v);
+    }
+  }
+  named_sync(1 + wg, 128);
+  constexpr int CHUNKS = BN * ES / 16;  // 16-byte pieces of one output row
+  for (int i = tid; i < 64 * CHUNKS; i += 128) {
+    const int row = i / CHUNKS, ch = i % CHUNKS;
+    const int oy = at.oy0 + row / W_T, ox = at.ox0 + row % W_T;
+    if (at.n < t.N && oy < t.OH && ox < t.OW) {
+      const int64_t pix = (static_cast<int64_t>(at.n) * t.OH + oy) * t.OW + ox;
+      uint8_t* dst = static_cast<uint8_t*>(out) + (pix * t.Cout + col0) * ES + ch * 16;
+      *reinterpret_cast<uint4*>(dst) =
+          *reinterpret_cast<const uint4*>(my_staging + row * SROW + ch * 16);
+    }
+  }
 }
 
 // One warpgroup's halos for one stage: MT tiles, each n_par parity views of
@@ -491,6 +476,219 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// ------------------------------------------------- the paired path (BN = 256)
+//
+// Where the column tile is 256 channels wide, the path above gives each
+// warpgroup one 8 x 8 tile per work item, so every 64 rows fetch their
+// whole weight slice (K x 256 bytes) from L2 into shared memory: 7.25 GB a
+// conv at the 3x3 of layers 3-4 at 3072 instances, the traffic that bounds
+// it there.  This kernel shares the weights: both consumer warpgroups of a
+// block take the same column tile and neighbouring spatial tiles, fed from
+// one weight ring whose empty barrier counts all eight consumer warps, and
+// with CL = 2 the two blocks of a cluster walk the same items in lockstep,
+// each loading half of every weight stage by TMA multicast into both.  So
+// one fetch from L2 feeds 128 rows, or 256 with the cluster.  Each block's
+// empty barrier then counts the consumer warps of both blocks, which
+// release a stage in each other's barrier as well as their own.  A halo
+// stage holds the block's two tiles (one producer warp), the weights have
+// their own producer warp, and the shared memory freed deepens the halo
+// ring.  A cluster's last item may have tiles past the last instance: their
+// halos are not loaded and their rows not stored, while their block still
+// loads its half of every weight stage.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrives on the barrier at the same offset in block `cta` of the cluster,
+// with the default (CTA-scoped) release: what it orders is the consumer's
+// reads of a stage, which its wgmma wait has already completed.
+__device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// A 2-D box into the same offset of every block in `mask`, each block's
+// barrier at `bar`'s offset counting its bytes.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map, int c0,
+                                                      int c1, uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+constexpr int P_BN = 256;
+
+// Shared memory of the paired kernel, from a 1024-byte aligned base: the
+// halo ring (a_stages x two tiles), the weight ring (b_stages x 256 x 64
+// bytes), each warpgroup's 64 staging rows, the barriers and the tap table.
+template <int STORE>
+__host__ __device__ inline int pair_smem_bytes(const Tiling& t) {
+  return 1024 + t.a_stages * a_stage_bytes<2>(t) + t.b_stages * P_BN * W_BK +
+         2 * 64 * staging_row<P_BN, STORE>() + (4 * W_MAX_STAGES) * 8 + W_MAX_TAPS * 4;
+}
+
+// Work item i (of t.items, walked by clusters): column tile i % col_tiles;
+// block r of the cluster takes spatial tiles 2 (CL (i / col_tiles) + r) + wg.
+template <int STORE, int CL>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    qconv_wgmma_pair_kernel(const __grid_constant__ ActMaps act,
+                            const __grid_constant__ CUtensorMap wgt,
+                            const float* __restrict__ scale, void* __restrict__ out, Tiling t) {
+  constexpr int BN = P_BN;
+  constexpr int B_BYTES = BN * W_BK;
+  constexpr int B_PART = B_BYTES / CL;  // the rows of a stage this block loads
+  constexpr int SROW = staging_row<BN, STORE>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  const int A_BYTES = a_stage_bytes<2>(t);
+  const int taps = t.KH * t.KW;
+  const int tile_bytes = t.n_par * 4 * t.plane;
+  uint8_t* ring_a = base;
+  uint8_t* ring_b = ring_a + t.a_stages * A_BYTES;
+  uint8_t* staging = ring_b + t.b_stages * B_BYTES;
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(staging + 2 * 64 * SROW);
+  uint64_t* a_empty = a_full + W_MAX_STAGES;
+  uint64_t* b_full = a_empty + W_MAX_STAGES;
+  uint64_t* b_empty = b_full + W_MAX_STAGES;
+  uint32_t* tap_offset = reinterpret_cast<uint32_t*>(b_empty + W_MAX_STAGES);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
+  const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_MAX_STAGES; ++s) {
+      mbar_init(&a_full[s], 1);
+      mbar_init(&a_empty[s], 8);        // every consumer warp of the block
+      mbar_init(&b_full[s], 1);
+      mbar_init(&b_empty[s], 8 * CL);   // every consumer warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < taps) {
+    const int ky = threadIdx.x / t.KW, kx = threadIdx.x - ky * t.KW;
+    int py, hy, px, hx;
+    tap_axis(ky - t.pad_top, t.stride, t.q0y, py, hy);
+    tap_axis(kx - t.pad_left, t.stride, t.q0x, px, hx);
+    tap_offset[threadIdx.x] = parity_index(t, py, px) * 4 * t.plane + (hy * t.BW + hx) * 16;
+  }
+  __syncthreads();
+  if (CL > 1) cluster_sync();  // the peer's barriers are initialised
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {  // the halos
+      const uint32_t tile_tx = t.n_par * 4 * t.BH * t.BW * 16;
+      int it = 0;
+      for (int item = cluster; item < t.items; item += clusters) {
+        const int st0 = 2 * (CL * (item / t.col_tiles) + static_cast<int>(rank));
+        const int valid = min(2, max(0, t.spatial - st0));
+        for (int c = 0; c < t.cin_chunks; ++c, ++it) {
+          const int s = it % t.a_stages;
+          mbar_wait(&a_empty[s], ((it / t.a_stages) & 1) ^ 1);
+          mbar_expect_tx(&a_full[s], valid * tile_tx);
+          for (int m = 0; m < valid; ++m) {
+            const TileAt at = tile_at(t, st0 + m);
+            uint8_t* dst = ring_a + s * A_BYTES + m * tile_bytes;
+            for (int py = 0; py < 2; ++py) {
+              if (!((t.par_y >> py) & 1)) continue;
+              for (int px = 0; px < 2; ++px) {
+                if (!((t.par_x >> px) & 1)) continue;
+                const CUtensorMap* map = &act.m[py * 2 + px];
+                uint8_t* pdst = dst + parity_index(t, py, px) * 4 * t.plane;
+                for (int j = 0; j < 4; ++j)
+                  tma_load_4d(pdst + j * t.plane, map, c * W_BK + 16 * j, at.ox0 + t.q0x,
+                              at.oy0 + t.q0y, at.n, &a_full[s]);
+              }
+            }
+          }
+        }
+      }
+    } else if (warp == 9 && lane == 0) {  // the weights
+      int it = 0;
+      for (int item = cluster; item < t.items; item += clusters) {
+        const int col = item % t.col_tiles;
+        for (int c = 0; c < t.cin_chunks; ++c)
+          for (int tap = 0; tap < taps; ++tap, ++it) {
+            const int s = it % t.b_stages;
+            mbar_wait(&b_empty[s], ((it / t.b_stages) & 1) ^ 1);
+            mbar_expect_tx(&b_full[s], B_BYTES);
+            const int k = (tap * t.cin_chunks + c) * W_BK;
+            if (CL == 1)
+              tma_load_2d(ring_b + s * B_BYTES, &wgt, k, col * BN, &b_full[s]);
+            else
+              tma_load_2d_multicast(ring_b + s * B_BYTES + rank * B_PART, &wgt, k,
+                                    col * BN + static_cast<int>(rank) * (BN / CL), &b_full[s],
+                                    static_cast<uint16_t>((1 << CL) - 1));
+          }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp / 4;
+    uint8_t* my_staging = staging + wg * 64 * SROW;
+    const uint32_t lbo = t.plane, sbo = t.BW * 16;
+    int acc[BN / 2];
+    int a_it = 0, b_it = 0;
+    // Releases weight stage s in every block of the cluster: lane r of
+    // each consumer warp arrives in block r.
+    auto release_b = [&](int s) {
+      if (CL == 1)
+        mbar_arrive(&b_empty[s]);
+      else
+        mbar_arrive_cta(&b_empty[s], lane);
+    };
+    for (int item = cluster; item < t.items; item += clusters) {
+      const int col = item % t.col_tiles;
+      const int st = 2 * (CL * (item / t.col_tiles) + static_cast<int>(rank)) + wg;
+      int prev_a = -1, prev_b = -1;  // stages the group in flight still reads
+      for (int c = 0; c < t.cin_chunks; ++c) {
+        const int sa = a_it % t.a_stages;
+        mbar_wait(&a_full[sa], (a_it / t.a_stages) & 1);
+        ++a_it;
+        const uint32_t halo = smem_u32(ring_a + sa * A_BYTES + wg * tile_bytes);
+        for (int tap = 0; tap < taps; ++tap) {
+          const int sb = b_it % t.b_stages;
+          mbar_wait(&b_full[sb], (b_it / t.b_stages) & 1);
+          ++b_it;
+          const uint64_t da = desc_plain(halo + tap_offset[tap], lbo, sbo);
+          const uint64_t db = desc_sw64(smem_u32(ring_b + sb * B_BYTES));
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          wgmma_k32<BN>(acc, da, db, !(c == 0 && tap == 0));
+          wgmma_k32<BN>(acc, da + ((2 * lbo) >> 4), db + 2, 1);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          if (prev_b >= 0 && lane < CL) release_b(prev_b);
+          if (prev_a >= 0 && lane == 0) mbar_arrive(&a_empty[prev_a]);
+          prev_b = sb;
+          prev_a = tap == taps - 1 ? sa : -1;
+        }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane < CL) release_b(prev_b);
+      if (prev_a >= 0 && lane == 0) mbar_arrive(&a_empty[prev_a]);
+      store_tile<BN, STORE>(acc, t, tile_at(t, st), col * BN, scale, out, my_staging, wg);
+    }
+  }
+  if (CL > 1) {  // no block leaves while its peer may still arrive on its barriers
+    __syncwarp();
+    cluster_sync();
+  }
+}
+
 // ---------------------------------------------------------- the gather path
 
 constexpr int BM = 128;          // output pixels per block
@@ -666,31 +864,6 @@ cudaError_t launch_gather(const int8_t* a, const int8_t* w, const float* scale, 
 
 // ------------------------------------------------------------- host side
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library links no
-// driver library of its own.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 bool encode(EncodeTiled fn, CUtensorMap* map, cuuint32_t rank, const void* base,
             const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
             CUtensorMapSwizzle swizzle) {
@@ -761,8 +934,8 @@ cudaError_t launch_wgmma_kernel(const ActMaps& maps, const CUtensorMap& wmap, co
 // with the weights streamed (the four parity halos of a stride-2 tap are
 // large).  Resident weights need the conv to have one column tile.
 template <int BN, int STORE>
-cudaError_t launch_wgmma_store(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
-                               void* out, const Tiling& t, cudaStream_t stream) {
+cudaError_t launch_wgmma_plan(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
+                              void* out, const Tiling& t, cudaStream_t stream) {
   constexpr int MT = 256 / BN;
   Tiling p = t;
   const bool one_col = t.col_tiles == 1;
@@ -781,12 +954,98 @@ cudaError_t launch_wgmma_store(const ActMaps& maps, const CUtensorMap& wmap, con
   return cudaErrorInvalidConfiguration;
 }
 
+// Ring depths of the paired kernel, or false if two halo and four weight
+// stages do not fit: a third halo stage first, then weight stages, then
+// more halo stages.
+template <int STORE>
+bool plan_pair_stages(Tiling& t) {
+  t.a_stages = 2;
+  t.b_stages = 4;
+  if (pair_smem_bytes<STORE>(t) > W_SMEM) return false;
+  auto deepen = [&t](int& depth, int limit) {
+    while (depth < limit) {
+      ++depth;
+      if (pair_smem_bytes<STORE>(t) > W_SMEM) {
+        --depth;
+        break;
+      }
+    }
+  };
+  deepen(t.a_stages, 3);
+  deepen(t.b_stages, W_MAX_STAGES);
+  deepen(t.a_stages, W_MAX_STAGES);
+  return true;
+}
+
+// `wmap`'s box is 256 / CL rows of the weights.  The grid is as many
+// clusters as the card holds at once, or fewer where there are fewer items.
+template <int STORE, int CL>
+cudaError_t launch_pair(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
+                        void* out, Tiling t, cudaStream_t stream) {
+  if (!plan_pair_stages<STORE>(t)) return cudaErrorInvalidConfiguration;
+  const int smem = pair_smem_bytes<STORE>(t);
+  const int64_t items = (static_cast<int64_t>(t.spatial) + 2 * CL - 1) / (2 * CL) * t.col_tiles;
+  if (items > 0x7ffffffe) return cudaErrorInvalidConfiguration;
+  t.items = static_cast<int>(items);
+  auto kernel = qconv_wgmma_pair_kernel<STORE, CL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL);
+  cfg.blockDim = dim3(W_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = sm_count() / CL;
+  if (CL > 1) {
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+  }
+  if (clusters > t.items) clusters = t.items;
+  cfg.gridDim = dim3(CL * clusters);
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, wmap, scale, out, t);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Which path runs a conv.  Where the column tile is 256 channels and the
+// conv's weights do not stay resident in one block (one column tile that
+// fits beside the rings, as at layer 3's 1x1/2), the paired kernel: with
+// 2-block clusters at the stride-2 3x3 convs, whose four parity halos leave
+// the shallowest rings, in single blocks elsewhere (each measured the faster
+// there on r18's shapes; PERF.md).  Elsewhere the plan above.  `wmap_half`
+// is the weights' map with boxes of 128 rows.
+template <int BN, int STORE>
+cudaError_t launch_wgmma_store(const ActMaps& maps, const CUtensorMap& wmap,
+                               const CUtensorMap& wmap_half, const float* scale, void* out,
+                               const Tiling& t, cudaStream_t stream) {
+  if constexpr (BN == P_BN) {
+    Tiling p = t;
+    if (!(t.col_tiles == 1 && plan_stages<BN, STORE, 1, true, 1>(p, 0))) {
+      if (t.stride == 2 && t.KH > 1)
+        return launch_pair<STORE, 2>(maps, wmap_half, scale, out, t, stream);
+      return launch_pair<STORE, 1>(maps, wmap, scale, out, t, stream);
+    }
+  }
+  return launch_wgmma_plan<BN, STORE>(maps, wmap, scale, out, t, stream);
+}
+
 template <int BN>
-cudaError_t launch_wgmma_bn(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
-                            void* out, const Tiling& t, int store, cudaStream_t stream) {
-  if (store == kBf16) return launch_wgmma_store<BN, kBf16>(maps, wmap, scale, out, t, stream);
-  if (store == kF8) return launch_wgmma_store<BN, kF8>(maps, wmap, scale, out, t, stream);
-  return launch_wgmma_store<BN, kI8>(maps, wmap, scale, out, t, stream);
+cudaError_t launch_wgmma_bn(const ActMaps& maps, const CUtensorMap& wmap,
+                            const CUtensorMap& wmap_half, const float* scale, void* out,
+                            const Tiling& t, int store, cudaStream_t stream) {
+  if (store == kBf16)
+    return launch_wgmma_store<BN, kBf16>(maps, wmap, wmap_half, scale, out, t, stream);
+  if (store == kF8)
+    return launch_wgmma_store<BN, kF8>(maps, wmap, wmap_half, scale, out, t, stream);
+  return launch_wgmma_store<BN, kI8>(maps, wmap, wmap_half, scale, out, t, stream);
 }
 
 // The halo along one axis: the first and last index (relative to the
@@ -847,16 +1106,18 @@ cudaError_t launch_wgmma(const int8_t* act, const int8_t* wgt, const float* scal
                   CU_TENSOR_MAP_SWIZZLE_NONE))
         return cudaErrorInvalidValue;
     }
-  CUtensorMap wmap;
+  CUtensorMap wmap, wmap_half;
   const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(sh.K), static_cast<cuuint64_t>(sh.Cout)};
   const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(sh.K)};
   const cuuint32_t wbox[2] = {static_cast<cuuint32_t>(W_BK), static_cast<cuuint32_t>(BN)};
-  if (!encode(fn, &wmap, 2, wgt, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_64B))
+  const cuuint32_t wbox_half[2] = {static_cast<cuuint32_t>(W_BK), static_cast<cuuint32_t>(BN / 2)};
+  if (!encode(fn, &wmap, 2, wgt, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode(fn, &wmap_half, 2, wgt, wdims, wstrides, wbox_half, CU_TENSOR_MAP_SWIZZLE_64B))
     return cudaErrorInvalidValue;
 
-  if (BN == 256) return launch_wgmma_bn<256>(maps, wmap, scale, out, t, store, stream);
-  if (BN == 128) return launch_wgmma_bn<128>(maps, wmap, scale, out, t, store, stream);
-  return launch_wgmma_bn<64>(maps, wmap, scale, out, t, store, stream);
+  if (BN == 256) return launch_wgmma_bn<256>(maps, wmap, wmap_half, scale, out, t, store, stream);
+  if (BN == 128) return launch_wgmma_bn<128>(maps, wmap, wmap_half, scale, out, t, store, stream);
+  return launch_wgmma_bn<64>(maps, wmap, wmap_half, scale, out, t, store, stream);
 }
 
 }  // namespace

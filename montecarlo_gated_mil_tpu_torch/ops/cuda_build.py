@@ -49,12 +49,12 @@ class Kernel:
 # The __global__ functions each source launches, by the names a profiler
 # shows (templates carry their arguments after the name).
 DEVICE_FUNCTIONS: dict[str, tuple[str, ...]] = {
-    "mc_head.cu": ("mc_fwd_tile_kernel", "mc_fwd_finalize_kernel"),
+    "mc_head.cu": ("mc_fwd_tile_kernel", "mc_fwd_wgmma_kernel", "mc_fwd_finalize_kernel"),
     "mc_head_bwd.cu": (
         "bwd_gate_kernel", "bwd_dz_kernel", "bwd_dh_kernel", "bwd_dw_kernel", "bwd_reduce_kernel",
     ),
     "gather.cu": ("gather_tiles_kernel",),
-    "qconv.cu": ("qconv_wgmma_kernel", "qconv_gather_kernel"),
+    "qconv.cu": ("qconv_wgmma_kernel", "qconv_wgmma_pair_kernel", "qconv_gather_kernel"),
     "bn_quant.cu": (
         "bn_stats_kernel", "bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel",
     ),

@@ -24,6 +24,7 @@ versions agree with dropout on as well as off.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -371,6 +372,59 @@ def _kernel_operands(params: GatedAttentionParams, device) -> tuple[torch.Tensor
     return tuple(x.contiguous() for x in (wv, bv, wu, bu, wa_full, b_att))
 
 
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of f32 ``x`` as ``split_tf32`` in ``csrc/mc_tile.cuh``:
+    hi = tf32(x), lo = tf32(x - hi), each rounded on the bits to nearest,
+    ties away from zero (add half a unit of the 13 dropped bits, clear
+    them)."""
+
+    def tf32(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)  # -0x2000 == 0xFFFFE000
+
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def gate_split(wv: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """The gate weights as the forward kernel's wgmma pass reads them
+    (``csrc/mc_head.cu``, ``mc_fwd_wgmma_kernel``): ``(2, G, D / 64, 128,
+    L)``, the TF32 hi and lo planes of, for each gate and 64 columns of D,
+    those columns of Wv then the same of Wu, each along L (K-major).
+    ``wv``, ``wu``: (G, L, D) f32 with D % 64 == 0."""
+    G, L, D = wv.shape
+    w = torch.stack([wv, wu], 1).reshape(G, 2, L, D // 64, 64)  # (G, V|U, L, pass, 64)
+    w = w.permute(0, 3, 1, 4, 2).reshape(G, D // 64, 128, L)
+    return torch.stack(split_tf32(w)).contiguous()
+
+
+# The split gate weights of a weight set, computed once per set: keyed on
+# the id of the parameters' w_V tensor (dropped when it dies), and taken
+# again only while w_V and w_U are the same tensors at the same version on
+# the same device (an optimizer step bumps the version).  Tensors made in
+# inference mode keep no version, so theirs is split at every call.
+_gate_split_cache: dict[int, tuple] = {}
+
+
+def _cached_gate_split(params: GatedAttentionParams, wv: torch.Tensor,
+                       wu: torch.Tensor) -> torch.Tensor | None:
+    if wv.shape[-1] % 64:
+        return None  # the wgmma pass does not take these shapes
+    key = params.w_V
+    if key.is_inference() or params.w_U.is_inference():
+        with torch.no_grad():
+            return gate_split(wv, wu)
+    tag = (wv.device, key._version, id(params.w_U), params.w_U._version)
+    hit = _gate_split_cache.get(id(key))
+    if hit is not None and hit[0]() is key and hit[1] == tag:
+        return hit[2]
+    with torch.no_grad():
+        split = gate_split(wv, wu)
+    ref = weakref.ref(key, lambda _, i=id(key): _gate_split_cache.pop(i, None))
+    _gate_split_cache[id(key)] = (ref, tag, split)
+    return split
+
+
 def _check_shapes(name: str, N: int, L: int, wv: torch.Tensor, C: int, work: int) -> None:
     """Raise on shapes the kernels cannot take: ``work`` is the library's
     workspace size, -1 where ``shapes_ok`` in ``csrc/mc_tile.cuh`` refuses
@@ -415,8 +469,9 @@ def _mc_head_cuda(
     ws.argtypes = [i32] * 6
     fn = lib.mc_head_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
+    fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                    ctypes.c_uint, f32, f32, f32, f32, ptr, ptr, ptr, ptr]
+    wsplit = _cached_gate_split(params, wv, wu)
     with torch.cuda.device(dev):  # the row plan and shared-memory limit are per device
         size = ws(N, L, D, C, G, T)
         _check_shapes(kernel.name, N, L, wv, C, size)
@@ -426,7 +481,7 @@ def _mc_head_cuda(
         err = fn(
             Hc.data_ptr(), maskf.data_ptr(), N, L, D, C, G, T,
             wv.data_ptr(), bv.data_ptr(), wu.data_ptr(), bu.data_ptr(),
-            wa_full.data_ptr(), ba.data_ptr(),
+            wa_full.data_ptr(), ba.data_ptr(), None if wsplit is None else wsplit.data_ptr(),
             seed & _MASK32, p_feat, 1.0 / (1.0 - p_feat), p_att, 1.0 / (1.0 - p_att),
             work.data_ptr(), A.data_ptr(), M.data_ptr(), cuda_build.stream_handle(dev),
         )

@@ -9,9 +9,15 @@ tests read the flags themselves: a hook on every convolution weight of the
 embed, which runs while the backward runs, records both TF32 flags.  Each
 path runs with both flags set to ``True`` beforehand and must find them
 ``True`` again afterwards.  Sizes: 64x64 patches, 10 instances (8 valid).
+
+The two context managers (``exact_float_grads`` and the forward's
+``_exact_float_convs``) share one count of open windows per flag, so
+that concurrent requests (``MCDOPredictor(max_inflight=k)``) and nested
+windows never restore a flag while another window is open.
 """
 
 import contextlib
+import threading
 
 import numpy as np
 import pytest
@@ -22,7 +28,7 @@ from montecarlo_gated_mil_tpu_torch.models.gamil import (
     GatedAttentionMIL,
     MultiHeadGatedAttentionMIL,
 )
-from montecarlo_gated_mil_tpu_torch.models.resnet import exact_float_grads
+from montecarlo_gated_mil_tpu_torch.models.resnet import _exact_float_convs, exact_float_grads
 from montecarlo_gated_mil_tpu_torch.parallel import make_dp_train_step, make_mesh
 from montecarlo_gated_mil_tpu_torch.parallel.dp import pad_group_to_batch
 from montecarlo_gated_mil_tpu_torch.train import loops
@@ -152,3 +158,83 @@ def test_sharded_train_step_backward_runs_exact():
         state, out = step(TrainState(model, opt), _bag(2, 1), 9, True)
     assert np.isfinite(float(out["loss"])) and state.step == 1
     _assert_exact_throughout(seen, 1)
+
+
+WINDOWS = {"convs": _exact_float_convs, "grads": exact_float_grads}
+
+
+@pytest.mark.parametrize("first,second", [("convs", "convs"), ("grads", "grads"),
+                                          ("convs", "grads"), ("grads", "convs")])
+def test_overlapping_windows_of_two_threads(first, second):
+    """A opens, B opens, A closes, B reads the flags, B closes; ordered by
+    events.  Inside B's window after A has left, B's flags are still off;
+    after both have left, the flags read what they read before."""
+    a_in, b_in, a_out = threading.Event(), threading.Event(), threading.Event()
+    seen, errors = {}, []
+
+    def run(fn):
+        def body():
+            try:
+                fn()
+            except BaseException as e:  # reported by the test thread
+                errors.append(e)
+                a_in.set(), b_in.set(), a_out.set()
+        return threading.Thread(target=body)
+
+    def a():
+        with WINDOWS[first](torch.float32):
+            a_in.set()
+            assert b_in.wait(10)
+        a_out.set()
+
+    def b():
+        assert a_in.wait(10)
+        with WINDOWS[second](torch.float32):
+            b_in.set()
+            assert a_out.wait(10)
+            seen["inside"] = _flags()
+
+    old = _flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        threads = [run(a), run(b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(20)
+        seen["after"] = _flags()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    assert not errors, errors
+    assert seen["inside"] == (False, second == "convs"), seen
+    assert seen["after"] == (True, True), seen
+
+
+@pytest.mark.parametrize("start", [(True, True), (False, False), (True, False), (False, True)])
+def test_nested_and_mixed_windows(start):
+    """Windows nested in one thread, in both orders, and one closed by an
+    exception: the inner one's exit leaves the outer one's flags off, and
+    the outermost restores the flags the process had."""
+    old = _flags()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = start
+    try:
+        with exact_float_grads(torch.float32):
+            with _exact_float_convs(torch.float32):
+                assert _flags() == (False, False)
+            assert _flags() == (False, False)
+        assert _flags() == start
+        with _exact_float_convs(torch.float64):
+            assert _flags() == (False, start[1])
+            with exact_float_grads(torch.float32):
+                assert _flags() == (False, False)
+                with _exact_float_convs(torch.float32):
+                    assert _flags() == (False, False)
+            assert _flags() == (False, start[1])
+            with pytest.raises(RuntimeError), exact_float_grads(torch.float64):
+                raise RuntimeError
+            assert _flags() == (False, start[1])
+            with exact_float_grads(torch.bfloat16), _exact_float_convs(torch.int8):
+                assert _flags() == (False, start[1])
+        assert _flags() == start
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old

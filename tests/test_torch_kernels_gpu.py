@@ -141,12 +141,14 @@ FULL_CASES = {
     "random_T50": (3072, 2400, "random", 50, 512),
     "random_T50_n6144": (6144, 4800, "random", 50, 512),  # the extended bucket
     "r50_L2048_T4": (600, 450, "random", 4, 2048),
+    "valid_first_T50": (3072, 2400, "first", 50, 512),  # a served request's bag
+    "eight_classes_T9": (4500, 3000, "random", 9, 512, 8),  # C = 8, an odd T
 }
 
 
 def _full_case(cuda, case, seed=11):
-    N, n_valid, where, T, L = FULL_CASES[case]
-    D, C = 128, 2
+    N, n_valid, where, T, L, *rest = FULL_CASES[case]
+    D, C = 128, (rest[0] if rest else 2)
     g = torch.Generator().manual_seed(seed)
 
     def init(*shape, fan_in):  # torch.nn.Linear's default init
@@ -187,8 +189,14 @@ def test_mc_head_kernel_full_width(cuda, case, p):
     assert torch.equal(y_again, y_k) and torch.equal(a_again, a_k)
 
 
+# The backward's cases: the forward-only ones added with K1's wgmma pass
+# (a served bag at T = 50, eight classes) stay out.
+BWD_CASES = [c for c in FULL_CASES if not c.startswith("random_T50")
+             and c not in ("valid_first_T50", "eight_classes_T9")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [c for c in FULL_CASES if not c.startswith("random_T50")])
+@pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_backward_kernel_full_width(cuda, case, p):
     """K5 at the model's widths against its plain version, each gradient
@@ -210,7 +218,7 @@ F64_CASES = ["ragged_random_T1", "valid_first_T1", "r50_L2048_T4"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", F64_CASES)
+@pytest.mark.parametrize("case", F64_CASES + ["eight_classes_T9"])  # the last on the wgmma pass
 def test_forward_logits_against_f64(cuda, case):
     """K1's logits on the valid rows within LOGITS_VS_F64 of the f64
     product.  A and Y alone cannot tell 3xTF32 from plain TF32 (which moves
@@ -248,6 +256,52 @@ def test_full_width_cases_pad_whole_tiles():
         H, mask, *_ = _full_case(torch.device("cpu"), case)
         tiles = torch.nn.functional.pad(mask, (0, -len(mask) % 16)).view(-1, 16)
         assert int((~tiles.any(1)).sum()) >= 4
+
+
+# The tile pass each forward runs (csrc/mc_head.cu, forward_plan): the wgmma
+# pass from T = 2 on where its 64-row tiles give a block per SM over the
+# sample pairs, the mma.sync pass otherwise (T = 1, L = 2048, small bags).
+K1_PASS_CASES = [
+    ("random_T50", "mc_fwd_wgmma_kernel"),
+    ("valid_first_T50", "mc_fwd_wgmma_kernel"),
+    ("random_T50_n6144", "mc_fwd_wgmma_kernel"),
+    ("eight_classes_T9", "mc_fwd_wgmma_kernel"),
+    ("valid_first_T1", "mc_fwd_tile_kernel"),
+    ("r50_L2048_T4", "mc_fwd_tile_kernel"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, fn", K1_PASS_CASES)
+def test_mc_head_forward_runs_its_tile_pass(cuda, case, fn):
+    H, mask, params, T, _, _ = _full_case(cuda, case)
+    got = _device_launches(lambda: tga.mc_gated_attention(H, mask, params, T, 21, 0.1, 0.1),
+                           "mc_head.cu")
+    other = {"mc_fwd_wgmma_kernel": "mc_fwd_tile_kernel",
+             "mc_fwd_tile_kernel": "mc_fwd_wgmma_kernel"}[fn]
+    assert got == {fn: 1, other: 0, "mc_fwd_finalize_kernel": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_shared_gate_wgmma_pass_matches_plain(cuda, p):
+    """K2 (one shared gate) at a bag that takes the wgmma pass: Y within
+    1e-4, A within 1e-5, padded rows exactly 0, two calls bitwise equal."""
+    N, T = 2048, 20
+    params = _params(False, L=512, D=128, C=2).to(cuda)
+    g = torch.Generator().manual_seed(12)
+    H = (torch.rand(N, 512, generator=g) * 2.0).to(cuda)
+    mask = (torch.rand(N, generator=g) < 0.7).to(cuda)
+    got = _device_launches(lambda: tga.mc_gated_attention(H, mask, params, T, 9, p, p),
+                           "mc_head.cu")
+    assert got["mc_fwd_wgmma_kernel"] == 1
+    y_k, a_k = tga.mc_gated_attention(H, mask, params, T, 9, p, p)
+    y_r, a_r = tga.mc_head_reference(H, mask, params, T, 9, p, p)
+    torch.testing.assert_close(y_k, y_r, atol=1e-4, rtol=0)
+    torch.testing.assert_close(a_k, a_r, atol=1e-5, rtol=0)
+    assert torch.all(a_k[:, :, ~mask] == 0)
+    y_again, a_again = tga.mc_gated_attention(H, mask, params, T, 9, p, p)
+    assert torch.equal(y_again, y_k) and torch.equal(a_again, a_k)
 
 
 def test_device_function_names_cover_every_kernel():
@@ -340,6 +394,34 @@ QCONV_CASES = {
     # M = 5 * 9 * 7, not a multiple of the tile's 64 rows; an odd tile count.
     "3x3_s1_m_315": (5, 9, 7, 128, 128, 3, 1, (1, 1, 1, 1)),
     "s2d_stem_4x4": (3, 20, 18, 12, 64, 4, 1, (2, 1, 2, 1)),
+    # r18's layer-3 and layer-4 convs, whose 256-channel column tiles run
+    # the paired kernel (two tiles a block; 2-block clusters at the 3x3/2):
+    # 5 instances leave a pair, or a cluster, partly filled.
+    "layer3_3x3_s2": (5, 28, 28, 128, 256, 3, 2, (1, 1, 1, 1)),
+    "layer3_1x1_s2": (5, 28, 28, 128, 256, 1, 2, (0, 0, 0, 0)),
+    "layer3_3x3": (5, 14, 14, 256, 256, 3, 1, (1, 1, 1, 1)),
+    "layer4_3x3_s2": (5, 14, 14, 256, 512, 3, 2, (1, 1, 1, 1)),
+    "layer4_1x1_s2": (5, 14, 14, 256, 512, 1, 2, (0, 0, 0, 0)),
+    "layer4_3x3": (5, 7, 7, 512, 512, 3, 1, (1, 1, 1, 1)),
+    # 6 tiles: the second cluster's second block has no tile.
+    "layer4_3x3_s2_half_cluster": (6, 14, 14, 256, 512, 3, 2, (1, 1, 1, 1)),
+    "layer4_3x3_s2_n6144": (6144, 14, 14, 256, 512, 3, 2, (1, 1, 1, 1)),  # an extended bucket
+}
+
+# The device function each of r18's layer-3/4 conv shapes runs: the paired
+# kernel where the column tile is 256 channels, except layer 3's 1x1/2,
+# whose weights stay resident in one block.
+QCONV_PATHS = {
+    "layer3_3x3_s2": "qconv_wgmma_pair_kernel",
+    "layer3_1x1_s2": "qconv_wgmma_kernel",
+    "layer3_3x3": "qconv_wgmma_pair_kernel",
+    "layer4_3x3_s2": "qconv_wgmma_pair_kernel",
+    "layer4_1x1_s2": "qconv_wgmma_pair_kernel",
+    "layer4_3x3": "qconv_wgmma_pair_kernel",
+    "layer4_3x3_s2_half_cluster": "qconv_wgmma_pair_kernel",
+    "3x3_s1_64": "qconv_wgmma_kernel",
+    "3x3_s2_64_128": "qconv_wgmma_kernel",
+    "s2d_stem_4x4": "qconv_gather_kernel",
 }
 
 
@@ -393,7 +475,10 @@ def _device_launches(fn, source: str = "qconv.cu") -> dict:
     ("r18", "bf16", 19), ("r34", "bf16", 35), ("r50", "bf16", 52), ("r18", "s2d_i8", 20),
 ])
 def test_qconv_plan_convs_run_the_wgmma_kernel(cuda, backbone, stem, convs):
-    """Every int8 conv of an r18, r34 or r50 embed at 224 px runs
+    """Every int8 conv of an r18, r34 or r50 embed at 224 px runs a wgmma
+    kernel: ``qconv_wgmma_pair_kernel`` where the column tile is 256
+    channels and the weights do not stay resident (r18: the 3x3 and 3x3/2
+    of layers 3-4 and layer 4's 1x1/2, 9 convs; r34: 19), else
     ``qconv_wgmma_kernel``; with the s2d stem (Cin = 12) the stem alone runs
     ``qconv_gather_kernel``."""
     from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
@@ -414,8 +499,18 @@ def test_qconv_plan_convs_run_the_wgmma_kernel(cuda, backbone, stem, convs):
     got = _device_launches(embed)
     assert kernel.launches - before == 2 * convs
     gathers = 1 if stem == "s2d_i8" else 0
-    wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
-    assert got == {wgmma_fn: convs - gathers, gather_fn: gathers}
+    wgmma_fn, pair_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
+    assert got[gather_fn] == gathers and got[wgmma_fn] + got[pair_fn] == convs - gathers
+    pairs = {"r18": 9, "r34": 19}.get(backbone)
+    assert got[pair_fn] == pairs if pairs is not None else got[pair_fn] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(QCONV_PATHS))
+def test_qconv_shapes_run_their_device_function(cuda, case):
+    a, w, scale, stride, pad = _qconv_inputs(cuda, case)
+    got = _device_launches(lambda: qk.qconv(a, w, scale, stride, pad, "bf16"))
+    assert got == {f: int(f == QCONV_PATHS[case]) for f in cuda_build.DEVICE_FUNCTIONS["qconv.cu"]}
 
 
 @pytest.mark.gpu
@@ -424,8 +519,8 @@ def test_qconv_extended_bucket_runs_the_wgmma_kernel(cuda):
     output passes 2^31 bytes, runs ``qconv_wgmma_kernel``."""
     a, w, scale, stride, pad = _qconv_inputs(cuda, "layer1_3x3_n6144")
     got = _device_launches(lambda: qk.qconv(a, w, scale, stride, pad, "bf16"))
-    wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
-    assert got == {wgmma_fn: 1, gather_fn: 0}
+    wgmma_fn, pair_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
+    assert got == {wgmma_fn: 1, pair_fn: 0, gather_fn: 0}
 
 
 @pytest.mark.gpu
@@ -669,8 +764,8 @@ def test_int8_embed_runs_k7_and_k8_by_device_function(cuda):
 @pytest.mark.gpu
 def test_bench_int8_embed_at_256_runs_the_wgmma_kernel(cuda):
     """The bench's int8 embed: the bag of 256 patches at 224 px, bf16, of
-    ``bench.run_bench`` runs each of r18's 19 convs on ``qconv_wgmma_kernel``
-    and its epilogues on K7 and K8."""
+    ``bench.run_bench`` runs each of r18's 19 convs on a wgmma kernel (9 on
+    ``qconv_wgmma_pair_kernel``) and its epilogues on K7 and K8."""
     from montecarlo_gated_mil_tpu_torch import bench
     from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
     from montecarlo_gated_mil_tpu_torch.ops import quantized
@@ -683,8 +778,8 @@ def test_bench_int8_embed_at_256_runs_the_wgmma_kernel(cuda):
         with torch.inference_mode():
             quantized.quantized_embed_static(plan, patches, mask)
 
-    wgmma_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
-    assert _device_launches(embed) == {wgmma_fn: 19, gather_fn: 0}
+    wgmma_fn, pair_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
+    assert _device_launches(embed) == {wgmma_fn: 10, pair_fn: 9, gather_fn: 0}
     assert _device_launches(embed, "bn_quant.cu") == {
         "bn_stats_kernel": 20, "bn_relu_quant_kernel": 15, "bn_relu_mean_kernel": 1,
         "stem_pool_quant_kernel": 1}
@@ -820,7 +915,8 @@ def test_mc_inference_serial_on_the_card(cuda, shared):
                                "mc_head.cu")
     finally:
         torch.backends.cudnn.allow_tf32 = allow
-    assert got == {"mc_fwd_tile_kernel": T, "mc_fwd_finalize_kernel": T}
+    assert got == {"mc_fwd_tile_kernel": T, "mc_fwd_wgmma_kernel": 0,
+                   "mc_fwd_finalize_kernel": T}
     torch.testing.assert_close(serial.predictions, batched.predictions, atol=1e-4, rtol=0)
     torch.testing.assert_close(serial.attention, batched.attention, atol=1e-5, rtol=0)
     assert serial.aux_losses.shape == (T,) and bool(torch.isfinite(serial.aux_losses).all())
@@ -962,6 +1058,54 @@ def test_predict_many_dp_on_the_card_equals_predict(cuda):
         assert (m.bucket, m.num_instances) == (p.bucket, p.num_instances)
         assert torch.equal(m.stats.mean_probs, p.stats.mean_probs)
         assert torch.equal(m.attention.std, p.attention.std)
+
+
+@pytest.mark.gpu
+def test_concurrent_f32_requests_equal_serial(cuda):
+    """Two caller threads at ``max_inflight=2``, under PyTorch's default
+    cuDNN TF32 flag (on): both f32 requests' device work overlaps, and each
+    result equals the serial run's bit for bit (no request's convolutions
+    run in TF32 after the other leaves its exact window); the flag is on
+    again afterwards."""
+    import threading
+
+    from montecarlo_gated_mil_tpu_torch.core.bag import BucketSpec
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import PipelineConfig
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
+
+    torch.manual_seed(4)
+    pipe = PipelineConfig(height=512, width=512, patch_size=64, overlap=0.5, empty_threshold=0.05,
+                          bucket=256)
+    pred = MCDOPredictor(MultiHeadGatedAttentionMIL(shared_attention=False), pipe,
+                         num_samples=8, bucket_spec=BucketSpec((64, 128, 256)), device=cuda,
+                         max_inflight=2)
+    imgs = [synthetic_image(512, 512, positive=bool(s % 2), seed=s) for s in range(2)]
+    lats = ["L", "R"]
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        serial = [pred.predict(img, lat, seed=5 + i) for i, (img, lat) in enumerate(zip(imgs, lats))]
+        for _ in range(4):
+            got, start = [None, None], threading.Barrier(2)
+
+            def run(i):
+                start.wait()
+                got[i] = pred.predict(imgs[i], lats[i], seed=5 + i)
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            for g, want in zip(got, serial):
+                assert torch.equal(g.stats.mean_probs, want.stats.mean_probs)
+                assert torch.equal(g.stats.std, want.stats.std)
+                assert torch.equal(g.attention.mean, want.attention.mean)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
 
 
 @pytest.mark.gpu

@@ -137,3 +137,50 @@ def test_backward_products_against_f64(head, mode, within):
                        (product(Ht, dz, mode), Ht.double() @ dz.double())):
         rel = float((got.double() - exact).abs().max() / exact.abs().max())
         assert (rel <= PRODUCTS_VS_F64) == within, rel
+
+
+def test_gate_split_is_the_kernels_rounding_in_its_layout():
+    """The forward kernel's wgmma pass reads the gate weights pre-split on
+    the host (``ops/gated_attention.py::gate_split``): each plane equals
+    this file's emulation of ``split_tf32`` bit for bit, laid out per gate
+    and 64 columns of D as those columns of Wv then of Wu, along L."""
+    from montecarlo_gated_mil_tpu_torch.ops.gated_attention import gate_split, split_tf32
+
+    g = torch.Generator().manual_seed(5)
+    G, L_, D_ = 2, 96, 128
+    wv = torch.randn(G, L_, D_, generator=g) * 0.05
+    wu = torch.randn(G, L_, D_, generator=g) * 0.05
+    wv[0, 0, :4] = torch.tensor([1 + 2**-11, -(1 + 2**-11), 3.0e-3, 0.0])  # ties, zero
+    ws = gate_split(wv, wu)
+    assert ws.shape == (2, G, D_ // 64, 128, L_) and ws.is_contiguous()
+    for gi in range(G):
+        for p in range(D_ // 64):
+            block = torch.cat([wv[gi, :, 64 * p: 64 * p + 64], wu[gi, :, 64 * p: 64 * p + 64]], 1)
+            for plane, want in enumerate(split(block.T.contiguous())):
+                assert torch.equal(ws[plane, gi, p].view(torch.int32), want.view(torch.int32))
+    y = torch.randn(4096, generator=g) * 10
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(split_tf32(y), split(y)))
+
+
+def test_gate_split_is_cached_per_weight_set():
+    """The split is made once per weight set and made again after the
+    weights change in place (an optimizer step) or for other weights."""
+    from montecarlo_gated_mil_tpu_torch.ops import gated_attention as tga
+
+    g = torch.Generator().manual_seed(6)
+    p = tga.GatedAttentionParams(*(torch.randn(*s, generator=g) for s in (
+        (2, 64, 64), (2, 64), (2, 64, 64), (2, 64), (2, 64), (2,), (2, 64))))
+    wv, _, wu, *_ = tga._kernel_operands(p, torch.device("cpu"))
+    first = tga._cached_gate_split(p, wv, wu)
+    assert tga._cached_gate_split(p, wv, wu) is first
+    with torch.no_grad():
+        p.w_U.mul_(2.0)
+    again = tga._cached_gate_split(p, wv, p.w_U)
+    assert again is not first and torch.equal(again, tga.gate_split(wv, p.w_U))
+    assert tga._cached_gate_split(p, wv[:, :, :32].contiguous(), wu[:, :, :32].contiguous()) is None
+    with torch.inference_mode():  # no version counter: a fresh split every call
+        q = tga.GatedAttentionParams(*(x.clone() for x in (p.w_V, p.b_V, p.w_U, p.b_U, p.w_att,
+                                                           p.b_att, p.w_cls)))
+        a, b = tga._cached_gate_split(q, q.w_V, q.w_U), tga._cached_gate_split(q, q.w_V, q.w_U)
+    assert a is not b and torch.equal(a, b)
