@@ -34,12 +34,18 @@ Phases, each of which raises on failure:
    r18 at N=3072 for each conv store, bit for bit against its plain version
    on 256 instances (on all 3072 at layer 1's 3x3, the shape launched
    most), timed beside ``torch._int_mm`` and a cuDNN bf16 conv as
-   yardsticks; K7/K8 (BN statistics, normalize + requantize) at every
-   distinct shape, mode and residual that one request launches, with the
-   per-request sums weighted by launches; then
+   yardsticks; at every conv but the s2d stem's, K6 with K7's BN sums in
+   its epilogue (``qconv_stats``, the main path's call): its store bit for
+   bit the plain version's, its sums within 1e-6 of K7's plain version, the
+   fold of its partials bit for bit the fold's plain version, and its time
+   beside K6 alone and the fold alone; K7/K8 (BN statistics, normalize +
+   requantize) at every distinct shape, mode and residual of one request
+   (K7 still runs for the stem alone), with the per-request sums weighted
+   by launches and K6 + K7 (+ fold) a request both ways; then
    ``MCDOPredictor.from_config`` with ``tpu.quantized_inference`` serving phase 4's five requests beside their
    float results (a profile of one int8 embed shows each of its 19 convs
-   on the wgmma kernel ``QCONV_PATH`` names: 9 on the paired kernel),
+   on the wgmma kernel ``QCONV_PATH`` names: 9 on the paired kernel; K7
+   once, for the stem, and the fold 14 times),
    ``cli serve`` on a quantized YAML, and a small
    quantized request held against the CPU plain path;
 5. the shared-gate workload of the JAX package's ``bench.py`` (a 256-tile
@@ -47,14 +53,16 @@ Phases, each of which raises on failure:
 6. holds the backward kernels (K5 separate gates, K4 shared) against their
    plain version and against autograd of the plain forward, dropout off and
    on, and their products against the f64 plain version, and times all
-   three;
+   three; K5 also at 3 classes (N=3072, T=1) and at 8 (N=4500, T=9), where
+   its dH block walks the depth in chunks;
 7. trains: ``run_training`` on the shipped configuration with 8 full-size
    synthetic mammograms and 1 epoch (train bags at bucket 1024, val/test
    at about 3072), and checks that every train step went through K1 and K5,
    that the losses are finite, the weights moved and the saved best reloads;
 8. one full-size training bag from ``BagLoader``: the step's breakdown
    (CUDA events, ``torch.profiler``), two shared-gate steps through K2/K4,
-   and a small training step on the card against the CPU plain path;
+   and a small training step on the card against the CPU plain path, at 2
+   and at 3 classes;
 9. the bench: each K6-K8 launch of ``bench.run_bench``'s int8 embed (256
    patches at 224 px) against its plain version, the bf16 float embed's
    statistics dtype and a few of its patches against the CPU, then
@@ -139,9 +147,10 @@ Phases, each of which raises on failure:
    7's; (b) each kernel of the ``kernels`` line beside the one PyTorch call
    that computes its function (K3: an index of the image's unfolded
    windows, at 3072 and at 6144 starts; K6: cuDNN's bf16 conv at each 3x3
-   shape, ``torch._int_mm`` at each 1x1/2; K7: ``torch.var_mean``), or the
-   reason none does, which
-   fills ``library_ms``; (c) ``tools/validate_uncertainty.py`` at seed 0
+   shape, ``torch._int_mm`` at each 1x1/2; K7: ``torch.var_mean`` at every
+   shape, beside what the same sums cost in K6's epilogue; the fold:
+   ``part.sum(dim=1)``), or the reason none does, which fills
+   ``library_ms``; (c) ``tools/validate_uncertainty.py`` at seed 0
    (the figure where matplotlib imports), whose fit and uncertainty ratios
    must pass; (d) ``tools/profile_int8.py all`` at 256 patches of 224 px,
    whose two stems must agree code for code; (e) ``tools/fuzz_dicom.py``
@@ -159,12 +168,15 @@ it.  ``python3 chip_smoke.py --heads-from DIR`` only
 times the MC head kernels (K1, K2, K4, K5) of the port found under DIR,
 another checkout such as the parent commit or ``.``, at phases 3 and 6's
 shapes and inputs with this script's timer, and prints them as one JSON
-line: run it for both trees on one card, one after the other, to compare
-them.  ``python3 chip_smoke.py --kernels-from DIR`` does the same for the
-int8 embed's kernels: K6 at every ``QCONV_SHAPES`` shape, K7 and K8 at
-every ``K7_SHAPES``/``K8_SHAPES`` launch, with each kernel's per-request sum
-and SHA-256 digests of every output and of a seeded int8 embed, which two
-bit-exact trees share.
+line with SHA-256 digests of the backward kernels' outputs (a shape the
+tree's K5 refuses is listed as refused): run it for both trees on one
+card, one after the other, to compare them.  ``python3 chip_smoke.py
+--kernels-from DIR`` does the same for the int8 embed's kernels: K6 at
+every ``QCONV_SHAPES`` shape (and, where the tree has it, K6 with K7's
+sums and the fold), K7 and K8 at every ``K7_SHAPES``/``K8_SHAPES`` launch,
+with each kernel's per-request sum, K6 + K7 (+ fold) a request as the
+tree's int8 path runs them, and SHA-256 digests of every output and of a
+seeded int8 embed, which two bit-exact trees share.
 
 Imports nothing of JAX.  TF32 is off throughout (phase 16 (a)'s process
 apart): the shipped configuration computes in float32.
@@ -215,8 +227,11 @@ LOGITS_VS_F64 = 5e-6  # max |logit - exact logit| on the valid rows
 PRODUCTS_VS_F64 = 1e-5  # max |d - exact| / max |exact| of dH, dw_V, dw_U
 
 # The MC head shapes of phase 3 (forward) and phase 6 (backward): label,
-# kernel, shared gate, N, valid rows, where they lie, T, seed.  The first
-# of each kernel gives its row of the ``kernels`` line.
+# kernel, shared gate, N, valid rows, where they lie, T, seed (and for the
+# backward the classes, each with its own gate where the gates are
+# separate).  The first of each kernel gives its row of the ``kernels``
+# line.  K5 at 3 classes (the JAX package's 3-class model at the shipped
+# widths) and at 8 (K1's limit) needs the dH block's chunked depth.
 HEAD_SHAPES = (
     ("K1 (a)", "mc_head_sep", False, 3072, 2400, "random", 50, 1),
     ("K1 (b)", "mc_head_sep", False, 3072, 2400, "first", 50, 1),
@@ -225,9 +240,11 @@ HEAD_SHAPES = (
     ("K2", "mc_head_shared", True, 256, 256, "random", 30, 2),
 )
 BWD_SHAPES = (
-    ("K5 T=1", "mc_head_bwd_sep", False, 1024, 650, "random", 1, 5),
-    ("K5 T=4", "mc_head_bwd_sep", False, 1024, 650, "random", 4, 6),
-    ("K4", "mc_head_bwd_shared", True, 256, 200, "random", 1, 7),
+    ("K5 T=1", "mc_head_bwd_sep", False, 1024, 650, "random", 1, 5, 2),
+    ("K5 T=4", "mc_head_bwd_sep", False, 1024, 650, "random", 4, 6, 2),
+    ("K5 C=3", "mc_head_bwd_sep", False, 3072, 2400, "random", 1, 8, 3),
+    ("K5 C=8 T=9", "mc_head_bwd_sep", False, 4500, 3000, "random", 9, 9, 8),
+    ("K4", "mc_head_bwd_shared", True, 256, 200, "random", 1, 7, 2),
 )
 
 
@@ -258,16 +275,16 @@ def _bag_mask(n: int, n_valid: int, layout: str, g: torch.Generator) -> torch.Te
     return mask
 
 
-def _head_inputs(shared: bool, n: int, n_valid: int, layout: str, seed: int):
-    """Seeded head weights at the shipped widths, ``H (n, L)`` in [0, 2) (as
-    post-ReLU pooled features are) and the mask; the generator goes on to
-    draw the backward's cotangents."""
+def _head_inputs(shared: bool, n: int, n_valid: int, layout: str, seed: int, classes: int = 2):
+    """Seeded head weights at the shipped widths (``classes`` classes),
+    ``H (n, L)`` in [0, 2) (as post-ReLU pooled features are) and the mask;
+    the generator goes on to draw the backward's cotangents."""
     from montecarlo_gated_mil_tpu_torch.core.config import Config
     from montecarlo_gated_mil_tpu_torch.experiment import build_model
     from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
 
     g = torch.Generator().manual_seed(seed)
-    model = build_model(Config(shared_att=shared), seed=seed)
+    model = build_model(Config(shared_att=shared), classes, seed=seed)
     params = GatedAttentionParams.from_module(model).to("cuda")
     H = (torch.rand(n, model.L, generator=g) * 2.0).cuda()
     mask = _bag_mask(n, n_valid, layout, g).cuda()
@@ -355,7 +372,7 @@ def matmul_yardstick(m: int, k: int, n: int) -> None:
           f"({tflops:.1f} TFLOP/s)", flush=True)
 
 
-def check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed):
+def check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed, classes=2):
     """One MC-head backward kernel (K4/K5) against its plain version and
     against autograd of the plain forward, at dropout 0 and 0.1/0.1, and
     its products against the f64 plain version.  The cotangent of M is
@@ -372,7 +389,7 @@ def check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed):
         param_layout_grads,
     )
 
-    model, params, H, mask, g = _head_inputs(shared, n, n_valid, layout, seed)
+    model, params, H, mask, g = _head_inputs(shared, n, n_valid, layout, seed, classes)
     L, D, C = model.L, model.D, model.num_classes
     G = C if params.separate else 1
     dY, dA, dM = _cotangents(model, params, n, T, g)
@@ -606,9 +623,11 @@ def main() -> int:
         raise RuntimeError("the shared-gate workload did not go through its kernel")
 
     header("6", "backward kernels against their plain versions (TF32 off)")
-    for label, name, shared, n, n_valid, layout, T, seed in BWD_SHAPES:
-        print(f"  {label}: N={n}, {n_valid} valid ({layout}), T={T}", flush=True)
-        rows.setdefault(name, check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed))
+    for label, name, shared, n, n_valid, layout, T, seed, classes in BWD_SHAPES:
+        print(f"  {label}: N={n}, {n_valid} valid ({layout}), T={T}, {classes} classes",
+              flush=True)
+        rows.setdefault(name, check_mc_head_bwd(name, shared, n, n_valid, layout, T, seed,
+                                                classes))
 
     header("7", "training: run_training(Config(synthetic_count=8, epochs=1)), shipped widths")
     train_launches, phase7_ms = check_run_training()
@@ -616,6 +635,7 @@ def main() -> int:
     header("8", "one full-size training bag: the step's breakdown; the shared-gate step")
     shared_train_launches = check_train_bag_paths()
     check_small_train_step_against_cpu()
+    check_small_train_step_against_cpu(3, head_floor=5e-5)
 
     header("9", "bench: run_bench_both() at the JAX package's workload (256x224 bag, r18, T=30)")
     bench_launches = check_bench()
@@ -852,10 +872,16 @@ def profile_train_step(state, step, bag) -> None:
     print(table.lines(6), flush=True)
 
 
-def check_small_train_step_against_cpu() -> None:
+def check_small_train_step_against_cpu(classes: int = 2, head_floor: float = 0.0) -> None:
     """One training step (SGD, dropout 0.1/0.1, the same seed) of a small
-    bag on the card (K1 forward, K5 backward) and on the CPU (plain version
-    under autograd): the same Philox bits feed both."""
+    bag of the last class on the card (K1 forward, K5 backward) and on the
+    CPU (plain version under autograd), for a model of ``classes`` classes
+    with a gate each: the same Philox bits feed both.  ``head_floor``, a
+    share of the largest head gradient's (or update's) norm, is allowed
+    each head tensor's gradient (or update) beside its relative limit: an
+    attention bias's gradient is a sum over the bag that cancels, and with
+    three classes it can sit at f32 rounding (K5's own limits add 5e-5 of
+    the largest gradient for the same reason)."""
     from montecarlo_gated_mil_tpu_torch.core.bag import Bag
     from montecarlo_gated_mil_tpu_torch.core.config import Config
     from montecarlo_gated_mil_tpu_torch.experiment import (
@@ -872,7 +898,7 @@ def check_small_train_step_against_cpu() -> None:
     patches = torch.randn(n, hw, hw, 3, generator=g) * mask[:, None, None, None]
     out = {}
     for device in ("cuda", "cpu"):
-        model = build_model(cfg, seed=9).to(device)
+        model = build_model(cfg, classes, seed=9).to(device)
         opt, sched = build_optimizer(cfg, model)
         before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
         names = {id(p): k for k, p in model.named_parameters()}
@@ -886,7 +912,7 @@ def check_small_train_step_against_cpu() -> None:
         opt.register_step_pre_hook(keep_grads)
         state = TrainState(model, opt, sched)
         step = make_train_step(model, build_criterion(cfg), opt, 1)
-        bag = Bag(patches.to(device), mask.to(device), torch.tensor(1, device=device),
+        bag = Bag(patches.to(device), mask.to(device), torch.tensor(classes - 1, device=device),
                   torch.arange(n, device=device))
         state, res = step(state, bag, 77, True)
         updates = {k: p.detach().cpu() - before[k] for k, p in model.named_parameters()}
@@ -902,12 +928,14 @@ def check_small_train_step_against_cpu() -> None:
         raise RuntimeError("the optimizer step did not see every parameter's gradient")
     tol = {"head": 3e-3, "backbone": 5e-2}
     worst = {"head": (0.0, ""), "backbone": (0.0, "")}
+    head = [k for k in g_c if not k.startswith("feature_extractor.")]
+    floors = [head_floor * max(float(x[k].norm()) for k in head) for x in (g_c, u_c)]
     for k in g_c:
         part = "backbone" if k.startswith("feature_extractor.") else "head"
-        for a, b in ((g_k[k], g_c[k]), (u_k[k], u_c[k])):
-            d = float((a - b).norm())
+        for (a, b), floor in zip(((g_k[k], g_c[k]), (u_k[k], u_c[k])), floors):
+            d = max(0.0, float((a - b).norm()) - (floor if part == "head" else 0.0))
             worst[part] = max(worst[part], (d and d / float(b.norm()), k))
-    print(f"  small train step, card vs CPU plain path (dropout 0.1): |d loss| "
+    print(f"  small train step, {classes} classes, card vs CPU plain path (dropout 0.1): |d loss| "
           f"{abs(loss_k - loss_c):.2e} (tol 1e-5); worst |d|/|ref| per tensor over gradients "
           "and updates: " + ", ".join(
               f"{part} {r:.3e} in {k} (tol {tol[part]:g})" for part, (r, k) in worst.items()
@@ -1261,6 +1289,28 @@ QCONV_PATH["stem s2d 4x4"] = "qconv_gather_kernel"
 QUANT_N = 3072  # instances: the bucket of a full-size request
 QUANT_CHECK_N = 256  # instances held bit for bit against the plain version
 K8_FLIP_LIMIT = 1e-5  # share of K8's codes allowed one off
+SUMS_LIMIT = 1e-6  # K7's sums, standalone or in K6's epilogue, against the plain version
+FOLD_ROW = "layer3 3x3"  # the shape of the fold's row of the ``kernels`` line
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _map_tiles(h: int, w: int, k: int, stride: int, pad) -> int:
+    """8 x 8 tiles of one instance's output map (``quant_kernels.sum_tiles``
+    of ``conv_out_hw``), worked out here: this module imports nothing of the
+    port when it loads, so that ``--kernels-from`` can import another
+    tree's."""
+    top, bottom, left, right = pad
+    oh, ow = (h + top + bottom - k) // stride + 1, (w + left + right - k) // stride + 1
+    return -(-oh // 8) * -(-ow // 8)
+
+
+# Launches per request of the fold of K7's sums: every conv whose map is
+# more than one 8 x 8 tile (all but layer 4's five).
+FOLDS_PER_REQUEST = sum(per for _, h, w, _, _, k, stride, pad, per in QCONV_SHAPES
+                        if per and _map_tiles(h, w, k, stride, pad) > 1)
 
 
 def _int8(shape, g) -> torch.Tensor:
@@ -1279,12 +1329,57 @@ def _pixels_read(h: int, w: int, k: int, stride: int, pad) -> int:
     return axis(h, top, bottom) * axis(w, left, right)
 
 
-def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -> dict:
+def check_fused_sums(label, a, wt, scale, stride, pad, k6_ms: float, rows: dict | None) -> float:
+    """K6 with K7's sums at QUANT_N, bf16 store: timed beside K6 alone
+    (``k6_ms``); the fold alone on the kernel's own partials, bit for bit
+    against its plain version and timed, with its byte bound (the partials
+    read once, the f32 sums written once).  At FOLD_ROW fills ``rows``'
+    fold row (its library call is timed in phase 16 (b)).  Returns the ms
+    of K6 with the sums (the fold included)."""
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+
+    n, cout = a.shape[0], wt.shape[0]
+    fused = time_ms(lambda: qk.qconv_stats(a, wt, scale, stride, pad, "bf16"), iters=5,
+                    what=f"K6 with sums {label}")
+    _, part, run, _, _ = qk._qconv_cuda(a, wt, scale, stride, pad, "bf16", sums=True)
+    line = (f"  K6 with K7's sums {label}, N={n} bf16: {fused}; K6 alone {k6_ms:.4f} ms; the "
+            f"sums cost {fused.ms - k6_ms:.4f} ms")
+    if part is None:
+        print(line + " (one tile a map: no fold)", flush=True)
+        return fused.ms
+    got = qk.bn_stats_fold(part, run)
+    want = qk.bn_stats_fold_reference(part, run)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError(f"the fold at {label}: differs from its plain version")
+    fold = time_ms(lambda: qk.bn_stats_fold(part, run), iters=10, what=f"fold {label}")
+    plain = time_ms(lambda: qk.bn_stats_fold_reference(part, run), iters=2,
+                    what="plain fold").ms
+    ends = int(qk.run_ends(n, part.shape[1], run).sum())
+    bound, by = _bound(ends * cout * 16 + 2 * n * cout * 4)
+    print(line + f", of which the fold {fold.ms:.4f} ms ({part.shape[1]} tiles an instance, runs "
+          f"of {run}, {ends * cout * 16 / 1e6:.1f} MB of partials; bit for bit against its plain "
+          f"version, {plain:.3f} ms; bound {bound:.4f} ms ({by}), share "
+          f"{bound / fold.ms:.1%})", flush=True)
+    if rows is not None and label == FOLD_ROW:
+        rows["bn_stats_fold"] = dict(max_abs_err=0.0, ms=fold.ms, plain_ms=plain, bound_ms=bound,
+                                     bound_by=by, library_ms=None)
+    return fused.ms
+
+
+def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False,
+                rows: dict | None = None) -> dict:
     """K6 at one r18 conv shape, for each store: bit for bit against the
     plain version (exact f64 accumulators) on QUANT_CHECK_N instances, or
     with ``full`` on all QUANT_N, where the plain version is timed too;
-    timed at QUANT_N beside its int8 tensor-core and byte bounds; then two
-    yardsticks that the port never calls."""
+    timed at QUANT_N beside its int8 tensor-core and byte bounds.  Then K6
+    with K7's sums in its epilogue (``qconv_stats``, the main path's call)
+    on the same inputs: its store equal to the plain version's
+    bit for bit, its sums within SUMS_LIMIT of ``bn_stats_reference``, the
+    fold of its partials equal to the fold's plain version bit for bit;
+    timed at QUANT_N (bf16) beside K6 alone and the fold alone (at
+    FOLD_ROW the fold's row of the ``kernels`` line goes into ``rows``).
+    Then two yardsticks that the port never calls."""
     from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
 
     import torch.nn.functional as F
@@ -1298,10 +1393,12 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -
     oh, ow = qk.conv_out_hw(h, w, k, k, stride, pad)
     m = n * oh * ow
     ops = 2.0 * m * cout * K
+    sums = qk._wgmma_takes(cin, k, k, stride, h, w)  # the s2d stem's conv (gather) takes none
     out = {}
     for store in ("bf16", "f8", "i8"):
         scale = torch.rand(cout, generator=g, device="cuda") + 0.5
         scale = scale * ((40.0 if store == "i8" else 2.0) / std_acc)
+        tq = torch.rand(cout, generator=g, device="cuda") * 0.05 + 0.01 if store == "i8" else None
         got = qk.qconv(a[:n_check], wt, scale, stride, pad, store)
         want = qk.qconv_reference(a[:n_check], wt, scale, stride, pad, store)
         torch.cuda.synchronize()
@@ -1310,6 +1407,19 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -
         if not exact:
             err = float((got.float() - want.float()).abs().max())
             raise RuntimeError(f"K6 {label} {store}: differs from its plain version (max|d| {err})")
+        if sums:  # K6 with K7's sums: the same store, and the sums
+            fused, s1, s2 = qk.qconv_stats(a[:n_check], wt, scale, stride, pad, store, tq)
+            r1, r2 = qk.bn_stats_reference(want, tq)
+            torch.cuda.synchronize()
+            same = torch.equal(fused.view(torch.uint8), want.view(torch.uint8))
+            sums_err = max(_rel(s1, r1), _rel(s2, r2))
+            print(f"  K6 with K7's sums {label} store {store}, {n_check} instances: store bit "
+                  f"for bit {same}; sums max|d| / max|plain| {sums_err:.2e} (limit "
+                  f"{SUMS_LIMIT:g})", flush=True)
+            if not same or sums_err > SUMS_LIMIT:
+                raise RuntimeError(f"K6 with sums {label} {store}: store equal {same}, sums "
+                                   f"{sums_err}")
+            del fused, s1, s2, r1, r2
         del got, want
         ms = time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, store), iters=5,
                       what=f"K6 {label} {store}")
@@ -1330,6 +1440,8 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -
                  f"the epilogue) {plain:.3f} ms"), flush=True)
         out[store] = dict(max_abs_err=0.0, ms=ms.ms, plain_ms=plain, bound_ms=bound,
                           bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None)
+        if sums and store == "bf16":
+            out["sums_ms"] = check_fused_sums(label, a, wt, scale, stride, pad, ms.ms, rows)
     try:  # yardsticks: the GEMM alone, and cuDNN's bf16 conv of the same shape
         A = _int8((m, K), g)
         B = _int8((cout, K), g).t()
@@ -1351,6 +1463,8 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False) -
 
 # One r18 int8 request's BN epilogues at 224 px, each distinct launch:
 # label, (H, W, C), launches per request; K8 adds its mode and residual.
+# The BN sums: K7 reads the stem's output back; every other shape's sums
+# come from K6's epilogue (``qconv_stats``), the count being its convs.
 K7_SHAPES = (
     ("stem", (112, 112, 64), 1),
     ("layer1", (56, 56, 64), 4),
@@ -1409,16 +1523,21 @@ def _k8_out_bytes(t, mode) -> int:
     return t.numel()
 
 
-def check_bn_epilogues(g) -> tuple[dict, dict]:
+def check_bn_epilogues(g) -> tuple[dict, dict, float]:
     """K7 and K8 at every distinct shape, mode and residual of one r18 int8
     request at QUANT_N, bf16 store: each against its plain version and
     timed beside its byte bound, then the per-request sums weighted by
-    launches.  Returns the rows of the ``kernels`` line (the stem's)."""
+    launches.  K7 runs on a request for the stem alone now (the convs' sums
+    come from K6's epilogue); at the other shapes it is timed as the
+    standalone read it replaced.  Returns the rows of the ``kernels`` line
+    (the stem's) and K7's ms at every shape weighted by the 20 launches a
+    request made when K7 read back every conv output."""
     from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
 
     n = QUANT_N
     rows = {}
     sums = {"K7": [0.0, 0.0], "K8": [0.0, 0.0]}  # launch-weighted ms and bound per request
+    every_shape = 0.0
     for label, hwc, launches in K7_SHAPES:
         t = _bn_stored((n, *hwc), g)
         s1, s2 = qk.bn_stats(t)
@@ -1433,12 +1552,14 @@ def check_bn_epilogues(g) -> tuple[dict, dict]:
         print(f"  K7 bn_stats {label} {tuple(t.shape)} bf16, {launches} per request: "
               f"max|d| / max|plain| {err:.2e} (limit 1e-6); kernel {ms}; plain {plain:.3f} ms; "
               f"bound {bound:.4f} ms ({by}), share {bound / ms.ms:.1%}", flush=True)
-        if err > 1e-6:
+        if err > SUMS_LIMIT:
             raise RuntimeError(f"K7 {label}: {err:.2e} from its plain version")
         rows.setdefault("bn_stats", dict(max_abs_err=err, ms=ms.ms, plain_ms=plain,
                                          bound_ms=bound, bound_by=by, library_ms=None))
-        sums["K7"][0] += launches * ms.ms
-        sums["K7"][1] += launches * bound
+        every_shape += launches * ms.ms
+        if label == "stem":  # the only launch of K7 on a request now
+            sums["K7"][0] += launches * ms.ms
+            sums["K7"][1] += launches * bound
         del t
     for label, hwc, mode, res, launches in K8_SHAPES:
         t, A, B, residual, in_bytes = _k8_inputs((n, *hwc), res, g)
@@ -1479,7 +1600,9 @@ def check_bn_epilogues(g) -> tuple[dict, dict]:
     for name, (ms, bound) in sums.items():
         print(f"  {name} per request (launch-weighted, N={n}): {ms:.4f} ms against a bound of "
               f"{bound:.4f} ms ({bound / ms:.1%})", flush=True)
-    return rows["bn_stats"], rows["bn_relu_quant"]
+    print(f"  K7 at every shape, weighted by the 20 launches a request made before its sums "
+          f"moved into K6's epilogue: {every_shape:.4f} ms", flush=True)
+    return rows["bn_stats"], rows["bn_relu_quant"], every_shape
 
 
 def check_int8_embed(qpred, d) -> float:
@@ -1509,7 +1632,7 @@ def check_int8_embed(qpred, d) -> float:
     table.check_launched()
     wgmma_fn, pair_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
     groups = {f"K6 {fn}": (fn,) for fn in (wgmma_fn, pair_fn, gather_fn)}
-    groups.update({"K7": ("bn_stats_kernel",),
+    groups.update({"K7": ("bn_stats_kernel",), "K7 fold": ("bn_stats_fold_kernel",),
                    "K8": ("bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel")})
     launches = {name: table.count(*fns) for name, fns in groups.items()}
     parts = [f"{name} {table.ms(*fns):.2f} ms in {launches[name]} launches"
@@ -1529,6 +1652,10 @@ def check_int8_embed(qpred, d) -> float:
         f"{fn} {launches[f'K6 {fn}']} (need {need[fn]})" for fn in need), flush=True)
     if any(launches[f"K6 {fn}"] != n for fn, n in need.items()):
         raise RuntimeError(f"the int8 embed's convs did not run the device functions {need}")
+    print(f"  K7 in that embed: {launches['K7']} launch (the stem's; need 1), its fold "
+          f"{launches['K7 fold']} (need {FOLDS_PER_REQUEST})", flush=True)
+    if launches["K7"] != 1 or launches["K7 fold"] != FOLDS_PER_REQUEST:
+        raise RuntimeError("the int8 embed did not take its convs' sums in K6's epilogue")
     return float(cos.min())
 
 
@@ -1544,16 +1671,24 @@ def check_quantized(rows, pred, weights, results, requests, d) -> dict:
 
     t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(21)
+    k6_alone = k6_sums = 0.0  # launch-weighted ms per request, bf16 store
     for label, h, w, cin, cout, k, stride, pad, per_request in QCONV_SHAPES:
         print(f"  K6 {label}: ({QUANT_N}, {h}, {w}, {cin}) -> {cout}, {k}x{k}/{stride}, pad "
               f"{pad}; {per_request} per request", flush=True)
         # The kernels line's row is the shape launched most, held whole.
         full = label == "layer1 3x3"
-        by_store = check_qconv(label, h, w, cin, cout, k, stride, pad, g, full=full)
+        by_store = check_qconv(label, h, w, cin, cout, k, stride, pad, g, full=full, rows=rows)
         if full:
             rows["qconv_i8"] = by_store["bf16"]
+        k6_alone += per_request * by_store["bf16"]["ms"]
+        k6_sums += per_request * by_store.get("sums_ms", 0.0)
         torch.cuda.empty_cache()
-    rows["bn_stats"], rows["bn_relu_quant"] = check_bn_epilogues(g)
+    rows["bn_stats"], rows["bn_relu_quant"], k7_every = check_bn_epilogues(g)
+    k7_stem = rows["bn_stats"]["ms"]
+    print(f"  K6 + K7 (+ fold) per request (launch-weighted, N={QUANT_N}, bf16): the main path, "
+          f"K6 with the sums (folds included) and the stem's K7, {k6_sums + k7_stem:.4f} ms; K6 "
+          f"alone and K7 at every shape (the path before the sums moved) "
+          f"{k6_alone + k7_every:.4f} ms", flush=True)
     torch.cuda.empty_cache()
     print(f"  kernel checks: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -1585,8 +1720,9 @@ def check_quantized(rows, pred, weights, results, requests, d) -> dict:
         if not finite or r.num_instances != fr.num_instances:
             raise RuntimeError("int8 request: a statistic is not finite or the bag differs")
     launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
-    per = {k: launches[k] / len(requests) for k in ("qconv_i8", "bn_stats", "bn_relu_quant",
-                                                   "mc_head_sep", "gather_tiles")}
+    per = {k: launches[k] / len(requests) for k in ("qconv_i8", "bn_stats", "bn_stats_fold",
+                                                   "bn_relu_quant", "mc_head_sep",
+                                                   "gather_tiles")}
     gap = max(abs(float(q.stats.mean) - float(f.stats.mean)) for q, f in zip(qres, results))
     agree = sum(q.prediction == f.prediction for q, f in zip(qres, results))
     repeat = (torch.equal(qres[0].stats.mean_probs, qres[-1].stats.mean_probs)
@@ -1594,8 +1730,11 @@ def check_quantized(rows, pred, weights, results, requests, d) -> dict:
     print(f"  launches per int8 request: {per}; max |d P(pos)| against f32 {gap:.4f} (limit "
           f"0.05); predictions agree on {agree} of {len(requests)} (need 4); repeated seed bit "
           f"for bit: {repeat}", flush=True)
-    if not (per["qconv_i8"] >= 19 and min(per.values()) >= 1):
-        raise RuntimeError(f"the int8 requests did not go through K6-K8, K1 and K3: {launches}")
+    want = {"qconv_i8": 19, "bn_stats": 1, "bn_stats_fold": FOLDS_PER_REQUEST,
+            "bn_relu_quant": 17}
+    if any(per[k] != n for k, n in want.items()) or min(per.values()) < 1:
+        raise RuntimeError(f"the int8 requests did not go through K6-K8, K1 and K3 as an r18 "
+                           f"request does ({want} each): {launches}")
     if gap > 0.05 or agree < 4 or not repeat:
         raise RuntimeError("int8 requests: P(pos) gap, prediction agreement or repeat failed")
     if check_int8_embed(qpred, d) < 0.97:
@@ -1692,9 +1831,10 @@ BENCH_CHECK_BN = 1e-6  # K7's sums and K8's mean against the plain version, rela
 def check_bench_kernels() -> None:
     """Each K6-K8 launch of the bench's int8 embed (``bench.run_bench``'s
     bag: 256 patches at 224 px, bf16, all valid) against its plain version
-    on the same inputs: K6 bit for bit, K7 and K8's mean within
-    BENCH_CHECK_BN of max|plain|, K8's codes with at most K8_FLIP_LIMIT of
-    them one off.  Then the bench's bf16 float embed: masked BN keeps its
+    on the same inputs: K6's stores bit for bit and the K7 sums of its
+    epilogue within BENCH_CHECK_BN of max|plain| (19 launches), the stem's
+    K7 and K8's mean within BENCH_CHECK_BN, K8's codes with at most
+    K8_FLIP_LIMIT of them one off.  Then the bench's bf16 float embed: masked BN keeps its
     statistics in f32, and 8 of its patches embed on the card as on the
     CPU (per-instance cosine >= 0.999)."""
     from montecarlo_gated_mil_tpu_torch import bench
@@ -1708,19 +1848,19 @@ def check_bench_kernels() -> None:
     patches, mask = bench._workload(256, 224, torch.bfloat16, torch.device("cuda"))
     worst = {"qconv_i8": [0, 0.0], "bn_stats": [0, 0.0], "bn_relu_quant": [0, 0.0]}
     flips = [0, 0]  # K8 codes one off, codes compared
-    orig = quantized.qconv, quantized.bn_stats, quantized.bn_relu_quant
+    orig = quantized.qconv_stats, quantized.bn_stats, quantized.bn_relu_quant
 
     def seen(name, err):
         worst[name][0] += 1
         worst[name][1] = max(worst[name][1], err)
 
-    def qconv(a, w, scale, stride, pad, store):
-        got = orig[0](a, w, scale, stride, pad, store)
+    def qconv_stats(a, w, scale, stride, pad, store, tq=None):
+        got = orig[0](a, w, scale, stride, pad, store, tq)
         want = qk.qconv_reference(a, w, scale, stride, pad, store)
-        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+        if not torch.equal(got[0].view(torch.uint8), want.view(torch.uint8)):
             raise RuntimeError(f"K6 at N=256, a {tuple(a.shape)}, w {tuple(w.shape)}: differs "
                                "from its plain version")
-        seen("qconv_i8", 0.0)
+        seen("qconv_i8", max(_rel(x, y) for x, y in zip(got[1:], qk.bn_stats_reference(want, tq))))
         return got
 
     def bn_stats(t, tq=None):
@@ -1744,22 +1884,24 @@ def check_bench_kernels() -> None:
             seen("bn_relu_quant", 0.0)
         return got
 
-    quantized.qconv, quantized.bn_stats, quantized.bn_relu_quant = qconv, bn_stats, bn_relu_quant
+    quantized.qconv_stats, quantized.bn_stats, quantized.bn_relu_quant = (
+        qconv_stats, bn_stats, bn_relu_quant)
     try:
         with torch.inference_mode():
             quantized.quantized_embed_static(plan, patches, mask)
         torch.cuda.synchronize()
     finally:
-        quantized.qconv, quantized.bn_stats, quantized.bn_relu_quant = orig
+        quantized.qconv_stats, quantized.bn_stats, quantized.bn_relu_quant = orig
     print(f"  int8 embed of the bench bag (N=256), every launch against its plain version: K6 "
-          f"{worst['qconv_i8'][0]} launches bit-exact; K7 {worst['bn_stats'][0]} launches, max|d| "
-          f"/ max|plain| {worst['bn_stats'][1]:.2e} (limit {BENCH_CHECK_BN:g}); K8 "
-          f"{worst['bn_relu_quant'][0]} launches, codes one off {flips[0]} of {flips[1]} (limit "
-          f"{K8_FLIP_LIMIT:g} of them), the mean's max|d| / max|plain| "
-          f"{worst['bn_relu_quant'][1]:.2e} (limit {BENCH_CHECK_BN:g})", flush=True)
-    if [worst[k][0] for k in worst] != [19, 20, 17] or max(
-            worst["bn_stats"][1], worst["bn_relu_quant"][1]) > BENCH_CHECK_BN or (
-            flips[0] > K8_FLIP_LIMIT * flips[1]):
+          f"{worst['qconv_i8'][0]} launches with K7's sums in the epilogue, stores bit-exact, sums "
+          f"max|d| / max|plain| {worst['qconv_i8'][1]:.2e} (limit {BENCH_CHECK_BN:g}); K7 (the "
+          f"stem) {worst['bn_stats'][0]} launch, max|d| / max|plain| {worst['bn_stats'][1]:.2e} "
+          f"(limit {BENCH_CHECK_BN:g}); K8 {worst['bn_relu_quant'][0]} launches, codes one off "
+          f"{flips[0]} of {flips[1]} (limit {K8_FLIP_LIMIT:g} of them), the mean's max|d| / "
+          f"max|plain| {worst['bn_relu_quant'][1]:.2e} (limit {BENCH_CHECK_BN:g})", flush=True)
+    if [worst[k][0] for k in worst] != [19, 1, 17] or max(
+            worst["qconv_i8"][1], worst["bn_stats"][1],
+            worst["bn_relu_quant"][1]) > BENCH_CHECK_BN or flips[0] > K8_FLIP_LIMIT * flips[1]:
         raise RuntimeError(f"the bench's int8 embed: launches {worst}, flips {flips}")
 
     dtypes = []
@@ -1809,9 +1951,9 @@ def check_bench() -> dict:
         profile_bench_bag(quantized)
     bags = 1 + bench.TRIALS * 20  # the warm-up bag, then TRIALS runs of repeats=20
     steps = 1 + bench.TRIALS * bench.TRAIN_STEPS
-    want = dict(qconv_i8=19 * bags, bn_stats=20 * bags, bn_relu_quant=17 * bags,
-                mc_head_shared=2 * bags + steps, mc_head_bwd_shared=steps, mc_head_sep=0,
-                mc_head_bwd_sep=0, gather_tiles=0)
+    want = dict(qconv_i8=19 * bags, bn_stats=bags, bn_stats_fold=FOLDS_PER_REQUEST * bags,
+                bn_relu_quant=17 * bags, mc_head_shared=2 * bags + steps,
+                mc_head_bwd_shared=steps, mc_head_sep=0, mc_head_bwd_sep=0, gather_tiles=0)
     print(f"  run_bench_both: {wall:.1f} s; {rec['value']} bags/s int8, "
           f"{rec['value_exact_bf16']} bags/s bf16, train step {rec['train_step_ms']} ms; launches "
           f"{launches} (need {want}: {bags} bags in each of the int8 and bf16 runs, {steps} train "
@@ -3618,9 +3760,12 @@ def check_library_calls(rows: dict, d) -> None:
     needed); K6 against cuDNN's bf16 conv at each 3x3 shape (the row is
     layer 1's) and ``torch._int_mm`` of the subsampled pixels at each 1x1/2
     shape (int32 sums, without K6's store epilogue); K7 against
-    ``torch.var_mean`` over (h, w) at every launch shape (the statistics as
-    moments, in bf16; the row is the stem's).  Fills the rows'
-    ``library_ms``."""
+    ``torch.var_mean`` over (h, w) at every shape of a request's BN sums (the
+    statistics as moments, in bf16; the row is the stem's, where K7 still
+    runs), and beside them, at every shape but the stem's, what the sums cost
+    in K6's epilogue (K6 with them, the fold included, less K6 alone,
+    averaged over the shape's convs by their launches); the fold against
+    ``part.sum(dim=1)`` at FOLD_ROW.  Fills the rows' ``library_ms``."""
     import torch.nn.functional as F
 
     from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
@@ -3663,6 +3808,7 @@ def check_library_calls(rows: dict, d) -> None:
     gq = torch.Generator(device="cuda").manual_seed(16)
     n = QUANT_N
     sums = [0.0, 0.0]
+    fused = {}  # output (h, w, C) -> [launches, launch-weighted ms of the sums in K6]
     for label, h, w, cin, cout, k, stride, pad, per_request in QCONV_SHAPES:
         if not per_request:
             continue
@@ -3676,6 +3822,25 @@ def check_library_calls(rows: dict, d) -> None:
                    + 4 * cout) / PEAK_BYTES * 1e3
         kernel = time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, "bf16"), iters=5,
                          what=f"K6 {label}").ms
+        with_sums = time_ms(lambda: qk.qconv_stats(a, wt, scale, stride, pad, "bf16"), iters=5,
+                            what=f"K6 with sums {label}").ms
+        cost = fused.setdefault((oh, ow, cout), [0, 0.0])
+        cost[0] += per_request
+        cost[1] += per_request * (with_sums - kernel)
+        if label == FOLD_ROW:
+            _, part, run, _, _ = qk._qconv_cuda(a, wt, scale, stride, pad, "bf16", sums=True)
+            if run != 1:
+                raise RuntimeError(f"(b) the fold's row needs runs of one tile at {label}")
+            folded = qk.bn_stats_fold(part, run)
+            if _rel(part.sum(dim=1)[..., 0].float(), folded[0]) > SUMS_LIMIT:
+                raise RuntimeError("(b) part.sum(dim=1) differs from the fold")
+            fold = time_ms(lambda: qk.bn_stats_fold(part, run), iters=10, what="fold").ms
+            rows["bn_stats_fold"]["library_ms"] = time_ms(
+                lambda: part.sum(dim=1), iters=10, what="the fold's library call").ms
+            _library_line(f"bn_stats_fold (K7's fold) {label} {tuple(part.shape)}", fold,
+                          "part.sum(dim=1) (float64)", rows["bn_stats_fold"]["library_ms"],
+                          rows["bn_stats_fold"]["bound_ms"])
+            del part, folded
         if k == 1:
             A = a[:, ::stride, ::stride].reshape(m, cin).contiguous()
             B = wt.reshape(cout, cin).t()
@@ -3697,8 +3862,8 @@ def check_library_calls(rows: dict, d) -> None:
         del a, wt
     print(f"  K6 per request (launch-weighted): kernel {sums[0]:.4f} ms, the library calls "
           f"{sums[1]:.4f} ms", flush=True)
-    # K7 at every launch shape of a request.
-    sums = [0.0, 0.0]
+    # K7 at every launch shape of a request, and the fused sums beside it.
+    sums = [0.0, 0.0, 0.0]
     for label, hwc, per_request in K7_SHAPES:
         t = _bn_stored((n, *hwc), gq)
         s1, _ = qk.bn_stats(t)
@@ -3714,11 +3879,18 @@ def check_library_calls(rows: dict, d) -> None:
                       f"x hw against K7's sums {err:.1e} of max)", lib_ms, bound)
         if label == "stem":
             rows["bn_stats"]["library_ms"] = lib_ms
+        else:
+            runs, cost = fused[hwc]
+            print(f"    the same sums in K6's epilogue: {cost / runs:.4f} ms a launch ({runs} "
+                  f"per request), against K7 {kernel:.4f} and torch.var_mean {lib_ms:.4f}",
+                  flush=True)
+            sums[2] += cost
         sums[0] += per_request * kernel
         sums[1] += per_request * lib_ms
         del t, s1, var, mean
-    print(f"  K7 per request (launch-weighted): kernel {sums[0]:.4f} ms, torch.var_mean "
-          f"{sums[1]:.4f} ms", flush=True)
+    print(f"  K7 per request (launch-weighted, every shape): kernel {sums[0]:.4f} ms, "
+          f"torch.var_mean {sums[1]:.4f} ms; the stem's K7 and the sums in K6's epilogue "
+          f"(folds included) {rows['bn_stats']['ms'] + sums[2]:.4f} ms", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -3779,9 +3951,13 @@ def check_new_tools(tmp: str) -> dict:
 
 def time_heads(root: str) -> int:
     """Times the MC head kernels of the port under ``root`` at the shapes
-    and inputs of phases 3 and 6 with this script's timer, and prints one
-    JSON line.  It calls only what the port has had since it trained:
+    and inputs of phases 3 and 6 with this script's timer, hashes (SHA-256)
+    every output of the backward kernels there, and prints one JSON line; a
+    shape whose backward the port refuses (``ValueError``) is listed as
+    refused.  It calls only what the port has had since it trained:
     ``mc_gated_attention``, ``_mc_head_cuda`` and ``_mc_head_bwd_cuda``."""
+    import hashlib
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
     sys.path.insert(0, str(Path(root).resolve()))
@@ -3796,21 +3972,31 @@ def time_heads(root: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {device_line("cuda")}; port {Path(port.__file__).parent}", flush=True)
     cuda_build.build_all()
-    times = {}
+    times, digests, refused = {}, {}, []
     for label, _, shared, n, n_valid, layout, T, seed in HEAD_SHAPES:
         _, params, H, mask, _ = _head_inputs(shared, n, n_valid, layout, seed)
         times[label] = time_ms(lambda: mc_gated_attention(H, mask, params, T, 17, 0.1, 0.1),
                                 iters=10, what=label)
-    for label, _, shared, n, n_valid, layout, T, seed in BWD_SHAPES:
-        model, params, H, mask, g = _head_inputs(shared, n, n_valid, layout, seed)
+    for label, _, shared, n, n_valid, layout, T, seed, classes in BWD_SHAPES:
+        model, params, H, mask, g = _head_inputs(shared, n, n_valid, layout, seed, classes)
         _, dA, dM = _cotangents(model, params, n, T, g)
         _, A = _mc_head_cuda(H, mask, params, T, 17, 0.1, 0.1)
+        try:
+            out = _mc_head_bwd_cuda(H, params, T, 17, 0.1, 0.1, A, dM, dA)
+        except ValueError as e:
+            refused.append(label)
+            print(f"  {label}: refused ({e})", flush=True)
+            continue
+        digests[label] = hashlib.sha256(b"".join(
+            x.contiguous().cpu().numpy().tobytes() for x in (A, *out))).hexdigest()
         times[label] = time_ms(lambda: _mc_head_bwd_cuda(H, params, T, 17, 0.1, 0.1, A, dM, dA),
                                 iters=10, what=label)
     for label, t in times.items():
-        print(f"  {label}: {t}", flush=True)
+        print(f"  {label}: {t}" + (f"; sha256 {digests[label]}" if label in digests else ""),
+              flush=True)
     print(json.dumps({"port": str(Path(port.__file__).parent),
-                      "heads": {k: asdict(t) for k, t in times.items()}}))
+                      "heads": {k: asdict(t) for k, t in times.items()},
+                      "bwd_sha256": digests, "refused": refused}))
     return 0
 
 
@@ -3827,7 +4013,12 @@ def time_int8_kernels(root: str) -> int:
     embed (``quantized_embed_static``) of one seeded 64-instance bag at 224
     px under a plan from seeded r18 weights.  It calls only what the port
     has had since the int8 path began: ``qconv``, ``bn_stats``,
-    ``bn_relu_quant`` and the plan and embed of ``ops/quantized.py``."""
+    ``bn_relu_quant`` and the plan and embed of ``ops/quantized.py``; where
+    the port has ``qconv_stats`` (K7's sums in K6's epilogue) it also
+    times that at every conv shape, hashes its store (equal to ``qconv``'s)
+    and times the fold alone, and the per-request line adds K6 + K7 (+ fold)
+    as each tree's int8 path runs them: K6 alone and K7 at every shape, or
+    K6 with the sums and K7 at the stem."""
     import hashlib
 
     if not torch.cuda.is_available():
@@ -3851,6 +4042,9 @@ def time_int8_kernels(root: str) -> int:
     cuda_build.build_all()
     g = torch.Generator(device="cuda").manual_seed(21)
     times, digests, per_request = {}, {}, {"K6": 0.0, "K7": 0.0, "K8": 0.0}
+    fused = hasattr(qk, "qconv_stats")
+    if fused:
+        per_request.update({"K6 with sums": 0.0, "fold": 0.0})
     for label, h, w, cin, cout, k, stride, pad, launches in QCONV_SHAPES:
         a = _int8((QUANT_N, h, w, cin), g)
         wt = _int8((cout, k, k, cin), g)
@@ -3861,6 +4055,23 @@ def time_int8_kernels(root: str) -> int:
         times[f"K6 {label}"] = t.ms
         per_request["K6"] += launches * t.ms
         print(f"  K6 {label}: {t}", flush=True)
+        if fused and qk._wgmma_takes(cin, k, k, stride, h, w):
+            store = qk.qconv_stats(a[:QUANT_CHECK_N], wt, scale, stride, pad, "bf16")[0]
+            digests[f"K6 with sums {label}"] = sha(store)
+            t = time_ms(lambda: qk.qconv_stats(a, wt, scale, stride, pad, "bf16"), iters=10,
+                        what=f"{label} with sums")
+            times[f"K6 with sums {label}"] = t.ms
+            per_request["K6 with sums"] += launches * t.ms
+            _, part, run, _, _ = qk._qconv_cuda(a, wt, scale, stride, pad, "bf16", sums=True)
+            fold = None
+            if part is not None:
+                fold = time_ms(lambda: qk.bn_stats_fold(part, run), iters=10,
+                               what=f"fold {label}").ms
+                times[f"fold {label}"] = fold
+                per_request["fold"] += launches * fold
+            print(f"  K6 with sums {label}: {t}; the fold alone "
+                  + ("none (one tile a map)" if fold is None else f"{fold:.4f} ms"), flush=True)
+            del store, part
         del a, wt
         torch.cuda.empty_cache()
     g = torch.Generator(device="cuda").manual_seed(22)
@@ -3870,6 +4081,8 @@ def time_int8_kernels(root: str) -> int:
         t = time_ms(lambda: qk.bn_stats(x), iters=10, what=f"K7 {label}")
         times[f"K7 {label}"] = t.ms
         per_request["K7"] += launches * t.ms
+        if label == "stem":
+            per_request["K7 stem"] = launches * t.ms
         print(f"  K7 {label}: {t}", flush=True)
         del x
     for label, hwc, mode, res, launches in K8_SHAPES:
@@ -3890,6 +4103,9 @@ def time_int8_kernels(root: str) -> int:
     with torch.inference_mode():
         h = quantized_embed_static(plan, patches.to("cuda"))
     embed = hashlib.sha256(h.cpu().numpy().tobytes()).hexdigest()
+    per_request["K6 + K7 (+ fold)"] = (
+        per_request["K6 with sums"] + per_request["K7 stem"] if fused
+        else per_request["K6"] + per_request["K7"])
     print("  per request (launch-weighted): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in per_request.items())
         + f"; int8 embed of {EMBED_N} instances: sha256 {embed}", flush=True)

@@ -17,6 +17,13 @@
 // K7 gives one block to an instance; its threads stride over the pixels and
 // keep float64 sums, which the block combines in a fixed order: no atomics,
 // the same bits every run, and no f32 drift over the stem's 12544 pixels.
+// It runs where no kernel held the output before it was stored: after the
+// stem's cuDNN conv (one launch a request) and the s2d stem's gather conv.
+// After every other conv K6 takes the sums in its epilogue, per 8 x 8 tile
+// (qconv.cu, `qconv_i8_stats`), and `bn_stats_fold_kernel` here folds the
+// runs of tiles of each instance in tile order, in float64: a thread per
+// (instance, channel), whose 16-byte reads of consecutive channels make
+// each warp's loads contiguous.  Bound by its bytes, the partials read once.
 //
 // K8 writes each output element from its own inputs; the affine is one
 // rounded multiply and one rounded add (`__fmul_rn`, `__fadd_rn`: no fused
@@ -213,6 +220,34 @@ __global__ void __launch_bounds__(256) bn_stats_kernel(const T* __restrict__ t,
     s1[static_cast<int64_t>(n) * C + c] = static_cast<float>(x);
     s2[static_cast<int64_t>(n) * C + c] = static_cast<float>(y);
   }
+}
+
+// K7's fold: part (N, tiles, C) pairs (sum, sum of squares), of which the
+// slots that end a run (see qconv_i8_stats) hold the run's sums -> s1, s2
+// (N, C) f32, run by run in order.
+__global__ void __launch_bounds__(THREADS) bn_stats_fold_kernel(const double2* __restrict__ part,
+                                                                int N, int tiles, int C, int run,
+                                                                float* __restrict__ s1,
+                                                                float* __restrict__ s2) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i >= static_cast<int64_t>(N) * C) return;
+  const int64_t n = i / C, c = i - n * C, first = n * tiles;
+  const double2* p = part + first * C + c;
+  double a = 0.0, b = 0.0;
+  // Slots k with (first + k + 1) % run == 0, then the last if it ends no such run.
+#pragma unroll 4
+  for (int k = static_cast<int>((run - 1 - first % run) % run); k < tiles; k += run) {
+    const double2 v = __ldg(p + static_cast<int64_t>(k) * C);
+    a += v.x;
+    b += v.y;
+  }
+  if ((first + tiles) % run != 0) {
+    const double2 v = __ldg(p + static_cast<int64_t>(tiles - 1) * C);
+    a += v.x;
+    b += v.y;
+  }
+  s1[i] = static_cast<float>(a);
+  s2[i] = static_cast<float>(b);
 }
 
 // K8, int8 out, P = N * HW pixels.  Thread (r, cg) of a block owns channels
@@ -520,6 +555,20 @@ int bn_stats(const void* t, int dtype, const float* tq, int N, long long HW, int
   else
     err = stats_launch<int8_t>(t, tq, N, HW, C, s1, s2, s);
   return static_cast<int>(err);
+}
+
+// part (N, tiles, C) float64 pairs and the run, as qconv_i8_stats writes
+// them; s1, s2 (N, C) f32.  Returns the cudaError_t of the launch.
+int bn_stats_fold(const double* part, int N, int tiles, int C, int run, float* s1, float* s2,
+                  void* stream) {
+  const int64_t n = static_cast<int64_t>(N) * C;
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  if (tiles < 1 || C < 1 || run < 1 || (n + THREADS - 1) / THREADS > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bn_stats_fold_kernel<<<static_cast<unsigned>((n + THREADS - 1) / THREADS), THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const double2*>(part), N, tiles, C, run, s1, s2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // relu(load(t) * A + B [+ residual]) -> int8 (N, HW, C), or with mean = 1

@@ -40,9 +40,14 @@
 //      dz = dG * the stored factors, written once to (T, N, 2GD); per-block
 //      partials of dbv, dbu, dwa and dba.
 //   3. bwd_dh_kernel, per (16 rows, 64 columns of L), looping over t in
-//      order: dH = dz W^T (mma.sync, 3xTF32, the block's W^T columns resident
-//      in shared memory across t, dz arriving by cp.async) plus A^T dM, times
-//      the keep bits.
+//      order: dH = dz W^T (mma.sync, 3xTF32, dz arriving by cp.async) plus
+//      A^T dM, times the keep bits.  The block walks the depth K = 2 G D in
+//      chunks of whole gates, as many as its shared memory holds beside the
+//      rows' dz (dh_chunk): where the whole depth fits (every shape at
+//      D <= 64, and G <= 2 at D = 128) the W^T columns stay resident across
+//      t; otherwise each chunk's W^T columns and dz rows are staged in turn
+//      for every t.  The accumulator carries across chunks in registers and
+//      the k order is the same, so both give the same bits.
 //   4. bwd_dw_kernel, per (64 of L, 64 of 2GD, slice of the T*N rows): split
 //      K partials of Hd^T dz.  Neither operand is K-major here (Hd^T is
 //      [n][l], dz is [n][2GD]); mma.sync takes them as they are, since its
@@ -317,19 +322,23 @@ __global__ void __launch_bounds__(256) bwd_dz_kernel(
 }
 
 // 3. dH for (16 rows, 64 columns of L), summed over t in order:
-// keep_f / (1 - p_feat) * (dz W^T + A^T dM).  The block's W^T columns stay in
-// shared memory across t; each sample's dz rows arrive by cp.async.  8
-// warps, one 8-column slice each, the product split over two accumulators.
+// keep_f / (1 - p_feat) * (dz W^T + A^T dM).  RESIDENT (KC = K): the W^T
+// columns are staged once and stay in shared memory across t.  Otherwise
+// the depth K walks in chunks of KC columns (whole gates; the last may be
+// shorter), each chunk's W^T columns and dz rows staged by cp.async for
+// every t.  8 warps, one 8-column slice each, the product split over two
+// accumulators and promoted every 64 of K (mc_tile.cuh) across the chunks.
+template <bool RESIDENT>
 __global__ void __launch_bounds__(256) bwd_dh_kernel(
-    int N, int L, int D, int C, int G, int T, const float* __restrict__ wv,
+    int N, int L, int D, int C, int G, int T, int KC, const float* __restrict__ wv,
     const float* __restrict__ wu, const float* __restrict__ A, const float* __restrict__ dM,
     const uint32_t* __restrict__ bits, const float* __restrict__ dz, float p_feat, float scale_f,
     float* __restrict__ dH) {
   extern __shared__ float4 smem4[];
   constexpr int BN = 64;
-  const int K = 2 * G * D, ld = K + 4;
-  float* Ws = reinterpret_cast<float*>(smem4);  // [BN][K + 4]: W^T columns l0 .. l0+BN-1
-  float* Zs = Ws + BN * ld;                     // [BM2][K + 4]: dz of the rows
+  const int K = 2 * G * D, kc = RESIDENT ? K : KC, ld = kc + 4;
+  float* Ws = reinterpret_cast<float*>(smem4);  // [BN][KC + 4]: W^T columns l0 .. l0+BN-1
+  float* Zs = Ws + BN * ld;                     // [BM2][KC + 4]: dz of the rows
   float* dMs = Zs + BM2 * ld;                   // [C][BN]
   float* As = dMs + C * BN;                     // [C][BM2]
   int* ok = reinterpret_cast<int*>(As + C * BM2);  // [BM2]
@@ -337,17 +346,24 @@ __global__ void __launch_bounds__(256) bwd_dh_kernel(
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q = lane & 3;
 
+  // W^T columns k0 .. k0 + kl - 1 of rows l0 .. l0 + BN - 1 into Ws.
+  auto stage_w = [&](int k0, int kl) {
+    for (int e = tid; e < BN * (kl / 4); e += nthr) {
+      const int rr = e / (kl / 4), j = (e - rr * (kl / 4)) * 4, k = k0 + j;
+      const int g = k / (2 * D), rem = k - g * 2 * D;
+      const size_t src = ((size_t)g * L + l0 + rr) * D + (rem < D ? rem : rem - D);
+      cp_async16(Ws + rr * ld + j, (rem < D ? wv : wu) + src);
+    }
+  };
+
   bool mine = false;
   for (int t = 0; t < T && tid < BM2; ++t) mine = mine || row_active(A, N, C, t, n0 + tid);
   float dh[4] = {0.f, 0.f, 0.f, 0.f};
   if (__syncthreads_or(mine)) {
-    for (int e = tid; e < BN * (K / 4); e += nthr) {
-      const int rr = e / (K / 4), j = (e - rr * (K / 4)) * 4;
-      const int g = j / (2 * D), rem = j - g * 2 * D;
-      const size_t src = ((size_t)g * L + l0 + rr) * D + (rem < D ? rem : rem - D);
-      cp_async16(Ws + rr * ld + j, (rem < D ? wv : wu) + src);
+    if (RESIDENT) {
+      stage_w(0, K);
+      cp_async_commit();
     }
-    cp_async_commit();
     for (int t = 0; t < T; ++t) {
       for (int e = tid; e < C * BM2; e += nthr) {
         const int c = e / BM2, n = n0 + e - c * BM2;
@@ -361,33 +377,38 @@ __global__ void __launch_bounds__(256) bwd_dh_kernel(
       bool active = false;
       for (int c = 0; c < C && tid < BM2; ++c) active = active || As[c * BM2 + tid] != 0.f;
       if (!set_row_flags(ok, BM2, active)) continue;
-      for (int e = tid; e < BM2 * (K / 4); e += nthr) {
-        const int r = e / (K / 4), j = (e - r * (K / 4)) * 4;
-        if (ok[r])
-          cp_async16(Zs + r * ld + j, dz + ((size_t)t * N + n0 + r) * K + j);
-        else
-          *reinterpret_cast<float4*>(Zs + r * ld + j) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
       // dz W^T for this warp's 8 columns, 3xTF32, even and odd k-steps
       // apart, promoted every 64 of K (mc_tile.cuh).
       float acc[1][2][4], part[1][2][4];
       zero_acc(acc);
-      for (int k1 = 0; k1 < K; k1 += 64) {
-        zero_acc(part);
-#pragma unroll
-        for (int k0 = k1; k0 < k1 + 64; k0 += 16) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            uint32_t ah[4], al[4], bh[2], bl[2];
-            load_a<false>(Zs, ld, 0, k0 + 8 * h, ah, al);
-            load_b<true>(Ws, ld, k0 + 8 * h, warp * 8, bh, bl);
-            mma_3xtf32(part[0][h], ah, al, bh, bl);
-          }
+      for (int k0 = 0; k0 < K; k0 += kc) {
+        const int kl = K - k0 < kc ? K - k0 : kc;
+        if (!RESIDENT) stage_w(k0, kl);
+        for (int e = tid; e < BM2 * (kl / 4); e += nthr) {
+          const int r = e / (kl / 4), j = (e - r * (kl / 4)) * 4;
+          if (ok[r])
+            cp_async16(Zs + r * ld + j, dz + ((size_t)t * N + n0 + r) * K + k0 + j);
+          else
+            *reinterpret_cast<float4*>(Zs + r * ld + j) = make_float4(0.f, 0.f, 0.f, 0.f);
         }
-        add_acc(acc, part);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        for (int k1 = 0; k1 < kl; k1 += 64) {
+          zero_acc(part);
+#pragma unroll
+          for (int kk = k1; kk < k1 + 64; kk += 16) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t ah[4], al[4], bh[2], bl[2];
+              load_a<false>(Zs, ld, 0, kk + 8 * h, ah, al);
+              load_b<true>(Ws, ld, kk + 8 * h, warp * 8, bh, bl);
+              mma_3xtf32(part[0][h], ah, al, bh, bl);
+            }
+          }
+          add_acc(acc, part);
+        }
+        if (!RESIDENT) __syncthreads();  // the chunk's stages are rewritten next
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -530,8 +551,8 @@ __global__ void bwd_reduce_kernel(int L, int D, int C, int G, int ntiles_z, int 
   }
 }
 
-// Shared memory of a dz block and of a dH block (64 columns), or 0 where
-// it does not fit.
+// Shared memory of a dz block, or 0 where it does not fit; of a dH block
+// (64 columns) at a chunk of KC columns of the depth.
 inline size_t dz_smem(int D, int C, int G, int ntiles1) {
   const size_t K = 2 * (size_t)G * D;
   const size_t s = 4 * (DZ_ROWS * (K + 4) + K + (size_t)C * D + (size_t)C * G * D +
@@ -539,10 +560,17 @@ inline size_t dz_smem(int D, int C, int G, int ntiles1) {
   return s <= (size_t)kSmemMax ? s : 0;
 }
 
-inline size_t dh_smem(int D, int C, int G) {
-  const size_t K = 2 * (size_t)G * D;
-  const size_t s = 4 * ((64 + BM2) * (K + 4) + (size_t)C * 64 + (size_t)C * BM2 + BM2);
-  return s <= (size_t)kSmemMax ? s : 0;
+inline size_t dh_smem(int KC, int C) {
+  return 4 * ((64 + BM2) * ((size_t)KC + 4) + (size_t)C * 64 + (size_t)C * BM2 + BM2);
+}
+
+// The dH block's chunk of the depth: the most whole gates (2 D columns
+// each) whose W^T columns and dz rows fit in shared memory, all G where
+// they fit; 0 where not even one gate does.
+inline int dh_chunk(int D, int C, int G) {
+  for (int gc = G; gc >= 1; --gc)
+    if (dh_smem(2 * gc * D, C) <= (size_t)kSmemMax) return 2 * gc * D;
+  return 0;
 }
 
 template <int MT, int RW, int KS>
@@ -568,7 +596,7 @@ extern "C" {
 long mc_head_backward_workspace(int N, int L, int D, int C, int G, int T, int slices) {
   if (!shapes_ok(N, L, D, C, G, T) || slices < 1) return -1;
   const RowPlan plan = plan_rows(N, L, D, G, T);
-  if (plan.bm == 0 || dz_smem(D, C, G, plan.ntiles) == 0 || dh_smem(D, C, G) == 0) return -1;
+  if (plan.bm == 0 || dz_smem(D, C, G, plan.ntiles) == 0 || dh_chunk(D, C, G) == 0) return -1;
   return (long)carve(nullptr, N, L, D, C, G, T, plan.ntiles, (N + DZ_ROWS - 1) / DZ_ROWS, slices)
       .total;
 }
@@ -589,8 +617,9 @@ int mc_head_backward(const float* H, int N, int L, int D, int C, int G, int T, c
   if (!shapes_ok(N, L, D, C, G, T) || slices < 1) return (int)cudaErrorInvalidValue;
   const RowPlan plan = plan_rows(N, L, D, G, T);
   const size_t smem_z = plan.bm == 0 ? 0 : dz_smem(D, C, G, plan.ntiles);
-  const size_t smem_h = dh_smem(D, C, G);
-  if (smem_z == 0 || smem_h == 0) return (int)cudaErrorInvalidValue;
+  const int KC = dh_chunk(D, C, G);
+  if (smem_z == 0 || KC == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem_h = dh_smem(KC, C);
   const int ntiles_z = (N + DZ_ROWS - 1) / DZ_ROWS, ntiles_h = (N + BM2 - 1) / BM2;
   const BwdWork w = carve(work, N, L, D, C, G, T, plan.ntiles, ntiles_z, slices);
   const int K = 2 * G * D;
@@ -602,7 +631,8 @@ int mc_head_backward(const float* H, int N, int L, int D, int C, int G, int T, c
 #undef MCH_LAUNCH_GATE
   if (err != cudaSuccess) return (int)err;
 
-  static size_t allowed_z[kMaxDevices] = {}, allowed_h[kMaxDevices] = {};
+  static size_t allowed_z[kMaxDevices] = {}, allowed_h[kMaxDevices] = {},
+                allowed_hc[kMaxDevices] = {};
   err = allow_smem(bwd_dz_kernel, smem_z, allowed_z);
   if (err != cudaSuccess) return (int)err;
   bwd_dz_kernel<<<ntiles_z, 256, smem_z, s>>>(N, D, C, G, T, plan.ntiles, wa_full, A, w.dap,
@@ -611,11 +641,18 @@ int mc_head_backward(const float* H, int N, int L, int D, int C, int G, int T, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = allow_smem(bwd_dh_kernel, smem_h, allowed_h);
-  if (err != cudaSuccess) return (int)err;
   dim3 g2(ntiles_h, L / 64);
-  bwd_dh_kernel<<<g2, 256, smem_h, s>>>(N, L, D, C, G, T, wv, wu, A, dM, w.bits, w.dz, p_feat,
-                                        scale_f, dH);
+  if (KC == K) {
+    err = allow_smem(bwd_dh_kernel<true>, smem_h, allowed_h);
+    if (err != cudaSuccess) return (int)err;
+    bwd_dh_kernel<true><<<g2, 256, smem_h, s>>>(N, L, D, C, G, T, KC, wv, wu, A, dM, w.bits,
+                                                w.dz, p_feat, scale_f, dH);
+  } else {
+    err = allow_smem(bwd_dh_kernel<false>, smem_h, allowed_hc);
+    if (err != cudaSuccess) return (int)err;
+    bwd_dh_kernel<false><<<g2, 256, smem_h, s>>>(N, L, D, C, G, T, KC, wv, wu, A, dM, w.bits,
+                                                 w.dz, p_feat, scale_f, dH);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -68,6 +68,31 @@
 // Offsets into the activations and the output are 64-bit: at an extended
 // bucket of 6144 instances layer 1's bf16 output passes 2^31 bytes.
 //
+// K7's sums in the epilogue (`qconv_i8_stats`, the redesign of K7 for the
+// card).  Batch-statistics BN needs, per (instance, channel), the sum and
+// the sum of squares over (h, w) of the stored output's f32 view; K7
+// (bn_quant.cu) read every stored output back for them.  Both wgmma
+// kernels hold each tile in shared memory, converted, before they store
+// it, so they take the sums there: each thread of the warpgroup owns a
+// channel pair of the column tile over a group of the tile's pixel rows
+// (TileSums) and walks them in row order, leaving out pixels past the
+// output (a 7x7 map fills 49 of a tile's 64) and tiles past the last
+// instance, with K7's arithmetic (the stored value's f32 view, an int8
+// code times its tq in one rounded multiply, added and squared into
+// float64).  Sums from the staged tile, not the accumulator fragments,
+// whose channels are spread over the lanes of four warps.  They lengthen
+// the consumers' epilogue, and their code alone slows the products at
+// layers 1-2 (PERF.md, section 6): per request the sums tie K7's re-read
+// rather than saving it.  A warpgroup's item of MT tiles keeps
+// summing over its tiles of one instance (a run), and the run's pair of
+// sums per channel (16 bytes) goes to a partial indexed by its last spatial
+// tile, which bn_quant.cu's bn_stats_fold_kernel folds per instance in
+// tile order; where an instance is one tile (7x7 maps) the kernel writes
+// the f32 sums itself and nothing is folded.  No atomics: the same bits
+// every run.  At layer 1 and 3072 instances (runs of 4 tiles) the partials
+// are about 43 MB written and read once, against the 1.23 GB of bf16 output
+// K7 read back.
+//
 // Where the column tile is 256 channels (r18's layers 3-4), that design
 // gives each 64-row item its whole weight slice from L2: the traffic that
 // bounded the 3x3 and 3x3/2 there.  Those convs run
@@ -121,6 +146,44 @@ __device__ __forceinline__ uint32_t pack_pair(int a0, int a1, float s0, float s1
     const int q0 = static_cast<int>(fminf(fmaxf(rintf(y0), -127.f), 127.f));
     const int q1 = static_cast<int>(fminf(fmaxf(rintf(y1), -127.f), 127.f));
     return static_cast<uint32_t>(q0 & 0xff) | (static_cast<uint32_t>(q1 & 0xff) << 8);
+  }
+}
+
+// Where a launch puts K7's sums (all null: no sums).
+struct Sums {
+  double2* part;    // (spatial tiles, Cout): a run's (sum, sum of squares) at its last tile
+  float* s1;        // (N, Cout), written here where an instance is one tile
+  float* s2;
+  const float* tq;  // (Cout,): the int8 store's read-back scale; null for bf16 and f8
+  int* run;         // host only: the launch writes its run of tiles there
+
+  __host__ __device__ bool on() const { return part != nullptr || s1 != nullptr; }
+};
+
+// Two neighbouring channels of one staged row (shared-memory address
+// `addr`) as K7 views them (bn_quant.cu load8): bf16 and e4m3 widened, an
+// int8 code times its tq in one rounded multiply.
+template <int STORE>
+__device__ __forceinline__ void stored_pair(uint32_t addr, const float (&tq)[2], float& v0,
+                                            float& v1) {
+  if constexpr (STORE == kBf16) {
+    uint32_t w;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(w) : "r"(addr));
+    v0 = __uint_as_float(w << 16);
+    v1 = __uint_as_float(w & 0xffff0000u);
+  } else {
+    unsigned short w;
+    asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(w) : "r"(addr));
+    if constexpr (STORE == kF8) {
+      __nv_fp8_e4m3 f0, f1;
+      f0.__x = static_cast<__nv_fp8_storage_t>(w & 0xff);
+      f1.__x = static_cast<__nv_fp8_storage_t>(w >> 8);
+      v0 = static_cast<float>(f0);
+      v1 = static_cast<float>(f1);
+    } else {
+      v0 = __fmul_rn(static_cast<float>(static_cast<int8_t>(w & 0xff)), tq[0]);
+      v1 = __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> 8)), tq[1]);
+    }
   }
 }
 
@@ -200,6 +263,122 @@ __host__ __device__ constexpr int staging_row() {
   return BN * store_bytes<STORE>() + 16;
 }
 
+// One warpgroup's sums of one 64 x BN tile.  Thread i (of 128) owns the
+// channel pair 2 (i % (BN / 2)) + {0, 1} of the column tile, so that a
+// warp's loads of a staged row are one contiguous read, and the pixel rows
+// of its row group i / (BN / 2): at BN = 256 all 8, at 128 four, at 64 two
+// (one warp a group).  It adds its pixels in row order into float64 sums;
+// the groups' sums are then added in group order (through the staging
+// rows, once every thread has read them) and the first group writes them.
+template <int BN, int STORE>
+struct TileSums {
+  static constexpr int PAIRS = BN / 2;    // channel pairs of a staged row
+  static constexpr int RG = 128 / PAIRS;  // row groups: 4, 2 or 1
+  static constexpr int YR = W_T / RG;     // pixel rows of a group
+  double a[2], b[2];
+  float tq[2];
+
+  __device__ __forceinline__ int pair() const { return static_cast<int>(threadIdx.x % 128) % PAIRS; }
+  __device__ __forceinline__ int group() const { return static_cast<int>(threadIdx.x % 128) / PAIRS; }
+
+  __device__ __forceinline__ void start(const Sums& s, int col0) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      a[k] = b[k] = 0.0;
+      tq[k] = STORE == kI8 ? __ldg(s.tq + col0 + 2 * pair() + k) : 0.f;
+    }
+  }
+
+  // This thread's pixel rows if pass `pass` of HALVES staged them (tile
+  // rows 8 / HALVES * pass .., from staging row 0); a group's rows are
+  // staged in one pass.
+  template <int HALVES>
+  __device__ __forceinline__ void add_pass(const uint8_t* staging, int pass, const Tiling& t,
+                                           const TileAt& at) {
+    constexpr int R = W_T / HALVES;
+    static_assert(YR <= R, "a row group spans two passes");
+    const int y0 = group() * YR;
+    if (at.n >= t.N || y0 / R != pass) return;
+    const uint32_t addr = smem_u32(staging) +
+                          (y0 - pass * R) * W_T * staging_row<BN, STORE>() +
+                          2 * pair() * store_bytes<STORE>();
+    if (t.OH - at.oy0 >= y0 + YR && t.OW - at.ox0 >= W_T)
+      add_rows<true>(addr, 0, 0);
+    else
+      add_rows<false>(addr, t.OH - at.oy0 - y0, t.OW - at.ox0);
+  }
+
+  // Pixel rows y0 .. y0 + YR - 1 of the tile, staged from `addr`, in row
+  // order; a partial tile leaves out pixels at or past (y_end, x_end) by
+  // adding +0.0 for them, which leaves a sum that starts at +0.0 bit for
+  // bit as it was (it never becomes -0.0), so the loop has no branch (two
+  // rows unrolled measured a little faster than one or all).
+  template <bool FULL>
+  __device__ __forceinline__ void add_rows(uint32_t addr, int y_end, int x_end) {
+    constexpr int SROW = staging_row<BN, STORE>();
+#pragma unroll 2
+    for (int y = 0; y < YR; ++y)
+#pragma unroll
+      for (int x = 0; x < W_T; ++x) {
+        float v[2];
+        stored_pair<STORE>(addr + (y * W_T + x) * SROW, tq, v[0], v[1]);
+        const bool in = FULL || (y < y_end && x < x_end);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const double d = in ? static_cast<double>(v[k]) : 0.0;
+          a[k] += d;
+          b[k] += d * d;
+        }
+      }
+  }
+
+  // Spatial tile st's partial, or the instance's f32 sums where it is one
+  // tile.  Every thread of the warpgroup calls it, after its last pass;
+  // the groups' sums pass through the warpgroup's STAGE_BYTES of staging
+  // rows, as many groups at a time as fit.
+  template <int STAGE_BYTES>
+  __device__ __forceinline__ void finish(const Sums& s, const Tiling& t, const TileAt& at, int st,
+                                         int col0, uint8_t* staging, int wg) {
+    if constexpr (RG > 1) {
+      constexpr int PER = STAGE_BYTES / (PAIRS * 32);  // groups a round passes
+      static_assert(PER >= 1, "the staging rows cannot hold a row group's sums");
+      double2* slots = reinterpret_cast<double2*>(staging);  // [PER][PAIRS][2]
+      for (int r0 = 1; r0 < RG; r0 += PER) {
+        named_sync(1 + wg, 128);  // the staging rows, or the last round's slots, are read
+        const int slot = group() - r0;
+        if (slot >= 0 && slot < PER) {
+          slots[(slot * PAIRS + pair()) * 2] = make_double2(a[0], b[0]);
+          slots[(slot * PAIRS + pair()) * 2 + 1] = make_double2(a[1], b[1]);
+        }
+        named_sync(1 + wg, 128);
+        if (group() == 0)
+          for (int j = 0; j < PER && r0 + j < RG; ++j) {
+            const double2 q0 = slots[(j * PAIRS + pair()) * 2];
+            const double2 q1 = slots[(j * PAIRS + pair()) * 2 + 1];
+            a[0] += q0.x;
+            b[0] += q0.y;
+            a[1] += q1.x;
+            b[1] += q1.y;
+          }
+      }
+      if (group() != 0) return;
+    }
+    if (at.n >= t.N) return;
+    const int c = col0 + 2 * pair();
+    if (t.tiles_x * t.tiles_y == 1) {
+      const int64_t o = static_cast<int64_t>(at.n) * t.Cout + c;
+      *reinterpret_cast<float2*>(s.s1 + o) =
+          make_float2(static_cast<float>(a[0]), static_cast<float>(a[1]));
+      *reinterpret_cast<float2*>(s.s2 + o) =
+          make_float2(static_cast<float>(b[0]), static_cast<float>(b[1]));
+    } else {
+      double2* p = s.part + static_cast<int64_t>(st) * t.Cout + c;
+      p[0] = make_double2(a[0], b[0]);
+      p[1] = make_double2(a[1], b[1]);
+    }
+  }
+};
+
 // The paired kernel's epilogue: one warpgroup's 64 x BN accumulator tile
 // (spatial tile `at`, output channels col0 ..) converted as the kernel above
 // converts it, staged in the warpgroup's 64 staging rows and written out in
@@ -207,12 +386,13 @@ __host__ __device__ constexpr int staging_row() {
 // fragment of wgmma m64nN: warp w of the warpgroup holds rows 16 w + g and
 // 16 w + g + 8; registers 4 j + {0, 1} are columns 8 j + 2 q + {0, 1} of
 // the first row, 4 j + {2, 3} of the second.  Row r is pixel (r / 8, r % 8)
-// of the tile.
+// of the tile.  With `sums` on, the staged tile's K7 sums too, as spatial
+// tile st.
 template <int BN, int STORE>
 __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], const Tiling& t,
-                                           const TileAt& at, int col0,
+                                           const TileAt& at, int st, int col0,
                                            const float* __restrict__ scale, void* __restrict__ out,
-                                           uint8_t* my_staging, int wg) {
+                                           const Sums& sums, uint8_t* my_staging, int wg) {
   constexpr int ES = store_bytes<STORE>();
   constexpr int SROW = staging_row<BN, STORE>();
   const int tid = threadIdx.x % 128, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -244,6 +424,12 @@ __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], const Tilin
           *reinterpret_cast<const uint4*>(my_staging + row * SROW + ch * 16);
     }
   }
+  if (sums.on()) {
+    TileSums<BN, STORE> ts;
+    ts.start(sums, col0);
+    ts.template add_pass<1>(my_staging, 0, t, at);
+    ts.template finish<64 * SROW>(sums, t, at, st, col0, my_staging, wg);
+  }
 }
 
 // One warpgroup's halos for one stage: MT tiles, each n_par parity views of
@@ -270,7 +456,8 @@ __host__ __device__ inline int smem_bytes(const Tiling& t) {
 template <int BN, int STORE, int MT, bool WRES, int HALVES>
 __global__ void __launch_bounds__(W_THREADS, 1)
     qconv_wgmma_kernel(const __grid_constant__ ActMaps act, const __grid_constant__ CUtensorMap wgt,
-                       const float* __restrict__ scale, void* __restrict__ out, Tiling t) {
+                       const float* __restrict__ scale, void* __restrict__ out, Tiling t,
+                       Sums sums) {
   constexpr int B_BYTES = BN * W_BK;
   constexpr int ES = store_bytes<STORE>();
   constexpr int SROW = staging_row<BN, STORE>();
@@ -434,9 +621,14 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       // row, 4 j + {2, 3} of the second.  Row r is pixel (r / 8, r % 8) of
       // the tile.
       const int col0 = col * BN;
+      const int inst_tiles = t.tiles_x * t.tiles_y;
+      TileSums<BN, STORE> ts;
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const TileAt at = tile_at(t, grp * MT + m);
+        const int st = grp * MT + m;
+        const TileAt at = tile_at(t, st);
+        // K7's sums run over the item's tiles of one instance.
+        if (sums.on() && (m == 0 || st % inst_tiles == 0)) ts.start(sums, col0);
 #pragma unroll
         for (int pass = 0; pass < HALVES; ++pass) {
           named_sync(1 + wg, 128);  // the last stores have read the staging rows
@@ -470,7 +662,10 @@ __global__ void __launch_bounds__(W_THREADS, 1)
                   *reinterpret_cast<const uint4*>(my_staging + srow * SROW + ch * 16);
             }
           }
+          if (sums.on()) ts.template add_pass<HALVES>(my_staging, pass, t, at);
         }
+        if (sums.on() && (m == MT - 1 || (st + 1) % inst_tiles == 0))
+          ts.template finish<stage_rows * SROW>(sums, t, at, st, col0, my_staging, wg);
       }
     }
   }
@@ -546,7 +741,8 @@ template <int STORE, int CL>
 __global__ void __launch_bounds__(W_THREADS, 1)
     qconv_wgmma_pair_kernel(const __grid_constant__ ActMaps act,
                             const __grid_constant__ CUtensorMap wgt,
-                            const float* __restrict__ scale, void* __restrict__ out, Tiling t) {
+                            const float* __restrict__ scale, void* __restrict__ out, Tiling t,
+                            Sums sums) {
   constexpr int BN = P_BN;
   constexpr int B_BYTES = BN * W_BK;
   constexpr int B_PART = B_BYTES / CL;  // the rows of a stage this block loads
@@ -680,7 +876,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       if (lane < CL) release_b(prev_b);
       if (prev_a >= 0 && lane == 0) mbar_arrive(&a_empty[prev_a]);
-      store_tile<BN, STORE>(acc, t, tile_at(t, st), col * BN, scale, out, my_staging, wg);
+      store_tile<BN, STORE>(acc, t, tile_at(t, st), st, col * BN, scale, out, sums, my_staging,
+                            wg);
     }
   }
   if (CL > 1) {  // no block leaves while its peer may still arrive on its barriers
@@ -913,7 +1110,7 @@ bool plan_stages(Tiling& t, int min_b) {
 // `t` comes with its rings planned by plan_stages.
 template <int BN, int STORE, int MT, bool WRES, int HALVES>
 cudaError_t launch_wgmma_kernel(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
-                                void* out, Tiling t, cudaStream_t stream) {
+                                void* out, Tiling t, const Sums& sums, cudaStream_t stream) {
   const int smem = smem_bytes<BN, STORE, MT, WRES, HALVES>(t);
   const int64_t items = (static_cast<int64_t>(t.spatial) + MT - 1) / MT * t.col_tiles;
   if (items > 0x7ffffffe) return cudaErrorInvalidConfiguration;
@@ -923,7 +1120,8 @@ cudaError_t launch_wgmma_kernel(const ActMaps& maps, const CUtensorMap& wmap, co
   if (err != cudaSuccess) return err;
   const int blocks = (t.items + 1) / 2;
   const int grid = blocks < sm_count() ? blocks : sm_count();
-  kernel<<<grid, W_THREADS, smem, stream>>>(maps, wmap, scale, out, t);
+  kernel<<<grid, W_THREADS, smem, stream>>>(maps, wmap, scale, out, t, sums);
+  if (sums.run != nullptr) *sums.run = MT;
   return cudaGetLastError();
 }
 
@@ -935,22 +1133,22 @@ cudaError_t launch_wgmma_kernel(const ActMaps& maps, const CUtensorMap& wmap, co
 // large).  Resident weights need the conv to have one column tile.
 template <int BN, int STORE>
 cudaError_t launch_wgmma_plan(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
-                              void* out, const Tiling& t, cudaStream_t stream) {
+                              void* out, const Tiling& t, const Sums& sums, cudaStream_t stream) {
   constexpr int MT = 256 / BN;
   Tiling p = t;
   const bool one_col = t.col_tiles == 1;
   if constexpr (MT > 1) {
     if (one_col && plan_stages<BN, STORE, MT, true, 1>(p, 0))
-      return launch_wgmma_kernel<BN, STORE, MT, true, 1>(maps, wmap, scale, out, p, stream);
+      return launch_wgmma_kernel<BN, STORE, MT, true, 1>(maps, wmap, scale, out, p, sums, stream);
     if (one_col && plan_stages<BN, STORE, MT, true, 2>(p, 0))
-      return launch_wgmma_kernel<BN, STORE, MT, true, 2>(maps, wmap, scale, out, p, stream);
+      return launch_wgmma_kernel<BN, STORE, MT, true, 2>(maps, wmap, scale, out, p, sums, stream);
     if (plan_stages<BN, STORE, MT, false, 1>(p, 4))
-      return launch_wgmma_kernel<BN, STORE, MT, false, 1>(maps, wmap, scale, out, p, stream);
+      return launch_wgmma_kernel<BN, STORE, MT, false, 1>(maps, wmap, scale, out, p, sums, stream);
   }
   if (one_col && plan_stages<BN, STORE, 1, true, 1>(p, 0))
-    return launch_wgmma_kernel<BN, STORE, 1, true, 1>(maps, wmap, scale, out, p, stream);
+    return launch_wgmma_kernel<BN, STORE, 1, true, 1>(maps, wmap, scale, out, p, sums, stream);
   if (plan_stages<BN, STORE, 1, false, 1>(p, 2))
-    return launch_wgmma_kernel<BN, STORE, 1, false, 1>(maps, wmap, scale, out, p, stream);
+    return launch_wgmma_kernel<BN, STORE, 1, false, 1>(maps, wmap, scale, out, p, sums, stream);
   return cudaErrorInvalidConfiguration;
 }
 
@@ -981,7 +1179,7 @@ bool plan_pair_stages(Tiling& t) {
 // clusters as the card holds at once, or fewer where there are fewer items.
 template <int STORE, int CL>
 cudaError_t launch_pair(const ActMaps& maps, const CUtensorMap& wmap, const float* scale,
-                        void* out, Tiling t, cudaStream_t stream) {
+                        void* out, Tiling t, const Sums& sums, cudaStream_t stream) {
   if (!plan_pair_stages<STORE>(t)) return cudaErrorInvalidConfiguration;
   const int smem = pair_smem_bytes<STORE>(t);
   const int64_t items = (static_cast<int64_t>(t.spatial) + 2 * CL - 1) / (2 * CL) * t.col_tiles;
@@ -1010,8 +1208,9 @@ cudaError_t launch_pair(const ActMaps& maps, const CUtensorMap& wmap, const floa
   }
   if (clusters > t.items) clusters = t.items;
   cfg.gridDim = dim3(CL * clusters);
-  err = cudaLaunchKernelEx(&cfg, kernel, maps, wmap, scale, out, t);
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, wmap, scale, out, t, sums);
   if (err != cudaSuccess) return err;
+  if (sums.run != nullptr) *sums.run = 1;
   return cudaGetLastError();
 }
 
@@ -1025,27 +1224,27 @@ cudaError_t launch_pair(const ActMaps& maps, const CUtensorMap& wmap, const floa
 template <int BN, int STORE>
 cudaError_t launch_wgmma_store(const ActMaps& maps, const CUtensorMap& wmap,
                                const CUtensorMap& wmap_half, const float* scale, void* out,
-                               const Tiling& t, cudaStream_t stream) {
+                               const Tiling& t, const Sums& sums, cudaStream_t stream) {
   if constexpr (BN == P_BN) {
     Tiling p = t;
     if (!(t.col_tiles == 1 && plan_stages<BN, STORE, 1, true, 1>(p, 0))) {
       if (t.stride == 2 && t.KH > 1)
-        return launch_pair<STORE, 2>(maps, wmap_half, scale, out, t, stream);
-      return launch_pair<STORE, 1>(maps, wmap, scale, out, t, stream);
+        return launch_pair<STORE, 2>(maps, wmap_half, scale, out, t, sums, stream);
+      return launch_pair<STORE, 1>(maps, wmap, scale, out, t, sums, stream);
     }
   }
-  return launch_wgmma_plan<BN, STORE>(maps, wmap, scale, out, t, stream);
+  return launch_wgmma_plan<BN, STORE>(maps, wmap, scale, out, t, sums, stream);
 }
 
 template <int BN>
 cudaError_t launch_wgmma_bn(const ActMaps& maps, const CUtensorMap& wmap,
                             const CUtensorMap& wmap_half, const float* scale, void* out,
-                            const Tiling& t, int store, cudaStream_t stream) {
+                            const Tiling& t, int store, const Sums& sums, cudaStream_t stream) {
   if (store == kBf16)
-    return launch_wgmma_store<BN, kBf16>(maps, wmap, wmap_half, scale, out, t, stream);
+    return launch_wgmma_store<BN, kBf16>(maps, wmap, wmap_half, scale, out, t, sums, stream);
   if (store == kF8)
-    return launch_wgmma_store<BN, kF8>(maps, wmap, wmap_half, scale, out, t, stream);
-  return launch_wgmma_store<BN, kI8>(maps, wmap, wmap_half, scale, out, t, stream);
+    return launch_wgmma_store<BN, kF8>(maps, wmap, wmap_half, scale, out, t, sums, stream);
+  return launch_wgmma_store<BN, kI8>(maps, wmap, wmap_half, scale, out, t, sums, stream);
 }
 
 // The halo along one axis: the first and last index (relative to the
@@ -1067,7 +1266,7 @@ void halo_axis(int k, int pad, int s, int* q0, int* extent, int* parities) {
 // The wgmma path: tensor maps over the activations (one per parity read)
 // and the weights, the tiling, then the launch.
 cudaError_t launch_wgmma(const int8_t* act, const int8_t* wgt, const float* scale, void* out,
-                         const Shape& sh, int store, cudaStream_t stream) {
+                         const Shape& sh, int store, const Sums& sums, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   Tiling t;
@@ -1115,9 +1314,17 @@ cudaError_t launch_wgmma(const int8_t* act, const int8_t* wgt, const float* scal
       !encode(fn, &wmap_half, 2, wgt, wdims, wstrides, wbox_half, CU_TENSOR_MAP_SWIZZLE_64B))
     return cudaErrorInvalidValue;
 
-  if (BN == 256) return launch_wgmma_bn<256>(maps, wmap, wmap_half, scale, out, t, store, stream);
-  if (BN == 128) return launch_wgmma_bn<128>(maps, wmap, wmap_half, scale, out, t, store, stream);
-  return launch_wgmma_bn<64>(maps, wmap, wmap_half, scale, out, t, store, stream);
+  if (BN == 256)
+    return launch_wgmma_bn<256>(maps, wmap, wmap_half, scale, out, t, store, sums, stream);
+  if (BN == 128)
+    return launch_wgmma_bn<128>(maps, wmap, wmap_half, scale, out, t, store, sums, stream);
+  return launch_wgmma_bn<64>(maps, wmap, wmap_half, scale, out, t, store, sums, stream);
+}
+
+// Whether a conv takes the wgmma path.
+bool wgmma_takes(int Cin, int KH, int KW, int stride, int H, int W) {
+  return Cin % W_BK == 0 && KH * KW <= W_MAX_TAPS &&
+         (stride == 1 || (stride == 2 && H >= 2 && W >= 2));
 }
 
 }  // namespace
@@ -1142,16 +1349,43 @@ int qconv_i8(const int8_t* act, const int8_t* wgt, const float* scale, void* out
   const Shape sh{N, H, W, Cin, Cout, KH, KW, stride, pad_top, pad_left, OH, OW,
                  static_cast<int>(M), KH * KW * Cin};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wgmma = Cin % W_BK == 0 && KH * KW <= W_MAX_TAPS &&
-                     (stride == 1 || (stride == 2 && H >= 2 && W >= 2));
+  const Sums none = {nullptr, nullptr, nullptr, nullptr, nullptr};
   cudaError_t err;
-  if (wgmma)
-    err = launch_wgmma(act, wgt, scale, out, sh, store, s);
+  if (wgmma_takes(Cin, KH, KW, stride, H, W))
+    err = launch_wgmma(act, wgt, scale, out, sh, store, none, s);
   else if (Cout % 128 == 0)
     err = launch_gather<128>(act, wgt, scale, out, sh, store, s);
   else
     err = launch_gather<64>(act, wgt, scale, out, sh, store, s);
   return static_cast<int>(err);
+}
+
+// qconv_i8 on the wgmma path (refused elsewhere) with K7's sums of the
+// stored output: part (N * ceil(OH / 8) * ceil(OW / 8), Cout) pairs of
+// float64 for bn_stats_fold, one slot per 8 x 8 tile in (n, tile row, tile
+// column) order, of which those that end a run hold the run's sums: *run
+// (written here) consecutive tiles of one instance are summed together, a
+// run ending at tile t where (t + 1) % *run == 0 or t is the instance's
+// last.  Where the map is one tile (OH, OW <= 8), s1 and s2 (N, Cout) f32
+// instead, and part may be null.  tq (Cout,) is the int8 store's read-back
+// scale (null for bf16 and f8).
+int qconv_i8_stats(const int8_t* act, const int8_t* wgt, const float* scale, void* out, int N,
+                   int H, int W, int Cin, int Cout, int KH, int KW, int stride, int pad_top,
+                   int pad_left, int OH, int OW, int store, const float* tq, double* part,
+                   float* s1, float* s2, int* run, void* stream) {
+  const int64_t M = static_cast<int64_t>(N) * OH * OW;
+  if (M == 0 || Cout == 0) return static_cast<int>(cudaSuccess);
+  const bool one_tile = OH <= W_T && OW <= W_T;
+  if (M > 0x7fffffff || Cout % 64 || store < 0 || store > 2 || (store == kI8) != (tq != nullptr) ||
+      !wgmma_takes(Cin, KH, KW, stride, H, W) ||
+      (one_tile ? s1 == nullptr || s2 == nullptr : part == nullptr) || run == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape sh{N, H, W, Cin, Cout, KH, KW, stride, pad_top, pad_left, OH, OW,
+                 static_cast<int>(M), KH * KW * Cin};
+  const Sums sums = {one_tile ? nullptr : reinterpret_cast<double2*>(part),
+                     one_tile ? s1 : nullptr, one_tile ? s2 : nullptr, tq, run};
+  return static_cast<int>(
+      launch_wgmma(act, wgt, scale, out, sh, store, sums, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -56,7 +56,8 @@ DEVICE_FUNCTIONS: dict[str, tuple[str, ...]] = {
     "gather.cu": ("gather_tiles_kernel",),
     "qconv.cu": ("qconv_wgmma_kernel", "qconv_wgmma_pair_kernel", "qconv_gather_kernel"),
     "bn_quant.cu": (
-        "bn_stats_kernel", "bn_relu_quant_kernel", "bn_relu_mean_kernel", "stem_pool_quant_kernel",
+        "bn_stats_kernel", "bn_stats_fold_kernel", "bn_relu_quant_kernel", "bn_relu_mean_kernel",
+        "stem_pool_quant_kernel",
     ),
 }
 
@@ -90,6 +91,11 @@ KERNELS: dict[str, Kernel] = {
         ),
         Kernel(
             "bn_stats", "bn_quant.cu",
+            "montecarlo_gated_mil_tpu/ops/quantized.py:409",
+        ),
+        # K7's fold of the per-tile sums that K6 takes in its epilogue.
+        Kernel(
+            "bn_stats_fold", "bn_quant.cu",
             "montecarlo_gated_mil_tpu/ops/quantized.py:409",
         ),
         Kernel(

@@ -20,7 +20,12 @@ arithmetic op for op, so on the card the two agree code for code:
   +-127 (the i8 store scales by ``s / t``, computed once in f32).
 - K7: per (instance, channel) sums of the stored value and of its square,
   accumulated in float64 (in another order on the card: the two agree to
-  the last bit or two of the f32 result).
+  the last bit or two of the f32 result).  After a K6 conv the card takes
+  them in K6's epilogue (:func:`qconv_stats`: per run of a warpgroup's 8 x
+  8 output tiles of one instance, then :func:`bn_stats_fold` per instance
+  in tile order, its plain version in the same order); the standalone K7
+  (:func:`bn_stats`) runs where no kernel of this repository stored the
+  output, after the cuDNN stem.
 - K8: ``relu(v * A + B [+ residual])`` with one rounding per operation, then
   round half to even and clip to int8, or the f32 mean over (h, w); the
   stem mode max-pools 3x3/2 (padding -inf) before rounding; the mean mode
@@ -117,7 +122,27 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _qconv_cuda(a, w, scale, stride: int, pad, store: str) -> torch.Tensor:
+SUM_TILE = 8  # K6's spatial tile, 8 x 8 output pixels (W_T in csrc/qconv.cu)
+
+
+def sum_tiles(oh: int, ow: int) -> int:
+    """Tiles of one instance's ``(oh, ow)`` output, each of which K6 sums
+    on its own when it takes K7's sums."""
+    return -(-oh // SUM_TILE) * -(-ow // SUM_TILE)
+
+
+def _wgmma_takes(cin: int, kh: int, kw: int, stride: int, h: int, w: int) -> bool:
+    """Whether ``qconv_i8`` runs a conv on its wgmma kernels (csrc/qconv.cu
+    ``wgmma_takes``): every int8 conv of r18, r34 and r50, not the s2d stem."""
+    return cin % 64 == 0 and kh * kw <= 64 and (stride == 1 or (stride == 2 and h >= 2 and w >= 2))
+
+
+def _qconv_cuda(a, w, scale, stride: int, pad, store: str, sums: bool = False, tq=None):
+    """Launch K6.  With ``sums``, returns ``(t, part, run, s1, s2)``: where
+    the map is one 8 x 8 tile the kernel wrote the f32 sums ``s1, s2`` and
+    ``part`` is None; otherwise ``part`` holds the runs' float64 sums for
+    :func:`bn_stats_fold` (``run`` tiles of one instance a run) and ``s1,
+    s2`` are None."""
     kernel = cuda_build.KERNELS["qconv_i8"]
     _require(kernel.name, a, (torch.int8,), 4)
     _require(kernel.name, w, (torch.int8,), 4)
@@ -130,20 +155,47 @@ def _qconv_cuda(a, w, scale, stride: int, pad, store: str) -> torch.Tensor:
         raise ValueError(f"{kernel.name}: unsupported conv: a {tuple(a.shape)}, w "
                          f"{tuple(w.shape)}, stride {stride}, pad {pad}, store {store!r} "
                          "(needs Cin % 4 == 0, Cout % 64 == 0, kh*kw*Cin % 16 == 0)")
+    if sums:
+        if not _wgmma_takes(cin, kh, kw, stride, h, wd) or (store == "i8") != (tq is not None):
+            raise ValueError(f"{kernel.name}: K7's sums need a conv on the wgmma kernels (Cin % "
+                             f"64 == 0, at most 64 taps, stride 1 or 2), and a tq with the int8 "
+                             f"store only: a {tuple(a.shape)}, w {tuple(w.shape)}, stride "
+                             f"{stride}, store {store!r}, tq {tq is not None}")
+        if tq is not None:
+            _vec(kernel.name, tq, cout)
     oh, ow = conv_out_hw(h, wd, kh, kw, stride, pad)
     out = torch.empty((n, oh, ow, cout), dtype=STORE_DTYPES[store], device=a.device)
-    if out.numel() == 0:
-        return out
-    fn = cuda_build.load(kernel.source).qconv_i8
-    fn.restype = ctypes.c_int
+    s1 = s2 = part = None
+    if sums:
+        s1 = torch.empty((n, cout), dtype=torch.float32, device=a.device)
+        s2 = torch.empty_like(s1)
+        tiles = sum_tiles(oh, ow)
+        if tiles > 1:
+            part = torch.empty((n, tiles, cout, 2), dtype=torch.float64, device=a.device)
+    if out.numel() == 0:  # no pixel: the sums are 0
+        return (out, None, 1, s1.zero_(), s2.zero_()) if sums else out
+    lib = cuda_build.load(kernel.source)
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 13 + [ptr]
-    err = fn(a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-             kh, kw, stride, top, left, oh, ow, ("bf16", "f8", "i8").index(store),
-             cuda_build.stream_handle(a.device))
+    args = [a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+            kh, kw, stride, top, left, oh, ow, ("bf16", "f8", "i8").index(store)]
+    run = ctypes.c_int(0)
+    if sums:
+        fn = lib.qconv_i8_stats
+        fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 13 + [ptr] * 6
+        args += [_ptr(tq), _ptr(part), _ptr(None if part is not None else s1),
+                 _ptr(None if part is not None else s2), ctypes.addressof(run)]
+    else:
+        fn = lib.qconv_i8
+        fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 13 + [ptr]
+    fn.restype = ctypes.c_int
+    err = fn(*args, cuda_build.stream_handle(a.device))
     cuda_build.check(err, kernel.name)
     kernel.launches += 1
-    return out
+    if not sums:
+        return out
+    if part is not None:
+        return out, part, run.value, None, None
+    return out, None, 1, s1, s2
 
 
 def qconv(a, w, scale, stride: int, pad, store: str) -> torch.Tensor:
@@ -152,6 +204,30 @@ def qconv(a, w, scale, stride: int, pad, store: str) -> torch.Tensor:
     if a.is_cuda:
         return _qconv_cuda(a, w, scale, stride, pad, store)
     return qconv_reference(a, w, scale, stride, pad, store)
+
+
+def qconv_stats_reference(a, w, scale, stride: int, pad, store: str, tq=None):
+    """Plain version of :func:`qconv_stats`: :func:`qconv_reference`, then
+    :func:`bn_stats_reference` of its output."""
+    t = qconv_reference(a, w, scale, stride, pad, store)
+    return (t, *bn_stats_reference(t, tq))
+
+
+def qconv_stats(a, w, scale, stride: int, pad, store: str, tq=None):
+    """K6 with K7's BN sums of its stored output: ``(t, sum, sum of
+    squares)``, the sums ``(N, Cout)`` f32 over (h, w) of ``load_stored(t,
+    tq)`` (``tq``: the int8 store's read-back scale, None for the others).
+    On the card K6's epilogue takes them from each staged 8 x 8 tile, over
+    runs of a warpgroup's tiles of one instance, and :func:`bn_stats_fold`
+    adds the runs of each instance (one K6 launch, and one fold launch
+    where the map is more than one tile); the conv must run on K6's wgmma
+    kernels, as every conv of r18, r34 and r50 does."""
+    if a.is_cuda:
+        t, part, run, s1, s2 = _qconv_cuda(a, w, scale, stride, pad, store, sums=True, tq=tq)
+        if part is not None:
+            s1, s2 = _bn_stats_fold_cuda(part, run)
+        return t, s1, s2
+    return qconv_stats_reference(a, w, scale, stride, pad, store, tq)
 
 
 # --------------------------------------------------------------------- K7
@@ -199,6 +275,65 @@ def bn_stats(t: torch.Tensor, tq: torch.Tensor | None = None):
     if t.is_cuda:
         return _bn_stats_cuda(t, tq)
     return bn_stats_reference(t, tq)
+
+
+def run_ends(n: int, tiles: int, run: int) -> torch.Tensor:
+    """Which of each instance's ``tiles`` partial slots K6 writes when it
+    sums ``run`` consecutive tiles of one instance together: ``(n, tiles)``
+    bool, slot k of instance i where ``(i * tiles + k + 1) % run == 0`` or k
+    is the instance's last tile."""
+    t = torch.arange(n * tiles).view(n, tiles)
+    ends = (t + 1) % run == 0
+    ends[:, -1] = True
+    return ends
+
+
+def bn_stats_fold_reference(part: torch.Tensor, run: int = 1):
+    """Plain version of K7's fold: of ``part (N, tiles, C, 2)`` float64 (a
+    run's sum and sum of squares at its last tile, :func:`run_ends`), the
+    runs' slots added in tile order from 0, as the kernel adds them, each
+    rounded to f32 at the end."""
+    a = torch.zeros(part.shape[0], part.shape[2], dtype=torch.float64, device=part.device)
+    b = torch.zeros_like(a)
+    ends = run_ends(part.shape[0], part.shape[1], run).to(part.device)
+    for k in range(part.shape[1]):
+        a = torch.where(ends[:, k, None], a + part[:, k, :, 0], a)
+        b = torch.where(ends[:, k, None], b + part[:, k, :, 1], b)
+    return a.to(torch.float32), b.to(torch.float32)
+
+
+def _bn_stats_fold_cuda(part, run: int):
+    kernel = cuda_build.KERNELS["bn_stats_fold"]
+    if not (part.is_cuda and part.dtype == torch.float64 and part.dim() == 4
+            and part.shape[-1] == 2 and part.is_contiguous()):
+        raise ValueError(f"{kernel.name}: expected contiguous float64 CUDA partials (N, tiles, "
+                         f"C, 2), got {part.dtype} {tuple(part.shape)} on {part.device}")
+    if run < 1:
+        raise ValueError(f"{kernel.name}: run {run} (needs at least 1)")
+    n, tiles, c, _ = part.shape
+    s1 = torch.empty((n, c), dtype=torch.float32, device=part.device)
+    s2 = torch.empty_like(s1)
+    if s1.numel() == 0:
+        return s1, s2
+    fn = cuda_build.load(kernel.source).bn_stats_fold
+    fn.restype = ctypes.c_int
+    i32, ptr = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr]
+    err = fn(part.data_ptr(), n, tiles, c, run, s1.data_ptr(), s2.data_ptr(),
+             cuda_build.stream_handle(part.device))
+    cuda_build.check(err, kernel.name)
+    kernel.launches += 1
+    return s1, s2
+
+
+def bn_stats_fold(part: torch.Tensor, run: int = 1):
+    """K7's fold: the partial sums that :func:`qconv_stats` leaves on the
+    card, ``(N, tiles, C, 2)`` float64, one per ``run`` consecutive tiles of
+    an instance at the run's last slot (:func:`run_ends`), -> ``(sum, sum of
+    squares)`` ``(N, C)`` f32 per instance, the runs added in order."""
+    if part.is_cuda:
+        return _bn_stats_fold_cuda(part, run)
+    return bn_stats_fold_reference(part, run)
 
 
 # --------------------------------------------------------------------- K8

@@ -24,7 +24,10 @@ scheme and the same numbers:
   pool run in f32 with the float path's masked batch-statistics semantics.
 
 On CUDA tensors every int8 conv is K6 and every BN epilogue K7/K8
-(``ops/quant_kernels.py``); on CPU tensors their plain versions run.
+(``ops/quant_kernels.py``); on CPU tensors their plain versions run.  The
+BN sums of a block's conv come out of K6's epilogue (``qconv_stats``);
+the standalone K7 (``bn_stats``) reads back only the stem's output, which
+cuDNN (or the s2d stem's gather conv) stored.
 
 The plan is a dict of tensors on the predictor's device, built once in f32
 on the CPU from the port's backbone (or its state_dict) and then moved, so
@@ -50,6 +53,7 @@ from montecarlo_gated_mil_tpu_torch.ops.quant_kernels import (
     bn_relu_quant,
     bn_stats,
     qconv,
+    qconv_stats,
 )
 
 BN_EPS = 1e-5
@@ -245,23 +249,32 @@ def _store_for(qw: dict, store: str) -> str:
 
 
 def _qconv_stored(ai, qw: dict, stride: int, pad: int, store: str):
-    """int8 conv whose raw output is stored in ``store``'s dtype.  Returns
-    the stored tensor and its ``tq`` (the int8 store's read-back scale)."""
+    """int8 conv whose raw output is stored in ``store``'s dtype, with its
+    BN sums taken as it is stored (``qconv_stats``: in K6's epilogue on the
+    card).  Returns the stored tensor and its ``tq`` (the int8 store's
+    read-back scale); the sums ride on the tensor as ``t.bn_sums`` for
+    :func:`_bn_affine`."""
     store = _store_for(qw, store)
     scale = qw["st"] if store == "i8" else qw["s"]
-    t = qconv(ai, qw["w"], scale, stride, (pad,) * 4, store)
-    return t, (qw["t"] if store == "i8" else None)
+    tq = qw["t"] if store == "i8" else None
+    t, s1, s2 = qconv_stats(ai, qw["w"], scale, stride, (pad,) * 4, store, tq)
+    t.bn_sums = (s1, s2)
+    return t, tq
 
 
 def _bn_affine(t, tq, bn: dict, m: torch.Tensor):
     """Masked batch statistics of the stored ``t`` -> the effective f32
     ``(scale, shift)`` of its BN.
 
-    The masked reduction, the variance and ``rsqrt`` run in float64 and
-    round once to f32, so the card (cuBLAS, an approximate ``rsqrtf``) and
-    the CPU give the same affine, and so the same codes; the affine itself
-    is f32, in the JAX package's order."""
-    s_p, sq_p = bn_stats(t, tq)
+    The per-instance sums are the ones ``_qconv_stored`` took with the
+    conv (``t.bn_sums``); the stem's output, which no kernel here stored,
+    has none, and K7 (``bn_stats``) reads it back for them.  The masked
+    reduction, the variance and ``rsqrt`` run in float64 and round once to
+    f32, so the card (cuBLAS, an approximate ``rsqrtf``) and the CPU give
+    the same affine, and so the same codes; the affine itself is f32, in
+    the JAX package's order."""
+    sums = getattr(t, "bn_sums", None)
+    s_p, sq_p = bn_stats(t, tq) if sums is None else sums
     m64 = m.to(torch.float64)
     n_valid = m64.sum()
     count = torch.clamp(n_valid * (t.shape[1] * t.shape[2]), min=1.0)
@@ -377,8 +390,9 @@ def quantized_embed_static(
 ) -> torch.Tensor:
     """int8 embed with static activation scales: patches ``(N, h, w, 3)`` ->
     f32 features ``(N, L)``.  Per conv: the int8 activation read, the stored
-    raw output written, one read of it for the statistics (K7) and one for
-    the normalize + requantize epilogue (K8), the int8 activation written."""
+    raw output written with its BN sums (K6's epilogue; the stem's output
+    read once more for them, K7), one read of it for the normalize +
+    requantize epilogue (K8), the int8 activation written."""
     if mask is None:
         mask = torch.ones(patches.shape[0], dtype=torch.bool, device=patches.device)
     x = patches

@@ -1,9 +1,10 @@
 """The int8 embed's traffic experiments on the card.
 
 Counterpart of the JAX package's ``tools/profile_int8.py``, on the port's
-int8 embed (``ops/quantized.py``: cuDNN's bf16 stem conv, then K6 int8
-convs, K7 BN statistics and K8 normalize + ReLU + requantize), at its bag
-(256 patches at 224 px, r18 with seeded bf16 weights, all valid):
+int8 embed (``ops/quantized.py``: cuDNN's bf16 stem conv and its K7 BN
+statistics, then K6 int8 convs taking their BN sums in the epilogue, and
+K8 normalize + ReLU + requantize), at its bag (256 patches at 224 px, r18
+with seeded bf16 weights, all valid):
 
   stem    the stem conv alone, with K7's statistics, and the whole stem two
           ways: pool-fused (K8's ``pool_i8`` mode, the shipped stem, which
@@ -17,10 +18,12 @@ convs, K7 BN statistics and K8 normalize + ReLU + requantize), at its bag
           K6's epilogue writes all three and K7/K8 read all three.  The
           shipped plan narrows a store only where Cout >= 128 (layers 2-4),
           so layer 1's narrow rows are the experiment's alone;
-  full    the whole int8 embed by ``conv_store``, then each stage with K7's
-          statistics and again with them given (replayed from a first call),
-          so the difference is what K7's re-read of each conv output costs
-          (ROADMAP queue 2, item 6), beside that re-read's byte bound.
+  full    the whole int8 embed by ``conv_store``, then each stage with its
+          BN sums taken and again with them given (replayed from a first
+          call; the convs then run K6 alone), so the difference is what the
+          sums cost: at the stem K7's re-read of the conv output (beside that
+          read's byte bound), at the layers K6's epilogue and the fold of its
+          partials (ROADMAP queue 2, item 6, which moved them there).
 
 Each row is the chained slope (``utils/profiling.py::slope_time``) and, on
 the card, the CUDA-event time behind a sleep kernel (``time_ms``).  The
@@ -138,23 +141,41 @@ def run_blocks(net, mask, kw, cuda, h: int, g) -> dict:
 
 
 class _ReplayedStats:
-    """``bn_stats`` recorded on one call of a stage, then given back in the
-    same order on every later call, with the bytes each launch read."""
+    """A stage's BN sums recorded on one call, K7's (``bn_stats``, the stem)
+    and K6's epilogue's (``qconv_stats``, the convs), then given back in the
+    same order on every later call, the convs running K6 alone (``qconv``);
+    with the bytes K7 read."""
 
     def __init__(self):
-        self.kernel = qz.bn_stats
-        self.outputs, self.nbytes, self.i = [], 0, 0
+        self.stats, self.conv_stats = qz.bn_stats, qz.qconv_stats
+        self.k7, self.convs, self.nbytes, self.i, self.j = [], [], 0, 0, 0
 
     def record(self, t, tq=None):
-        out = self.kernel(t, tq)
-        self.outputs.append(out)
+        out = self.stats(t, tq)
+        self.k7.append(out)
         self.nbytes += t.numel() * t.element_size()
         return out
 
+    def record_conv(self, a, w, scale, stride, pad, store, tq=None):
+        t, s1, s2 = self.conv_stats(a, w, scale, stride, pad, store, tq)
+        self.convs.append((s1, s2))
+        return t, s1, s2
+
     def replay(self, t, tq=None):
-        out = self.outputs[self.i % len(self.outputs)]
+        out = self.k7[self.i % len(self.k7)]
         self.i += 1
         return out
+
+    def replay_conv(self, a, w, scale, stride, pad, store, tq=None):
+        s1, s2 = self.convs[self.j % len(self.convs)]
+        self.j += 1
+        return qz.qconv(a, w, scale, stride, pad, store), s1, s2
+
+    def use(self, stats, conv_stats):
+        qz.bn_stats, qz.qconv_stats = stats, conv_stats
+
+    def restore(self):
+        qz.bn_stats, qz.qconv_stats = self.stats, self.conv_stats
 
 
 def run_full(net, patches, mask, kw, cuda) -> dict:
@@ -165,27 +186,31 @@ def run_full(net, patches, mask, kw, cuda) -> dict:
         rows[store] = measure(f"quantized_embed_static conv_store={store}",
                               lambda p, plan=plan: qz.quantized_embed_static(plan, p, mask),
                               patches, kw, cuda)
-    print("\n== K7's re-read of each conv output, by stage (conv_store=bf16) ==", flush=True)
+    print("\n== the BN sums of each conv output, by stage (conv_store=bf16): K7 at the stem, "
+          "K6's epilogue and the fold at the layers ==", flush=True)
     plan = qz.quantize_backbone_static(net, "r18")
     x = patches
     for stage, run in qz.quantized_stages(plan, mask):
         stats = _ReplayedStats()
-        qz.bn_stats = stats.record
+        stats.use(stats.record, stats.record_conv)
         try:
             nxt = run(x)
-            qz.bn_stats = stats.kernel
-            with_k7 = measure(f"{stage} with K7", run, x, kw, cuda)
-            qz.bn_stats = stats.replay
-            given = measure(f"{stage} with its statistics given", run, x, kw, cuda)
+            stats.restore()
+            taken = measure(f"{stage} with its sums taken", run, x, kw, cuda)
+            stats.use(stats.replay, stats.replay_conv)
+            given = measure(f"{stage} with its sums given", run, x, kw, cuda)
         finally:
-            qz.bn_stats = stats.kernel
-        cost = with_k7["slope"] - given["slope"]
+            stats.restore()
+        cost = taken["slope"] - given["slope"]
         bound = stats.nbytes / PEAK_BYTES
-        print(f"  {stage}: K7 costs {_common.ms(cost)} of {_common.ms(with_k7['slope'])} by the "
-              f"slope ({len(stats.outputs)} launches re-reading {stats.nbytes / 1e6:.1f} MB; "
-              f"that read's byte bound {_common.ms(bound)})", flush=True)
-        rows[f"{stage} K7"] = dict(with_k7=with_k7, given=given, cost=cost, bound=bound,
-                                   nbytes=stats.nbytes, launches=len(stats.outputs))
+        where = (f"K7: {len(stats.k7)} launches re-reading {stats.nbytes / 1e6:.1f} MB, that "
+                 f"read's byte bound {_common.ms(bound)}" if stats.k7 else
+                 f"K6's epilogue in {len(stats.convs)} convs, and their folds")
+        print(f"  {stage}: the sums cost {_common.ms(cost)} of {_common.ms(taken['slope'])} by "
+              f"the slope ({where})", flush=True)
+        rows[f"{stage} sums"] = dict(taken=taken, given=given, cost=cost, bound=bound,
+                                     nbytes=stats.nbytes, k7_launches=len(stats.k7),
+                                     convs=len(stats.convs))
         x = nxt
     return rows
 

@@ -138,16 +138,22 @@ def test_stem_geometry_refuses_rows_too_wide():
 
 
 def _launches(embed, patches):
-    """(h, w, C, mode, residual kind) of every K8 launch and (h, w, C) of
-    every K7 launch while ``embed`` runs the plain versions."""
+    """(h, w, C, mode, residual kind) of every K8 launch, and (h, w, C) of
+    every K7 launch and of every conv that takes K7's sums in K6's epilogue,
+    while ``embed`` runs the plain versions."""
     from montecarlo_gated_mil_tpu_torch.ops import quantized
 
-    k7, k8 = [], []
-    stats, quant = quantized.bn_stats, quantized.bn_relu_quant
+    k7, k8, fused = [], [], []
+    stats, quant, conv_stats = quantized.bn_stats, quantized.bn_relu_quant, quantized.qconv_stats
 
     def rec_stats(t, tq=None):
         k7.append(tuple(t.shape[1:]))
         return stats(t, tq)
+
+    def rec_conv_stats(*args):
+        out = conv_stats(*args)
+        fused.append(tuple(out[0].shape[1:]))
+        return out
 
     def rec_quant(t, tq, scale, shift, residual=None, mode="i8"):
         kind = None if residual is None else ("identity" if residual.shift is None
@@ -156,17 +162,20 @@ def _launches(embed, patches):
         return quant(t, tq, scale, shift, residual, mode)
 
     quantized.bn_stats, quantized.bn_relu_quant = rec_stats, rec_quant
+    quantized.qconv_stats = rec_conv_stats
     try:
         embed(patches)
     finally:
         quantized.bn_stats, quantized.bn_relu_quant = stats, quant
-    return k7, k8
+        quantized.qconv_stats = conv_stats
+    return k7, k8, fused
 
 
 def test_chip_smoke_times_every_k7_and_k8_launch_of_a_request():
-    """``chip_smoke.py``'s K7_SHAPES and K8_SHAPES list each distinct launch
-    of an r18 int8 embed with its count per request (17 K8, 20 K7).  Here at
-    64 px, where every map is 3.5 times smaller than at 224 px."""
+    """``chip_smoke.py``'s K7_SHAPES and K8_SHAPES list each distinct set of
+    BN sums and K8 launch of an r18 int8 embed with its count per request
+    (17 K8, 20 sums: the stem's by K7, the 19 convs' in K6's epilogue).
+    Here at 64 px, where every map is 3.5 times smaller than at 224 px."""
     from collections import Counter
 
     from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
@@ -177,17 +186,40 @@ def test_chip_smoke_times_every_k7_and_k8_launch_of_a_request():
     patches = torch.from_numpy(
         np.random.default_rng(0).uniform(-2.0, 2.5, (1, 64, 64, 3)).astype(np.float32))
     with torch.inference_mode():
-        k7, k8 = _launches(lambda p: quantized.quantized_embed_static(plan, p), patches)
+        k7, k8, fused = _launches(lambda p: quantized.quantized_embed_static(plan, p), patches)
 
     def at_224(h, w):
         return int(h * 3.5), int(w * 3.5)
 
     cs = _chip_smoke()
-    assert Counter((*at_224(h, w), c) for h, w, c in k7) == {
+    assert [at_224(h, w) + (c,) for h, w, c in k7] == [(112, 112, 64)]  # the stem alone
+    assert Counter((*at_224(h, w), c) for h, w, c in k7 + fused) == {
         hwc: k for _, hwc, k in cs.K7_SHAPES}
     assert Counter((*at_224(h, w), c, mode, res) for h, w, c, mode, res in k8) == {
         (*hwc, mode, res): k for _, hwc, mode, res, k in cs.K8_SHAPES}
     assert sum(k for *_, k in cs.K8_SHAPES) == 17 and sum(k for *_, k in cs.K7_SHAPES) == 20
+
+
+def test_chip_smoke_loads_without_importing_the_port():
+    """``chip_smoke.py`` imports nothing of the port when it loads, so that
+    ``--kernels-from DIR`` and ``--heads-from DIR`` time the package under
+    DIR, not this tree's; its fold count per request agrees with
+    ``quant_kernels.sum_tiles``."""
+    import subprocess
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location('cs', 'chip_smoke.py')\n"
+            "cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)\n"
+            "print(sorted(m for m in sys.modules if m.startswith('montecarlo_gated_mil_tpu')))\n"
+            "print(cs.FOLDS_PER_REQUEST)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=120, check=True).stdout.split("\n")
+    assert out[0] == "[]"
+    cs = _chip_smoke()
+    want = sum(per for _, h, w, _, _, k, s, pad, per in cs.QCONV_SHAPES
+               if per and qk.sum_tiles(*qk.conv_out_hw(h, w, k, k, s, pad)) > 1)
+    assert int(out[1]) == cs.FOLDS_PER_REQUEST == want == 14
 
 
 @pytest.mark.parametrize("mode", qk.MODES)

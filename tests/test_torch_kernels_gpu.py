@@ -143,6 +143,8 @@ FULL_CASES = {
     "r50_L2048_T4": (600, 450, "random", 4, 2048),
     "valid_first_T50": (3072, 2400, "first", 50, 512),  # a served request's bag
     "eight_classes_T9": (4500, 3000, "random", 9, 512, 8),  # C = 8, an odd T
+    # The JAX package's 3-class model at the shipped widths: a training bag.
+    "three_classes_T1": (3072, 2400, "random", 1, 512, 3),
 }
 
 
@@ -189,10 +191,10 @@ def test_mc_head_kernel_full_width(cuda, case, p):
     assert torch.equal(y_again, y_k) and torch.equal(a_again, a_k)
 
 
-# The backward's cases: the forward-only ones added with K1's wgmma pass
-# (a served bag at T = 50, eight classes) stay out.
+# The backward's cases: every one but the served bags at T = 50; three and
+# eight classes run the dH block in chunks of the depth.
 BWD_CASES = [c for c in FULL_CASES if not c.startswith("random_T50")
-             and c not in ("valid_first_T50", "eight_classes_T9")]
+             and c != "valid_first_T50"]
 
 
 @pytest.mark.gpu
@@ -232,7 +234,7 @@ def test_forward_logits_against_f64(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", F64_CASES)
+@pytest.mark.parametrize("case", F64_CASES + ["three_classes_T1"])
 def test_backward_products_against_f64(cuda, case):
     """K5's dH, dw_V and dw_U within PRODUCTS_VS_F64 of their size against
     the f64 plain backward; plain TF32 products would miss it by over 10x."""
@@ -247,6 +249,45 @@ def test_backward_products_against_f64(cuda, case):
     for name, got, ref in (("H", dH, exact[0]), ("w_V", dwv, exact[1]), ("w_U", dwu, exact[3])):
         rel = float((got.double() - ref).abs().max() / ref.abs().max())
         assert rel <= PRODUCTS_VS_F64, (name, rel)
+
+
+@pytest.mark.gpu
+def test_backward_workspace_takes_every_shape_the_forward_takes(cuda):
+    """The library's workspace queries, without a launch: wherever K1's
+    (``mc_head_forward_workspace``) answers a size, K5's and K4's
+    (``mc_head_backward_workspace``, with the slices ``_mc_head_bwd_cuda``
+    asks for) answer one too, over N, L, D, C up to 8, G 1 or C and T."""
+    import ctypes
+
+    lib = cuda_build.load("mc_head_bwd.cu")
+    fwd = cuda_build.load("mc_head.cu").mc_head_forward_workspace
+    bwd = lib.mc_head_backward_workspace
+    fwd.restype = bwd.restype = ctypes.c_long
+    fwd.argtypes = [ctypes.c_int] * 6
+    bwd.argtypes = [ctypes.c_int] * 7
+    refused, taken = [], 0
+    for N in (256, 1024, 3072, 6144):
+        for L in (512, 2048):
+            for D in (32, 64, 128):
+                for C in range(1, 9):
+                    for G in sorted({1, C}):
+                        for T in (1, 4, 50):
+                            if fwd(N, L, D, C, G, T) < 0:
+                                continue
+                            taken += 1
+                            slices = max(1, min(16, -(-T * N // 128)))
+                            if bwd(N, L, D, C, G, T, slices) < 0:
+                                refused.append((N, L, D, C, G, T))
+    assert taken == 4 * 2 * 3 * (8 + 7) * 3 and not refused, refused
+
+
+@pytest.mark.gpu
+def test_three_class_train_step_on_the_card_matches_cpu(cuda):
+    """One training step of a separate-gate model with 3 classes (K1 and K5
+    at C = G = 3 on the card) against the CPU plain step, dropout on
+    (``chip_smoke.check_small_train_step_against_cpu``'s limits, each head
+    tensor's with 5e-5 of the largest head gradient added, as K5's own)."""
+    _chip_smoke().check_small_train_step_against_cpu(3, head_floor=5e-5)
 
 
 def test_full_width_cases_pad_whole_tiles():
@@ -610,9 +651,10 @@ def test_stem_pool_quant_kernel(cuda, hw):
 @pytest.mark.parametrize("stem", ["bf16", "s2d_i8"])
 @pytest.mark.parametrize("store", ["bf16", "f8", "i8"])
 def test_quantized_embed_on_the_card(cuda, stem, store):
-    """The int8 embed of a small r18 bag on the card goes through K6, K7 and
-    K8 only (19 int8 convs), and tracks the float embed as the CPU tests
-    hold it (cosine > 0.97 per valid instance)."""
+    """The int8 embed of a small r18 bag on the card goes through K6 (19
+    int8 convs, each with K7's sums in its epilogue), K7 (the stem), the
+    fold and K8 only, and tracks the float embed as the CPU tests hold it
+    (cosine > 0.97 per valid instance)."""
     from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
     from montecarlo_gated_mil_tpu_torch.ops.quantized import (
         quantize_backbone_static,
@@ -630,8 +672,12 @@ def test_quantized_embed_on_the_card(cuda, stem, store):
         hq = quantized_embed_static(plan, patches, mask)
         hf = backbone(patches, mask)
     torch.cuda.synchronize()
-    launches = {k: cuda_build.KERNELS[k].launches for k in ("qconv_i8", "bn_stats", "bn_relu_quant")}
-    assert launches == {"qconv_i8": 19 + (stem == "s2d_i8"), "bn_stats": 20, "bn_relu_quant": 17}
+    launches = {k: cuda_build.KERNELS[k].launches
+                for k in ("qconv_i8", "bn_stats", "bn_stats_fold", "bn_relu_quant")}
+    # K7 for the stem alone; the convs' sums in K6's epilogue, folded where
+    # a map is more than one tile (at 64 px, layer 1's 16 x 16 only).
+    assert launches == {"qconv_i8": 19 + (stem == "s2d_i8"), "bn_stats": 1, "bn_stats_fold": 4,
+                        "bn_relu_quant": 17}
     cos = torch.nn.functional.cosine_similarity(hq[:10], hf[:10], dim=-1)
     assert bool(torch.isfinite(hq).all()) and float(cos.min()) > 0.97
 
@@ -665,6 +711,93 @@ def _chip_smoke():
         sys.modules["chip_smoke"] = module
         spec.loader.exec_module(module)
     return sys.modules["chip_smoke"]
+
+
+def _conv_sums_case(cuda, a, w, scale, stride, pad, store, seed):
+    """K6 with K7's sums (``qconv_stats``) on the card against K6 alone and
+    K7's plain version: the store bit for bit, the sums within 1e-6 of
+    ``bn_stats_reference``'s size, a second call bitwise equal."""
+    tq = None
+    if store == "i8":
+        g = torch.Generator().manual_seed(seed)
+        tq = (torch.rand(w.shape[0], generator=g) * 0.05 + 0.01).to(cuda)
+        scale = scale * 50.0
+    kernel = cuda_build.KERNELS["qconv_i8"]
+    before = kernel.launches
+    t, s1, s2 = qk.qconv_stats(a, w, scale, stride, pad, store, tq)
+    plain = qk.qconv(a, w, scale, stride, pad, store)
+    r1, r2 = qk.bn_stats_reference(plain, tq)
+    again = qk.qconv_stats(a, w, scale, stride, pad, store, tq)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 3
+    assert torch.equal(t.view(torch.uint8), plain.view(torch.uint8))
+    for got, want in ((s1, r1), (s2, r2)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert torch.equal(again[0].view(torch.uint8), t.view(torch.uint8))
+    assert torch.equal(again[1], s1) and torch.equal(again[2], s2)
+
+
+# K7's sums in K6's epilogue at every r18 conv of a request (every
+# K7_SHAPES shape but the stem's, on both wgmma kernels), 5 instances (a
+# pair or a cluster partly filled), each store.
+SUMS_CONVS = [(label, *rest) for label, *rest, per in _chip_smoke().QCONV_SHAPES if per]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("conv", SUMS_CONVS, ids=lambda c: c[0])
+@pytest.mark.parametrize("store", ["bf16", "f8", "i8"])
+def test_conv_sums_at_every_r18_conv(cuda, conv, store):
+    _, h, w, cin, cout, k, stride, pad = conv
+    g = torch.Generator().manual_seed(31)
+    a = torch.randint(-127, 128, (5, h, w, cin), generator=g, dtype=torch.int8).to(cuda)
+    wt = torch.randint(-127, 128, (cout, k, k, cin), generator=g, dtype=torch.int8).to(cuda)
+    scale = (torch.rand(cout, generator=g) * 2e-4 + 1e-5).to(cuda)
+    _conv_sums_case(cuda, a, wt, scale, stride, pad, store, 32)
+
+
+# QCONV_CASES on the wgmma kernels: odd sizes, a half-filled cluster,
+# 6144 instances (layer 1's 3x3 and layer 4's 3x3/2 there).
+SUMS_CASES = [c for c in QCONV_CASES if QCONV_CASES[c][3] % 64 == 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SUMS_CASES)
+@pytest.mark.parametrize("store", ["bf16", "i8"])
+def test_conv_sums_qconv_cases(cuda, case, store):
+    a, w, scale, stride, pad = _qconv_inputs(cuda, case)
+    _conv_sums_case(cuda, a, w, scale, stride, pad, store, 33)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["layer1_3x3_n6144", "3x3_s1_m_315", "layer3_3x3"])
+def test_fold_matches_plain_bit_for_bit(cuda, case):
+    """The fold of the kernel's own partials equals the fold's plain version
+    (the same float64 adds in the same order) bit for bit, and launches
+    once."""
+    a, w, scale, stride, pad = _qconv_inputs(cuda, case)
+    _, part, run, _, _ = qk._qconv_cuda(a, w, scale, stride, pad, "bf16", sums=True)
+    assert part is not None and run in (1, 2, 4)
+    fold = cuda_build.KERNELS["bn_stats_fold"]
+    before = fold.launches
+    got = qk.bn_stats_fold(part, run)
+    want = qk.bn_stats_fold_reference(part, run)
+    torch.cuda.synchronize()
+    assert fold.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_conv_sums_refuse_the_gather_path(cuda):
+    """The s2d stem's conv runs the gather kernel, which takes no sums: the
+    conv with sums refuses it (K7 reads that output back), as it refuses an
+    int8 store without its tq."""
+    a, w, scale, stride, pad = _qconv_inputs(cuda, "s2d_stem_4x4")
+    with pytest.raises(ValueError, match="wgmma"):
+        qk.qconv_stats(a, w, scale, stride, pad, "bf16")
+    a, w, scale, stride, pad = _qconv_inputs(cuda, "3x3_s1_64")
+    with pytest.raises(ValueError, match="tq"):
+        qk.qconv_stats(a, w, scale, stride, pad, "i8")
 
 
 # K8 at every launch of an r18 request (chip_smoke.K8_SHAPES), at 3
@@ -743,7 +876,8 @@ def test_stem_pool_quant_input_past_2_31_elements(cuda):
 def test_int8_embed_runs_k7_and_k8_by_device_function(cuda):
     """The profiled r18 int8 embed at 224 px launches K8's device functions
     17 times (the stem pool once, the mean once, the elementwise mode 15
-    times) and K7's 20 times."""
+    times), K7 once (the stem's sums; the convs' come from K6's epilogue)
+    and the fold 14 times (every conv but layer 4's 7 x 7 ones)."""
     from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
     from montecarlo_gated_mil_tpu_torch.ops import quantized
 
@@ -757,7 +891,7 @@ def test_int8_embed_runs_k7_and_k8_by_device_function(cuda):
             quantized.quantized_embed_static(plan, patches)
 
     got = _device_launches(embed, "bn_quant.cu")
-    assert got == {"bn_stats_kernel": 20, "bn_relu_quant_kernel": 15,
+    assert got == {"bn_stats_kernel": 1, "bn_stats_fold_kernel": 14, "bn_relu_quant_kernel": 15,
                    "bn_relu_mean_kernel": 1, "stem_pool_quant_kernel": 1}
 
 
@@ -765,7 +899,8 @@ def test_int8_embed_runs_k7_and_k8_by_device_function(cuda):
 def test_bench_int8_embed_at_256_runs_the_wgmma_kernel(cuda):
     """The bench's int8 embed: the bag of 256 patches at 224 px, bf16, of
     ``bench.run_bench`` runs each of r18's 19 convs on a wgmma kernel (9 on
-    ``qconv_wgmma_pair_kernel``) and its epilogues on K7 and K8."""
+    ``qconv_wgmma_pair_kernel``) and its epilogues on K7 (the stem), the
+    fold and K8."""
     from montecarlo_gated_mil_tpu_torch import bench
     from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
     from montecarlo_gated_mil_tpu_torch.ops import quantized
@@ -781,8 +916,8 @@ def test_bench_int8_embed_at_256_runs_the_wgmma_kernel(cuda):
     wgmma_fn, pair_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
     assert _device_launches(embed) == {wgmma_fn: 10, pair_fn: 9, gather_fn: 0}
     assert _device_launches(embed, "bn_quant.cu") == {
-        "bn_stats_kernel": 20, "bn_relu_quant_kernel": 15, "bn_relu_mean_kernel": 1,
-        "stem_pool_quant_kernel": 1}
+        "bn_stats_kernel": 1, "bn_stats_fold_kernel": 14, "bn_relu_quant_kernel": 15,
+        "bn_relu_mean_kernel": 1, "stem_pool_quant_kernel": 1}
 
 
 @pytest.mark.gpu

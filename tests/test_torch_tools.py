@@ -295,6 +295,20 @@ def test_profile_int8_rows_on_the_cpu(capsys, which):
         assert set(rows) == {(s, t) for s in ("l1", "l2") for t in profile_int8.STORES}
 
 
+def test_profile_int8_full_times_the_sums_both_ways(capsys):
+    """``full`` on the plain versions at 4 patches of 32 px: each stage timed
+    with its BN sums taken and again given; K7 reads back the stem's output
+    alone, the layers' 19 convs take theirs with the conv."""
+    res = profile_int8.main(["full", "--patches", "4", "--patch", "32", *QUICK], device="cpu")
+    _lines(capsys)
+    sums = {k: v for k, v in res["full"].items() if k.endswith(" sums")}
+    assert list(sums) == ["stem sums", "l1 sums", "l2 sums", "l3 sums", "l4 sums"]
+    assert [(v["k7_launches"], v["convs"]) for v in sums.values()] == [
+        (1, 0), (0, 4), (0, 5), (0, 5), (0, 5)]
+    assert all(np.isfinite(v["cost"]) and np.isfinite(v["given"]["slope"]) for v in sums.values())
+    assert set(res["full"]) - set(sums) == set(profile_int8.STORES)
+
+
 def test_fuzz_dicom_few_trials_finds_no_fault(tmp_path):
     """A few mutations of every seed through the reader built with ASan and
     UBSan: no fault; where this host's compiler cannot link sanitizers, a

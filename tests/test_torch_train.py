@@ -64,17 +64,19 @@ def _plans(optimizer="sgd", lr=0.05, wd=0.0, k=1, sched=None):
     )
 
 
-def _models(shared, dtype, hw, n=8):
+def _models(shared, dtype, hw, n=8, num_classes=2):
     """A JAX model with fresh parameters and the port's model loaded with
     the same weights (dropout 0)."""
     jdt = jnp.float64 if dtype == np.float64 else jnp.float32
     tdt = torch.float64 if dtype == np.float64 else torch.float32
-    jm = JaxMIL(feature_dropout=0.0, attention_dropout=0.0, shared_attention=shared, dtype=jdt)
+    jm = JaxMIL(num_classes=num_classes, feature_dropout=0.0, attention_dropout=0.0,
+                shared_attention=shared, dtype=jdt)
     params = jax.jit(jm.init)(jax.random.key(0), jnp.zeros((n, hw, hw, 3), jdt),
                               jnp.ones(n, bool))["params"]
     params = jax.tree.map(lambda a: np.asarray(a, dtype), params)
     tm = MultiHeadGatedAttentionMIL(
-        feature_dropout=0.0, attention_dropout=0.0, shared_attention=shared, dtype=tdt
+        num_classes=num_classes, feature_dropout=0.0, attention_dropout=0.0,
+        shared_attention=shared, dtype=tdt,
     ).to(tdt)
     tm.load_state_dict(from_jax_params(params))
     return jm, jax.tree.map(jnp.asarray, params), tm
@@ -127,6 +129,34 @@ def test_train_step_matches_jax_f64(shared):
         TrainState(tm, opt, sched), tbag, 2, True
     )
     assert state.step == 1 and state.acc_count == 0
+    assert abs(float(out["loss"]) - jloss) < 1e-8
+    assert abs(float(out["aux_loss"]) - jaux) < 1e-8
+    _assert_params_close(tm, js.params, atol=1e-8)
+
+
+def test_three_class_separate_gate_step_matches_jax_f64():
+    """A separate-gate model with three classes (three gates; the JAX
+    package trains one in tests/test_mcdo.py): one SGD step at dropout 0,
+    f64, on a bag of the third class equals the JAX step within 1e-8.  On
+    the card this step's head runs K1 and K5 at C = G = 3."""
+    rng = np.random.default_rng(5)
+    mask = np.arange(10) < 7
+    x = rng.standard_normal((10, 64, 64, 3)) * mask[:, None, None, None]
+    jplan, tplan = _plans("sgd", lr=0.05)
+    with _x64():
+        jm, jp, tm = _models(False, np.float64, 64, n=10, num_classes=3)
+        jbag, tbag = _bag_pair(x, mask, 2)
+        jopt = joptim.make_optimizer(jplan)
+        js, jout = jstate.make_train_step(jm, jcrit.cross_entropy, jopt, 1)(
+            jstate.TrainState.create(jp, jopt), jbag, jax.random.key(3), jnp.asarray(True)
+        )
+        jloss, jaux = float(jout["loss"]), float(jout["aux_loss"])
+    assert tm.num_classes == 3 and len(tm.attention_V) == 3
+    opt, sched = toptim.make_optimizer(tplan, tm.parameters())
+    state, out = make_train_step(tm, tcrit.cross_entropy, opt, 1)(
+        TrainState(tm, opt, sched), tbag, 3, True
+    )
+    assert state.step == 1
     assert abs(float(out["loss"]) - jloss) < 1e-8
     assert abs(float(out["aux_loss"]) - jaux) < 1e-8
     _assert_params_close(tm, js.params, atol=1e-8)
