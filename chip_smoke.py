@@ -22,7 +22,10 @@ Phases, each of which raises on failure:
    ``warmup()``, then requests on full-size 7036x2800 synthetic mammograms
    (float and uint16, both lateralities, a repeated seed that must reproduce
    bit for bit), and checks that the requests went through the kernels;
-   a small request is held against the CPU plain path;
+   a small request is held against the CPU plain path; the first request
+   again through ``MCDOPredictor(use_pallas=False)`` (the plain head on the
+   card): no K1/K2 launch, its statistics within 1e-4 and attention within
+   1e-5 of the kernel predictor's, both predictors' ms;
 4b. the serving front-ends on full-size mammograms written as ``.npy``:
    ``serve_jsonl`` through phase 4's predictor (with a malformed line and a
    missing file), ``cli.main(["serve", ...])`` with a YAML of ``Config()``,
@@ -33,8 +36,9 @@ Phases, each of which raises on failure:
 4q. the int8 serving path: K6 (int8 conv) at every distinct conv shape of
    r18 at N=3072 for each conv store, bit for bit against its plain version
    on 256 instances (on all 3072 at layer 1's 3x3, the shape launched
-   most), timed beside ``torch._int_mm`` and a cuDNN bf16 conv as
-   yardsticks; at every conv but the s2d stem's, K6 with K7's BN sums in
+   most), timed beside its plain version (bf16 store) and beside
+   ``torch._int_mm`` and a cuDNN bf16 conv as yardsticks; at every conv
+   but the s2d stem's, K6 with K7's BN sums in
    its epilogue (``qconv_stats``, the main path's call): its store bit for
    bit the plain version's, its sums within 1e-6 of K7's plain version, the
    fold of its partials bit for bit the fold's plain version, and its time
@@ -68,7 +72,9 @@ Phases, each of which raises on failure:
    statistics dtype and a few of its patches against the CPU, then
    ``bench.run_bench_both()`` (int8 headline, bf16 float path, bf16 train
    step), its JSON record printed on its own line and its launches counted
-   (K6-K8 per int8 bag, K2 per bag and train step, K4 per train step);
+   (K6-K8 per int8 bag, K2 per bag and train step, K4 per train step); then
+   ``cli bench`` on a YAML with ``tpu.use_pallas_attention: false`` (bf16,
+   T=3), which launches no head kernel;
 10. cross-validation at the shipped configuration's widths: ``cli cv``,
    ``cli cv-eval --ensemble`` and ``cli cv --resume`` after a crash in fold
    2, cut to 2 folds of 10 synthetic records and 1 epoch: the manifest,
@@ -118,9 +124,15 @@ Phases, each of which raises on failure:
    ms per bag and peaks; (b) one oversized training bag at bucket 2048 (phase
    4's first mammogram) through ``make_train_step_sharded`` at ``inst`` 2 and
    4 against the whole-bag ``make_train_step`` (loss rtol 1e-4, gradients
-   rtol 2e-3 / atol 2e-5); (c) the training-memory guard: a bucket-3072 bag
-   on the single-device route raises before its step, 2048 does not, and
-   (b)'s whole-bag peak stays under the guard's estimate; (d) phase 7's
+   rtol 2e-3 / atol 2e-5), and through ``make_train_step(use_pallas=False)``
+   (the plain head: no K1/K5 launch, within the same limits of the kernel
+   step); (c) the training-memory guard: a bucket-3072 bag on the
+   single-device route raises before its step, 2048 does not, (b)'s
+   whole-bag peak stays under the guard's estimate, and at every backbone
+   and compute dtype the config accepts (r18, r34, r50 x f32, bf16, f64)
+   the whole-bag step's peak at buckets 256, 512 and, where it fits, 1024
+   (f64: 128 and 256; ``tools/measure_hbm.py::train_peaks``) stays under
+   the estimate for the model trained; (d) phase 7's
    ``run_training`` with ``tpu.async_checkpointing``: its checkpoints load
    equal to a synchronous run's, and a resume from them writes the next one
    again equal; (e) ``cli cv`` with phase 10's config fanned out over two
@@ -602,6 +614,7 @@ def main() -> int:
         raise RuntimeError("the served requests did not go through the kernels")
     request_breakdown(pred, d)
     check_small_request_against_cpu()
+    check_plain_head_request(pred, cfg, weights, requests[0], first)
 
     header("4b", "serving front-ends: serve_jsonl, cli serve, HTTP server (full-size requests)")
     front_launches = check_front_ends(pred, d)
@@ -710,6 +723,56 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+# The plain head against K1 on one request: the statistics and the attention
+# within K1's limits against its plain version (phase 3; PERF.md section 2).
+PLAIN_STATS_TOL, PLAIN_ATTN_TOL = 1e-4, 1e-5
+
+
+def check_plain_head_request(pred, cfg, weights, request, want) -> None:
+    """Phase 4's first request through ``MCDOPredictor(use_pallas=False)``,
+    which runs the plain head (``mc_head_reference``, full f32) on the card:
+    no K1 or K2 launch, K3 as before, and its statistics and attention
+    within K1's limits of phase 4's kernel predictor's result ``want`` (same
+    image and seed).  Both predictors' ms are printed (host clock, after one
+    warm request each)."""
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+    from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
+
+    d = cfg.data
+    kind, lat, img_seed, seed = request
+    img = synthetic_image(d.H, d.W, positive=bool(img_seed % 2), seed=img_seed)
+    plain = MCDOPredictor.from_config(cfg, weights, use_pallas=False)
+    ms = {}
+    for name, p in (("kernel", pred), ("plain", plain)):
+        p.predict(img, lat, seed=seed)  # warm
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = p.predict(img, lat, seed=seed)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+        if name == "plain":
+            got, plain_launches = r, launches
+    se = max(float((getattr(got.stats, f) - getattr(want.stats, f)).abs().max())
+             for f in vars(want.stats))
+    ae = max(float((got.attention.mean - want.attention.mean).abs().max()),
+             float((got.attention.std - want.attention.std).abs().max()))
+    head = {k: plain_launches[k] for k in ("mc_head_sep", "mc_head_shared")}
+    print(f"  plain head (MCDOPredictor(use_pallas=False)), request {kind} {lat} image "
+          f"{img_seed} seed {seed}: {ms['plain']:.1f} ms against the kernel predictor's "
+          f"{ms['kernel']:.1f} ms; bucket {got.bucket}; max |d statistics| {se:.3e} (<= "
+          f"{PLAIN_STATS_TOL}), max |d attention| {ae:.3e} (<= {PLAIN_ATTN_TOL}); launches "
+          f"K1/K2 {head}, K3 {plain_launches['gather_tiles']}", flush=True)
+    if (any(head.values()) or plain_launches["gather_tiles"] != 1 or got.bucket != want.bucket
+            or got.num_instances != want.num_instances or got.prediction != want.prediction
+            or not se <= PLAIN_STATS_TOL or not ae <= PLAIN_ATTN_TOL):
+        raise RuntimeError(f"plain head request: launches {plain_launches}, statistics {se}, "
+                           f"attention {ae}, bucket {got.bucket}/{want.bucket}")
+    del plain
+    torch.cuda.empty_cache()
 
 
 def check_run_training() -> tuple[dict, float]:
@@ -1371,8 +1434,9 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False,
                 rows: dict | None = None) -> dict:
     """K6 at one r18 conv shape, for each store: bit for bit against the
     plain version (exact f64 accumulators) on QUANT_CHECK_N instances, or
-    with ``full`` on all QUANT_N, where the plain version is timed too;
-    timed at QUANT_N beside its int8 tensor-core and byte bounds.  Then K6
+    with ``full`` on all QUANT_N; timed at QUANT_N beside its int8
+    tensor-core and byte bounds and its plain version (for every store with
+    ``full``, else for bf16).  Then K6
     with K7's sums in its epilogue (``qconv_stats``, the main path's call)
     on the same inputs: its store equal to the plain version's
     bit for bit, its sums within SUMS_LIMIT of ``bn_stats_reference``, the
@@ -1424,7 +1488,7 @@ def check_qconv(label, h, w, cin, cout, k, stride, pad, g, full: bool = False,
         ms = time_ms(lambda: qk.qconv(a, wt, scale, stride, pad, store), iters=5,
                       what=f"K6 {label} {store}")
         plain = None
-        if full:
+        if full or store == "bf16":
             plain = time_ms(lambda: qk.qconv_reference(a, wt, scale, stride, pad, store),
                              iters=2, what="plain K6").ms
         nbytes = (n * _pixels_read(h, w, k, stride, pad) * cin + wt.numel()
@@ -1963,6 +2027,46 @@ def check_bench() -> dict:
         raise RuntimeError(f"bench: a number is not finite and positive: {rec}")
     if launches != want or rec["device"] != device_line("cuda") or "int8" not in rec["metric"]:
         raise RuntimeError(f"bench: launches {launches} (need {want}) or device line wrong")
+    plain = check_plain_head_bench()
+    return {k: n + plain[k] for k, n in launches.items()}
+
+
+def check_plain_head_bench() -> dict:
+    """``cli bench`` on a YAML with ``tpu.use_pallas_attention: false`` (and
+    ``compute_dtype: bfloat16``, the bench's float path) at the bench's bag,
+    3 samples a bag: the record printed, and no head kernel (K1, K2, K4, K5)
+    launched.  Returns its launch counts."""
+    import contextlib
+    import io
+
+    import yaml
+
+    from montecarlo_gated_mil_tpu_torch import bench, cli
+    from montecarlo_gated_mil_tpu_torch.core.config import Config, config_to_dict
+    from montecarlo_gated_mil_tpu_torch.ops import cuda_build
+
+    base = Config()
+    cfg = replace(base, tpu=replace(base.tpu, use_pallas_attention=False,
+                                    compute_dtype="bfloat16"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp, "config.yml")
+        path.write_text(yaml.safe_dump(config_to_dict(cfg)))
+        cuda_build.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["bench", "--config", str(path), "--samples", "3"])
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    heads = {k: launches[k] for k in ("mc_head_sep", "mc_head_shared", "mc_head_bwd_sep",
+                                      "mc_head_bwd_shared")}
+    print(f"  cli bench, tpu.use_pallas_attention: false, bf16, T=3: exit {rc}, {wall:.1f} s, "
+          f"{rec['value']} bags/s ({1 + bench.TRIALS * 20} bags); head kernel launches {heads}",
+          flush=True)
+    print(json.dumps(rec), flush=True)
+    if rc != 0 or any(heads.values()) or not rec["value"] > 0:
+        raise RuntimeError(f"cli bench with the plain head: exit {rc}, launches {launches}")
     return launches
 
 
@@ -3267,31 +3371,52 @@ def check_parallel_training(cv_cfg, cv_accuracies: dict) -> dict:
         if not shard_ok:
             raise RuntimeError("(b) the sharded training steps disagree with the whole bag or "
                                "missed K1/K5")
-        del whole_model, want
+        # (b) the same bag and seed through the plain head: make_train_step(use_pallas=False).
+        model = build_model(cfg, seed=22).cuda()
+        model.load_state_dict(base_sd)
+        opt, state = trainer(model)
+        step = make_train_step(model, crit, opt, 1, use_pallas=False)
+        ((_, out), ms, _), got = main(lambda: timed(lambda: step(state, bag, 3, False)))
+        lerr = abs(float(out["loss"]) - loss) / abs(loss)
+        gex = _excess(_grads(model), want, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL)
+        heads = {k: got[k] for k in ("mc_head_sep", "mc_head_bwd_sep", "mc_head_shared",
+                                     "mc_head_bwd_shared")}
+        print(f"  (b) make_train_step(use_pallas=False), the plain head: {ms:.1f} ms; loss rel. "
+              f"error {lerr:.3e} (<= {SHARD_LOSS_RTOL}); gradients' largest excess over rtol "
+              f"{SHARD_GRAD_RTOL} / atol {SHARD_GRAD_ATOL} against the kernel step: {gex:.3e} "
+              f"(<= 0); launches K1/K5/K2/K4 {heads}", flush=True)
+        if any(heads.values()) or not lerr <= SHARD_LOSS_RTOL or not gex <= 0.0:
+            raise RuntimeError(f"(b) the plain-head step: launches {heads}, loss {lerr}, "
+                               f"gradients {gex}")
+        del model, opt, state, step, whole_model, want
+        torch.cuda.empty_cache()
 
         # (c) the guard: the card's estimate against (b)'s measured peak.
-        est = loops._train_step_bytes(bag) / 2**30
-        loops._check_unrouted_train_bag(bag, max(cfg.tpu.buckets))  # 2048 fits: no raise
+        shipped = build_model(cfg)  # on the CPU: what the guard reads of the model trained
+        est = loops._train_step_bytes(bag, shipped) / 2**30
+        loops._check_unrouted_train_bag(bag, max(cfg.tpu.buckets), shipped)  # 2048 fits
         big = Bag(torch.zeros((3072, d.patch_size, d.patch_size, 3), device="cuda"),
                   torch.ones(3072, dtype=torch.bool, device="cuda"),
                   torch.tensor(1, device="cuda"), torch.arange(3072, device="cuda"))
         ran = []
         try:
-            loops.train_epoch(lambda *a: ran.append(a), None, [(big, None)], epoch=1,
-                              accumulation_steps=1, key=0, shard_over=max(cfg.tpu.buckets))
+            loops.train_epoch(lambda *a: ran.append(a), TrainState(shipped, None),
+                              [(big, None)], epoch=1, accumulation_steps=1, key=0,
+                              shard_over=max(cfg.tpu.buckets))
             raised = ""
         except ValueError as e:
             raised = str(e)
         limit = torch.cuda.get_device_properties(0).total_memory / 2**30
         print(f"  (c) guard: card {limit:.2f} GiB; bucket 2048 estimate {est:.2f} GiB (no raise; "
               f"(b)'s whole-bag peak {whole_abs:.3f} GiB in all); bucket 3072 estimate "
-              f"{loops._train_step_bytes(big) / 2**30:.2f} GiB: raised before the step "
+              f"{loops._train_step_bytes(big, shipped) / 2**30:.2f} GiB: raised before the step "
               f"{bool(raised) and not ran}: {raised[:90]}...", flush=True)
         if not raised or ran or not whole_abs < est:
             raise RuntimeError(f"(c) guard: raised {bool(raised)}, step ran {bool(ran)}, peak "
                                f"{whole_abs} GiB against the estimate {est} GiB")
-        del big, bag
+        del big, bag, shipped
         torch.cuda.empty_cache()
+        check_guard_pairs()
 
         # (d) run_training with asynchronous checkpoints.
         check_async_checkpoints(main)
@@ -3302,6 +3427,60 @@ def check_parallel_training(cv_cfg, cv_accuracies: dict) -> dict:
     print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; launches "
           f"{ {k: n for k, n in totals.items() if n} }", flush=True)
     return totals
+
+
+# Phase 14 (c): the training step's peak beside the guard's estimate at every
+# backbone and compute dtype the config accepts, at these buckets of 224 px
+# patches; the first two must run, the third runs where the smaller ones'
+# bytes per input element put it within 90 % of the card.  float64 at two
+# smaller ones: its r50 step at 512 would not fit the card, and its steps are
+# the slowest of the phase.
+GUARD_PAIRS = tuple(itertools.product(("r18", "r34", "r50"),
+                                      ("float32", "bfloat16", "float64")))
+GUARD_BUCKETS = {"float32": (256, 512, 1024), "bfloat16": (256, 512, 1024),
+                 "float64": (128, 256)}
+
+
+def check_guard_pairs() -> dict:
+    """Phase 14 (c): ``tools/measure_hbm.py::train_peaks`` for each of
+    ``GUARD_PAIRS`` (``Config()`` with that backbone and compute dtype:
+    ``make_train_step``, K1/K5, the shipped optimizer; cuDNN's default
+    algorithm choice, as the main path runs), each peak beside the guard's
+    estimate and its bytes per input element.  Raises where an estimate lies
+    below a measured peak, or where one of a pair's first two buckets did
+    not run.  Returns ``{(backbone, dtype): rows}``."""
+    from montecarlo_gated_mil_tpu_torch.core.config import Config
+    from montecarlo_gated_mil_tpu_torch.tools import _common, measure_hbm
+
+    t0 = time.perf_counter()
+    gib = 1 / 2**30
+    out, bad = {}, []
+    for backbone, dtype in GUARD_PAIRS:
+        base = Config()
+        cfg = replace(base, model=backbone, tpu=replace(base.tpu, compute_dtype=dtype))
+        with _common.main_path_settings():
+            rows = measure_hbm.train_peaks(cfg, GUARD_BUCKETS[dtype])
+        out[(backbone, dtype)] = rows
+        cells = []
+        for b, row in rows.items():
+            if row["train"] is None:
+                cells.append(f"{b}: not run ({row['skipped']}; estimate "
+                             f"{row['guard'] * gib:.2f} GiB)")
+                if b in GUARD_BUCKETS[dtype][:2]:
+                    bad.append((backbone, dtype, b, row))
+                continue
+            per = row["train"] / (b * 224 * 224 * 3)
+            cells.append(f"{b}: peak {row['train'] * gib:.3f} GiB ({per:.1f} B an input element) "
+                         f"against the estimate {row['guard'] * gib:.3f}")
+            if row["guard"] < row["train"]:
+                bad.append((backbone, dtype, b, row))
+        print(f"  (c) guard, {backbone} {dtype}: " + "; ".join(cells), flush=True)
+    print(f"  (c) guard at {len(GUARD_PAIRS)} (backbone, dtype) pairs: "
+          f"{time.perf_counter() - t0:.1f} s; {device_line('cuda')}", flush=True)
+    if bad:
+        raise RuntimeError(f"(c) the guard's estimate lies below a measured peak, or a bucket "
+                           f"did not run: {bad}")
+    return out
 
 
 def _load_steps(directory: str) -> dict:
@@ -3580,7 +3759,7 @@ def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int
 
     from montecarlo_gated_mil_tpu_torch.core.bag import Bag
     from montecarlo_gated_mil_tpu_torch.ops import cuda_build
-    from montecarlo_gated_mil_tpu_torch.tools.profile_train import plain_head, shipped_step
+    from montecarlo_gated_mil_tpu_torch.tools.profile_train import shipped_step
     from montecarlo_gated_mil_tpu_torch.train.state import TrainState, make_train_step
 
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
@@ -3619,12 +3798,11 @@ def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int
     m64.dtype = m64.feature_extractor.dtype = torch.float64
     bag64 = Bag(bag.patches.double(), bag.mask, bag.label, bag.tile_indices)
     opt64 = torch.optim.SGD(m64.parameters(), lr=0.0)
-    step64 = make_train_step(m64, crit, opt64, 1)
+    step64 = make_train_step(m64, crit, opt64, 1, use_pallas=False)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with plain_head():
-        want, loss64 = grads(m64, lambda: step64(TrainState(m64, opt64), bag64, seed,
-                                                 False)[1]["loss"])
+    want, loss64 = grads(m64, lambda: step64(TrainState(m64, opt64), bag64, seed,
+                                             False)[1]["loss"])
     out = {"flags": flags, "f64_seconds": time.perf_counter() - t0, "bucket": bucket,
            "f64_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss_f64": loss64,
            "valid": int(bag.mask.sum())}
@@ -3635,8 +3813,8 @@ def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int
     out["launches"] = {k.name: k.launches for k in cuda_build.KERNELS.values()}
     got["off"] = grads(model, all_off)
     got["tf32"] = grads(model, lambda: tf32_step(False))
-    with plain_head():
-        got["plain head"] = grads(model, lambda: step(state, bag, seed, False)[1]["loss"])
+    plain_step = make_train_step(model, crit, state.optimizer, 1, use_pallas=False)
+    got["plain head"] = grads(model, lambda: plain_step(state, bag, seed, False)[1]["loss"])
     for name, (g, loss) in got.items():
         excess = {k: _excess({k: g[k]}, {k: want[k]}, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL)
                   for k in want}

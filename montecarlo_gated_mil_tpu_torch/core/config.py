@@ -3,10 +3,13 @@
 Same dataclasses, defaults and validation as
 ``montecarlo_gated_mil_tpu/core/config.py``, so one YAML file configures
 both packages.  The ``tpu:`` section keeps its name for that reason.  The
-port's predictor reads ``buckets``, ``compute_dtype``, ``oversized_bags``
-and ``quantized_inference`` (the int8 embed of ``ops/quantized.py``);
-training reads ``buckets``, ``adaptive_buckets``,
-``compute_dtype``, ``oversized_bags``, ``checkpoint_every``,
+port's predictor reads ``buckets``, ``compute_dtype``, ``oversized_bags``,
+``quantized_inference`` (the int8 embed of ``ops/quantized.py``) and
+``use_pallas_attention`` (``false``: the plain head on the card, not its
+kernels, in serving, ``cli bench``, the training step, MC validation and the
+MC test, ``ops/gated_attention.py::use_pallas_from``); training reads
+``buckets``, ``adaptive_buckets``, ``compute_dtype``, ``oversized_bags``,
+``checkpoint_every``,
 ``debug_nans`` / ``debug_infs`` (a NaN / Inf check of every step's loss and
 gradients, ``train/state.py::make_train_step``), ``data_parallel_train``
 (data-parallel training over several cards with one process,
@@ -17,10 +20,11 @@ and ``process_id`` (a multi-process run's ``gloo`` group, over which ``cv``
 fans its folds out, ``parallel/distributed.py::initialize``; -1 takes
 ``WORLD_SIZE`` / ``RANK`` from a launcher where JAX detects them).  The
 other knobs are parsed and validated only.  ``use_pallas_train`` in particular has
-no effect in the port: on the card a training step's head always runs the
-forward kernel and its backward kernel (K1/K5, or K2/K4 for a shared gate),
-and on the CPU their plain version; both compute the same function on the
-same Philox bits, so there is nothing to choose.
+no effect in the port: on the card a training step's head runs the forward
+kernel and its backward kernel (K1/K5, or K2/K4 for a shared gate) unless
+``use_pallas_attention`` is ``false``, and on the CPU their plain version;
+both compute the same function on the same Philox bits, so there is nothing
+more to choose.
 """
 
 from __future__ import annotations
@@ -175,7 +179,7 @@ class TpuConfig:
     use_pallas_attention: bool = True
     # The JAX package's choice of the fused kernel for the training step's
     # head.  Parsed only: the port's head runs its kernels on the card
-    # and their plain version on the CPU (module docstring).
+    # unless use_pallas_attention is false (module docstring).
     use_pallas_train: bool = False
     # Opt-in quantized embedding for serving (post-training quantization
     # with static k-sigma activation scales, ops/quantized.py).

@@ -282,8 +282,11 @@ class BagLoader:
     grayscale float image in [0, 1], or a ``(CC, MLO)`` pair when
     ``multimodal``), uploads it and runs :func:`image_to_bag`, keeping at
     most ``prefetch`` bags ahead of the consumer.  Bags come out in the
-    epoch order, which is the JAX loader's: ``np.random.default_rng(seed +
-    epoch)`` shuffles, or a weighted draw with replacement.
+    epoch order, which is the JAX loader's: a fixed ``sample_order`` of
+    record indices every epoch (``len`` follows it; indices may repeat),
+    else a weighted draw with replacement (``sample_weights``; passing both
+    raises), else record order, shuffled by ``np.random.default_rng(seed +
+    epoch)`` with ``shuffle``.
 
     With ``bucket_spec`` each bag takes the smallest registry bucket its
     valid-tile count fits, picked from the host-side estimate (exact device
@@ -314,6 +317,7 @@ class BagLoader:
         multimodal: bool = False,
         seed: int = 0,
         shuffle: bool = False,
+        sample_order: np.ndarray | None = None,
         sample_weights: Sequence[float] | None = None,
         prefetch: int = 2,
         io_workers: int = 1,
@@ -321,6 +325,8 @@ class BagLoader:
         oversized: str = "extend",
         device: str | torch.device = "cuda",
     ):
+        if sample_order is not None and sample_weights is not None:
+            raise ValueError("pass sample_order or sample_weights, not both")
         if io_workers < 1:
             raise ValueError(f"io_workers must be >= 1, got {io_workers}")
         if oversized not in ("extend", "truncate"):
@@ -331,6 +337,7 @@ class BagLoader:
         self.multimodal = multimodal
         self.seed = seed
         self.shuffle = shuffle
+        self.sample_order = sample_order
         self.sample_weights = sample_weights
         self.prefetch = prefetch
         self.io_workers = io_workers
@@ -344,9 +351,13 @@ class BagLoader:
         self._num_candidates = cfg.grid().num_tiles
 
     def __len__(self) -> int:
+        if self.sample_order is not None:
+            return len(self.sample_order)
         return len(self.records)
 
     def _epoch_order(self, epoch: int) -> np.ndarray:
+        if self.sample_order is not None:
+            return np.asarray(self.sample_order)
         if self.sample_weights is not None:
             return weighted_sample_order(self.sample_weights, len(self.records), self.seed + epoch)
         order = np.arange(len(self.records))

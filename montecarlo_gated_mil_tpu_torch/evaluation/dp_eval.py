@@ -17,6 +17,7 @@ from typing import Iterable
 import torch
 
 from montecarlo_gated_mil_tpu_torch.core import rng
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import kernel_on
 from montecarlo_gated_mil_tpu_torch.parallel.dp import (
     BucketBatcher,
     make_dp_mc_eval,
@@ -38,11 +39,13 @@ def mc_test_dp(
     quantized: bool = False,
     pending_budget_bytes: int = 1 << 31,
     shard_over: int | None = None,
+    use_pallas: bool | None = None,
 ):
     """Data-parallel ``mc_test``: ``(accuracy, Report)`` from the argmax of
     the MC-mean softmax.  ``mesh`` defaults to every visible CUDA device on
-    ``data``; ``quantized`` embeds through the int8 path, as the sequential
-    loop's flag does.  ``pending_budget_bytes`` bounds the pending partial
+    ``data``; ``quantized`` embeds through the int8 path and
+    ``use_pallas=False`` runs the plain head on the card, as the sequential
+    loop's flags do.  ``pending_budget_bytes`` bounds the pending partial
     groups (default 2 GiB; always at least one mesh batch of the largest
     bag seen).  ``shard_over``: an OVERSIZED bag (bucket above it) leaves the
     grouping and evaluates alone with its instances sharded over all of the
@@ -51,13 +54,13 @@ def mc_test_dp(
 
     targets, preds, _ = _mc_test_dp_outputs(
         model, loader, num_samples=num_samples, seed=seed, mesh=mesh, quantized=quantized,
-        pending_budget_bytes=pending_budget_bytes, shard_over=shard_over,
+        pending_budget_bytes=pending_budget_bytes, shard_over=shard_over, use_pallas=use_pallas,
     )
     return _finish_test(targets, preds, metrics, fold)
 
 
 def _mc_test_dp_outputs(model, loader, *, num_samples, seed, mesh=None, quantized=False,
-                        pending_budget_bytes=1 << 31, shard_over=None):
+                        pending_budget_bytes=1 << 31, shard_over=None, use_pallas=None):
     """:func:`mc_test_dp`'s pass: per bag its target, predicted label and MC
     logits ``Y (T, C)`` on the CPU, in stream order."""
     from montecarlo_gated_mil_tpu_torch.train.loops import (
@@ -68,7 +71,8 @@ def _mc_test_dp_outputs(model, loader, *, num_samples, seed, mesh=None, quantize
     )
 
     mesh = mesh or make_mesh()
-    eval_step = make_dp_mc_eval(model, mesh, num_samples, quantized)
+    eval_step = make_dp_mc_eval(model, mesh, num_samples, quantized,
+                                kernel=kernel_on(use_pallas))
     results: dict[int, tuple[int, torch.Tensor]] = {}
     targets: list[int] = []
 

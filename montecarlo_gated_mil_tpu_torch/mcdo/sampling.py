@@ -77,17 +77,21 @@ def mc_head(
     seed: int,
     params: GatedAttentionParams | None = None,
     targets=None,
+    *,
+    kernel: bool = True,
 ) -> MCOutputs:
     """T stochastic head passes over precomputed features ``H (N, L)``;
     sample t is seeded with ``seed + t``.  ``params`` may carry the head's
-    weights already in kernel layout (a predictor converts them once)."""
+    weights already in kernel layout (a predictor converts them once).
+    ``kernel=False`` runs the plain head on the card as well
+    (``ops/gated_attention.py::mc_gated_attention``)."""
     if mask is None:
         mask = torch.ones(H.shape[0], dtype=torch.bool, device=H.device)
     if params is None:
         params = GatedAttentionParams.from_module(model)
     Y, A = mc_gated_attention(
         H, mask, params, num_samples, seed,
-        model.feature_dropout, model.attention_dropout,
+        model.feature_dropout, model.attention_dropout, kernel=kernel,
     )
     return MCOutputs(predictions=Y, attention=A, aux_losses=_aux_losses(model, A, targets))
 
@@ -100,12 +104,15 @@ def mc_head_serial(
     seed: int,
     params: GatedAttentionParams | None = None,
     targets=None,
+    *,
+    kernel: bool = True,
 ) -> MCOutputs:
     """:func:`mc_head` one sample at a time: sample t is one head launch at
     T=1 seeded with ``seed + t``, the seed sample t of :func:`mc_head` has."""
     if params is None:
         params = GatedAttentionParams.from_module(model)
-    outs = [mc_head(model, H, mask, 1, seed + t, params) for t in range(num_samples)]
+    outs = [mc_head(model, H, mask, 1, seed + t, params, kernel=kernel)
+            for t in range(num_samples)]
     A = torch.cat([o.attention for o in outs])
     return MCOutputs(
         predictions=torch.cat([o.predictions for o in outs]), attention=A,

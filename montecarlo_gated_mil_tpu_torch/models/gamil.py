@@ -143,13 +143,15 @@ class MultiHeadGatedAttentionMIL(nn.Module):
         train: bool = False,
         mc_dropout: bool = False,
         seed: int = 0,
+        kernel: bool = True,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Features ``(N, L)`` -> logits ``(C,)`` and attention ``(C, N)``.
 
         One sample of the MC head (``ops/gated_attention.py``): the kernel
-        on a CUDA tensor, its plain version on the CPU.  ``train`` or
-        ``mc_dropout`` turns dropout on, drawn from ``seed``; gradients flow
-        to ``H`` and the head weights whenever autograd records.
+        on a CUDA tensor, its plain version on the CPU or with
+        ``kernel=False``.  ``train`` or ``mc_dropout`` turns dropout on,
+        drawn from ``seed``; gradients flow to ``H`` and the head weights
+        whenever autograd records.
         """
         from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
             GatedAttentionParams,
@@ -163,6 +165,7 @@ class MultiHeadGatedAttentionMIL(nn.Module):
             H, mask, GatedAttentionParams.from_module(self, detach=False), 1, seed,
             self.feature_dropout if stochastic else 0.0,
             self.attention_dropout if stochastic else 0.0,
+            kernel=kernel,
         )
         return y[0], a[0]
 
@@ -174,14 +177,15 @@ class MultiHeadGatedAttentionMIL(nn.Module):
         *,
         train: bool = False,
         seed: int = 0,
+        kernel: bool = True,
     ):
         """Full forward of one bag.
 
         Returns ``(Y (C,), A (C, N))``, and with ``targets`` the auxiliary
         loss as a third element, already scaled by ``aux_scale`` as the JAX
-        model's ``__call__`` returns it.
+        model's ``__call__`` returns it.  ``kernel`` as in :meth:`head`.
         """
-        Y, A = self.head(self.embed(patches, mask), mask, train=train, seed=seed)
+        Y, A = self.head(self.embed(patches, mask), mask, train=train, seed=seed, kernel=kernel)
         if targets is None:
             return Y, A
         aux = self.aux_scale * auxiliary_loss(

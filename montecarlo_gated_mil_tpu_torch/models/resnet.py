@@ -27,12 +27,13 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 from typing import Callable, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from montecarlo_gated_mil_tpu_torch.utils.tf32 import tf32_off
 
 # Feature dimension produced by each backbone (torchvision fc.in_features).
 FEATURE_DIMS = {"r18": 512, "r34": 512, "r50": 2048}
@@ -416,52 +417,15 @@ def _s2d_stem(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x2, wk.to(x.dtype))
 
 
-# The process-wide TF32 flags that the exact-float windows below clear:
-# cuDNN's, and the matrix products' (only gradients clear that one).
-_TF32_FLAGS = {
-    "cudnn": torch.backends.cudnn,
-    "matmul": torch.backends.cuda.matmul,
-}
-# Requests run their device work in concurrent threads (``MCDOPredictor(
-# max_inflight=k)``), so the windows of several threads overlap.  One lock
-# and, per flag, the number of windows open and the value found by the
-# first: the first to open clears the flag, the last to close restores it,
-# and no thread restores it while another's window is open.
-_tf32_lock = threading.Lock()
-_tf32_open = {name: 0 for name in _TF32_FLAGS}
-_tf32_found: dict[str, bool] = {}
-
-
-@contextlib.contextmanager
-def _tf32_off(*names: str):
-    """The named TF32 flags are off while any thread is inside a window
-    that names them, and back to what the first window found once the last
-    one has closed."""
-    with _tf32_lock:
-        for name in names:
-            if _tf32_open[name] == 0:
-                _tf32_found[name] = _TF32_FLAGS[name].allow_tf32
-                _TF32_FLAGS[name].allow_tf32 = False
-            _tf32_open[name] += 1
-    try:
-        yield
-    finally:
-        with _tf32_lock:
-            for name in names:
-                _tf32_open[name] -= 1
-                if _tf32_open[name] == 0:
-                    _TF32_FLAGS[name].allow_tf32 = _tf32_found.pop(name)
-
-
 @contextlib.contextmanager
 def _exact_float_convs(dtype: torch.dtype):
     """cuDNN runs float32 convolutions in TF32 by default; a float32 (or
     float64) model must run them exactly, as the JAX package does.  Safe
-    under concurrent requests (:func:`_tf32_off`)."""
+    under concurrent requests (:func:`tf32_off`)."""
     if dtype not in (torch.float32, torch.float64):
         yield
         return
-    with _tf32_off("cudnn"):
+    with tf32_off("cudnn"):
         yield
 
 
@@ -470,7 +434,7 @@ def exact_float_grads(dtype: torch.dtype):
     """Where a float32 (or float64) model's gradient is taken: neither
     cuDNN's convolutions nor the matrix products run in TF32 meanwhile, and
     both flags are restored as they were found once no window is open
-    (:func:`_tf32_off`).  Autograd runs the backward convolutions after
+    (:func:`tf32_off`).  Autograd runs the backward convolutions after
     :func:`_exact_float_convs` has closed, under the process's flags
     (cuDNN's TF32 is on by PyTorch's default), so every ``backward()`` and
     ``torch.autograd.grad`` of the port runs inside this.  Other dtypes pass
@@ -478,7 +442,7 @@ def exact_float_grads(dtype: torch.dtype):
     if dtype not in (torch.float32, torch.float64):
         yield
         return
-    with _tf32_off("cudnn", "matmul"):
+    with tf32_off("cudnn", "matmul"):
         yield
 
 

@@ -12,10 +12,11 @@ MCDO stage is T independent passes of
 
 On a CUDA tensor :func:`mc_gated_attention` runs ``csrc/mc_head.cu`` (see
 its header for the design) and, where a gradient is asked for, differentiates
-it with ``csrc/mc_head_bwd.cu`` through :class:`_MCHead`; on a CPU tensor it
-runs :func:`mc_head_reference`, the plain PyTorch version of the same
-function, under ordinary autograd.  :func:`mc_head_backward_reference` is the
-plain version of the backward kernels.  All draw dropout from one
+it with ``csrc/mc_head_bwd.cu`` through :class:`_MCHead`; on a CPU tensor, or
+with ``kernel=False`` on any tensor, it runs :func:`mc_head_reference`, the
+plain PyTorch version of the same function, under ordinary autograd.
+:func:`mc_head_backward_reference` is the plain version of the backward
+kernels.  All draw dropout from one
 counter-based stream, Philox4x32-10 keyed on ``(seed + t, draw)``, element
 ``e`` taking word ``e % 4`` of counter ``e // 4``, so kernels and plain
 versions agree with dropout on as well as off.
@@ -32,6 +33,7 @@ import torch
 
 from montecarlo_gated_mil_tpu_torch.ops import cuda_build
 from montecarlo_gated_mil_tpu_torch.ops.masked import masked_softmax
+from montecarlo_gated_mil_tpu_torch.utils.tf32 import tf32_off
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -587,6 +589,24 @@ class _MCHead(torch.autograd.Function):
         return (dH.to(H.dtype), None, *grads, None, None, None, None)
 
 
+def use_pallas_from(cfg, use_pallas: bool | None = None) -> bool | None:
+    """The head switch: ``use_pallas`` where the caller gives one (or where
+    there is no config), else what ``cfg`` asks for --
+    ``tpu.use_pallas_attention: true`` gives ``None`` (the head's kernels on
+    the card), ``false`` gives ``False`` (the plain head on the card too),
+    as JAX's ``serve.py`` maps it."""
+    if use_pallas is not None or cfg is None:
+        return use_pallas
+    return None if cfg.tpu.use_pallas_attention else False
+
+
+def kernel_on(use_pallas: bool | None) -> bool:
+    """Whether the head runs its kernels on a CUDA tensor under the switch
+    ``use_pallas``: unless it is ``False``.  This is
+    :func:`mc_gated_attention`'s ``kernel``."""
+    return use_pallas is not False
+
+
 def mc_gated_attention(
     H: torch.Tensor,
     mask: torch.Tensor,
@@ -595,6 +615,8 @@ def mc_gated_attention(
     seed: int,
     feature_dropout: float = 0.1,
     attention_dropout: float = 0.1,
+    *,
+    kernel: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """All T MC samples of the gated-attention head.
 
@@ -606,11 +628,21 @@ def mc_gated_attention(
     does not record, that is the forward kernel alone.  A CPU ``H`` runs
     the plain version under ordinary autograd.  ``Y = M w_cls`` stays a
     plain tensor op, as in JAX.
+
+    ``kernel=False`` (the JAX package's ``use_pallas=False``) runs the plain
+    version on a CUDA ``H`` too, its products in full f32 whatever the
+    process's TF32 flag for matrix products (the kernels compute in 3xTF32,
+    about f32), and its backward by autograd.
     """
     if not H.is_cuda:
         return mc_head_reference(
             H, mask, params, num_samples, seed, feature_dropout, attention_dropout
         )
+    if not kernel:
+        with tf32_off("matmul"):
+            return mc_head_reference(
+                H, mask, params, num_samples, seed, feature_dropout, attention_dropout
+            )
     weights = [getattr(params, f) for f in _HEAD_FIELDS]
     M, A = _MCHead.apply(
         H, mask, *weights, num_samples, seed, float(feature_dropout), float(attention_dropout)

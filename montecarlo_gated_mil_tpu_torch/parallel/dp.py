@@ -112,7 +112,7 @@ def make_dp_train_step(model, criterion, optimizer, mesh: Mesh, *,
 
 
 def make_dp_mc_eval(model, mesh: Mesh, num_samples: int, quantized: bool = False, *,
-                    replicas: Sequence | None = None):
+                    replicas: Sequence | None = None, kernel: bool = True):
     """MC inference over a stacked batch of bags split over ``data``.
 
     Returns ``eval_step(shards, seeds) -> (Y (B, T, C), A (B, T, C, N))``
@@ -122,7 +122,7 @@ def make_dp_mc_eval(model, mesh: Mesh, num_samples: int, quantized: bool = False
     per bag, by the float backbone or with ``quantized`` the int8 embed,
     whose plan is built here once per device.  ``replicas``: the model on
     each data device, as ``replicated(mesh, model)`` gives it (made here if
-    not given).
+    not given).  ``kernel=False``: the plain head on the card too.
     """
     devices = mesh.axis_devices("data")
     per_device = {}
@@ -142,7 +142,8 @@ def make_dp_mc_eval(model, mesh: Mesh, num_samples: int, quantized: bool = False
                 for b in range(shard.patches.shape[0]):
                     mask = shard.mask[b]
                     H = embed(shard.patches[b], mask)
-                    out = mc_head(replica, H, mask, num_samples, seeds[len(ys)], params)
+                    out = mc_head(replica, H, mask, num_samples, seeds[len(ys)], params,
+                                  kernel=kernel)
                     ys.append(out.predictions)
                     attns.append(out.attention)
             dev0 = devices[0]

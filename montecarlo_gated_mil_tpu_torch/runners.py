@@ -33,6 +33,12 @@ epoch checkpoints on a background thread.  Under multi-process fold fan-out
 each process runs its share of the folds and keeps its own progress file
 and manifest (``_p{index}``), whose fold accuracies are gathered from all
 processes.
+
+``tpu.use_pallas_attention: false`` (``ops/gated_attention.py::
+use_pallas_from``) runs the plain head on the card in the one-bag training
+step, the MC validation and the MC test, sequential or data-parallel; the
+data-parallel training step, the fold ensemble and the sharded paths keep
+their heads, as JAX's take no switch.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from montecarlo_gated_mil_tpu_torch.experiment import (
     get_dataloaders,
     get_fold_dataloaders,
 )
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import use_pallas_from
 from montecarlo_gated_mil_tpu_torch.parallel.distributed import (
     allgather_fold_accuracies,
     fold_assignment,
@@ -131,9 +138,10 @@ def _mc_test(cfg: Config, model, loader, *, seed: int, metrics: Metrics, fold: i
 
         return mc_test_dp(model, loader, num_samples=cfg.N, seed=seed, mesh=mesh.flat("data"),
                           metrics=metrics, fold=fold, quantized=quantized,
-                          shard_over=_shard_over(cfg))
+                          shard_over=_shard_over(cfg), use_pallas=use_pallas_from(cfg))
     return mc_test(model, loader, num_samples=cfg.N, seed=seed, metrics=metrics, fold=fold,
-                   quantized=quantized, shard_over=_shard_over(cfg), mesh=mesh)
+                   use_pallas=use_pallas_from(cfg), quantized=quantized,
+                   shard_over=_shard_over(cfg), mesh=mesh)
 
 
 def _fit(
@@ -180,7 +188,8 @@ def _fit(
                                                replicas=replicas)
     else:
         step_fn = make_train_step(model, criterion, optimizer, k,
-                                  debug_nans=cfg.tpu.debug_nans, debug_infs=cfg.tpu.debug_infs)
+                                  debug_nans=cfg.tpu.debug_nans, debug_infs=cfg.tpu.debug_infs,
+                                  use_pallas=use_pallas_from(cfg))
     train_routing = {"sharded_step_fn": sharded_step, "shard_over": _shard_over(cfg)}
     routing = {"shard_over": _shard_over(cfg), "mesh": inst_mesh}
     stopper = EarlyStopping(params.patience, metrics.scoped(fold))
@@ -207,7 +216,8 @@ def _fit(
                                 key=train_key, metrics=metrics, fold=fold, **train_routing)
         if cfg.is_mcdo_val:
             val_loss = mc_validate(model, data.val, criterion, epoch=epoch, num_samples=cfg.N,
-                                   key=val_key, metrics=metrics, fold=fold, **routing)
+                                   key=val_key, metrics=metrics, fold=fold,
+                                   use_pallas=use_pallas_from(cfg), **routing)
         else:
             val_loss = validate(model, data.val, criterion, epoch=epoch, metrics=metrics,
                                 fold=fold, **routing)

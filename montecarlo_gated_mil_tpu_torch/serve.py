@@ -44,7 +44,11 @@ from montecarlo_gated_mil_tpu_torch.mcdo.sampling import (
     mc_head,
     predictive_stats,
 )
-from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import (
+    GatedAttentionParams,
+    kernel_on,
+    use_pallas_from,
+)
 from montecarlo_gated_mil_tpu_torch.ops.patching import compute_tile_grid
 from montecarlo_gated_mil_tpu_torch.parallel.mesh import (
     Mesh,
@@ -114,6 +118,13 @@ class MCDOPredictor:
 
     ``quantized=True`` embeds through the int8 PTQ path (static k-sigma
     scales, ``ops/quantized.py``); its plan is built once, here.
+
+    ``use_pallas``: ``None`` (the default) and ``True`` run the head kernel
+    (K1, K2 for a shared gate) on the card, ``False`` the plain head there
+    (``ops/gated_attention.py::mc_head_reference``, full f32).  On the CPU
+    all three run the plain head.  JAX's ``None`` turns its kernel on on a
+    TPU only; the port's kernel runs on every card.  An oversized request's
+    instance-sharded head is plain either way, as in JAX.
     """
 
     def __init__(
@@ -122,6 +133,7 @@ class MCDOPredictor:
         pipeline: PipelineConfig,
         *,
         num_samples: int = 30,
+        use_pallas: bool | None = None,
         quantized: bool = False,
         bucket_spec: BucketSpec | None = None,
         oversized: str = "extend",
@@ -137,6 +149,8 @@ class MCDOPredictor:
         self.model = model.to(self.device).eval()
         self.pipeline = pipeline
         self.num_samples = num_samples
+        self.use_pallas = use_pallas
+        self._kernel = kernel_on(use_pallas)
         self.quantized = quantized
         self.bucket_spec = bucket_spec
         self.oversized = oversized
@@ -196,6 +210,7 @@ class MCDOPredictor:
             dtype=cfg.tpu.compute_dtype,
         )
         kw.setdefault("num_samples", cfg.N)
+        kw["use_pallas"] = use_pallas_from(cfg, kw.get("use_pallas"))
         kw.setdefault("quantized", cfg.tpu.quantized_inference)
         kw.setdefault("oversized", cfg.tpu.oversized_bags)
         if len(cfg.tpu.buckets) > 1:
@@ -289,7 +304,8 @@ class MCDOPredictor:
             y, a = y.to(self.device), a.to(self.device)
         else:
             H = self._embed(bag.patches, bag.mask)
-            out = mc_head(self.model, H, bag.mask, self.num_samples, seed, self._head_params)
+            out = mc_head(self.model, H, bag.mask, self.num_samples, seed, self._head_params,
+                          kernel=self._kernel)
             y, a = out.predictions, out.attention
         return bag, y, a, predictive_stats(y), attention_stats(a, bag.mask)
 
@@ -460,7 +476,8 @@ class MCDOPredictor:
         with self._lock:
             if self._dp_eval is None:
                 self._dp_eval = make_dp_mc_eval(self.model, mesh, self.num_samples,
-                                                self.quantized, replicas=replicas)
+                                                self.quantized, replicas=replicas,
+                                                kernel=self._kernel)
         results: list[PredictionResult | None] = [None] * len(images)
 
         def flush(group):

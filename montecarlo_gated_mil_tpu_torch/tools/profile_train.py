@@ -7,19 +7,18 @@ Adam at 3e-5, a bag of 256 patches at 224 px, shared gate: K2 forward and
 K4 backward on the card) and the shipped configuration's at bucket 1024
 (``Config()``: f32, separate gates, 650 valid tiles: K1 and K5), the step
 PERF.md section 5 records.  Each runs with the kernels' head and with the
-plain head (``ops/gated_attention.py::mc_head_reference`` under autograd),
-as the JAX tool runs with and without ``use_pallas``: the whole step by the
-chained slope (``utils/profiling.py::train_step_chain``), its phases (embed
-forward, head forward, loss, backward, optimizer) by a ``PhaseTimer`` that
-synchronizes the card around each, and on the card the kernel table of one
-step with the head kernels' share.
+plain head (``make_train_step(use_pallas=False)``:
+``ops/gated_attention.py::mc_head_reference`` under autograd, on the card
+too), as the JAX tool runs with and without ``use_pallas``: the whole step
+by the chained slope (``utils/profiling.py::train_step_chain``), its
+phases (embed forward, head forward, loss, backward, optimizer) by a
+``PhaseTimer`` that synchronizes the card around each, and on the card the
+kernel table of one step with the head kernels' share.
 
     python -m montecarlo_gated_mil_tpu_torch.tools.profile_train [--patches 256] [--patch 224] [--bucket 1024]
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -36,30 +35,16 @@ PHASES = ("embed fwd", "head fwd", "loss", "backward", "optimizer")
 HEAD_SOURCES = ("mc_head.cu", "mc_head_bwd.cu")
 
 
-@contextlib.contextmanager
-def plain_head():
-    """Every head of the models runs its plain version, on the card too:
-    ``mc_gated_attention`` is swapped for ``mc_head_reference``."""
-    from montecarlo_gated_mil_tpu_torch.ops import gated_attention as ga
-
-    kernel = ga.mc_gated_attention
-    ga.mc_gated_attention = ga.mc_head_reference
-    try:
-        yield
-    finally:
-        ga.mc_gated_attention = kernel
-
-
-def phase_step(timer: PhaseTimer, state, criterion, bag, seed: int) -> None:
+def phase_step(timer: PhaseTimer, state, criterion, bag, seed: int, kernel: bool = True) -> None:
     """One training step, as ``make_train_step`` computes it, with each
-    phase in ``timer``."""
+    phase in ``timer``; ``kernel=False``: with the plain head."""
     from montecarlo_gated_mil_tpu_torch.train.state import bag_loss
 
     model = state.model
     with timer.phase("embed fwd"):
         H = model.embed(bag.patches, bag.mask)
     with timer.phase("head fwd"):
-        y, a = model.head(H, bag.mask, train=True, seed=seed)
+        y, a = model.head(H, bag.mask, train=True, seed=seed, kernel=kernel)
     with timer.phase("loss"):
         loss, _ = bag_loss(model, criterion, y, a, bag.label)
     with timer.phase("backward"), exact_float_grads(model.dtype):
@@ -68,17 +53,20 @@ def phase_step(timer: PhaseTimer, state, criterion, bag, seed: int) -> None:
         state.apply_update()
 
 
-def bench_step(patches: int, patch: int, device):
+def bench_step(patches: int, patch: int, device, use_pallas: bool | None = None):
     from montecarlo_gated_mil_tpu_torch import bench
     from montecarlo_gated_mil_tpu_torch.train.criteria import cross_entropy
 
-    state, step, bag = bench.train_workload(bag_size=patches, patch=patch, device=device)
+    state, step, bag = bench.train_workload(bag_size=patches, patch=patch, device=device,
+                                            use_pallas=use_pallas)
     return state, step, bag, cross_entropy
 
 
-def shipped_step(bucket: int, patch: int, device, valid: float = 650 / 1024):
+def shipped_step(bucket: int, patch: int, device, valid: float = 650 / 1024,
+                 use_pallas: bool | None = None):
     """The shipped configuration's step on a seeded bag at ``bucket`` with
-    that share of valid tiles (K1 (c)'s training shape at 1024)."""
+    that share of valid tiles (K1 (c)'s training shape at 1024);
+    ``use_pallas`` as ``make_train_step`` takes it."""
     from montecarlo_gated_mil_tpu_torch.core.bag import Bag
     from montecarlo_gated_mil_tpu_torch.core.config import Config
     from montecarlo_gated_mil_tpu_torch.experiment import (
@@ -97,7 +85,8 @@ def shipped_step(bucket: int, patch: int, device, valid: float = 650 / 1024):
     x = torch.rand(bucket, patch, patch, 3, generator=g, device=device) * mask[:, None, None, None]
     bag = Bag(x, mask, torch.tensor(1, device=device),
               torch.where(mask, torch.arange(bucket, device=device), 0))
-    return TrainState(model, opt, sched), make_train_step(model, crit, opt, 1), bag, crit
+    step = make_train_step(model, crit, opt, 1, use_pallas=use_pallas)
+    return TrainState(model, opt, sched), step, bag, crit
 
 
 def profile(label: str, make, args, cuda: bool) -> dict:
@@ -105,14 +94,14 @@ def profile(label: str, make, args, cuda: bool) -> dict:
     table, with the kernels' head and with the plain head."""
     out = {}
     for head in ("kernels", "plain"):
-        with plain_head() if head == "plain" else contextlib.nullcontext():
-            state, step, bag, crit = make()
-            full = slope_of_chain(train_step_chain(step, state, bag, 100), ks=args.ks,
-                                  reps=args.reps)
-            timer = PhaseTimer(device=bag.patches.device)
-            for i in range(args.steps):
-                phase_step(timer, state, crit, bag, 200 + i)
-            table = kernel_table(lambda: step(state, bag, 300, True)) if cuda else None
+        kernel = head == "kernels"
+        state, step, bag, crit = make(None if kernel else False)
+        full = slope_of_chain(train_step_chain(step, state, bag, 100), ks=args.ks,
+                              reps=args.reps)
+        timer = PhaseTimer(device=bag.patches.device)
+        for i in range(args.steps):
+            phase_step(timer, state, crit, bag, 200 + i, kernel)
+        table = kernel_table(lambda: step(state, bag, 300, True)) if cuda else None
         phases = {p: timer.mean_seconds(p) for p in PHASES}
         print(f"\n{label}, {head} head: full step {_common.ms(full)} (chained slope)", flush=True)
         for p, t in phases.items():
@@ -151,11 +140,13 @@ def main(argv=None, *, device="cuda") -> dict:
     with _common.main_path_settings():
         results["bench"] = profile(
             f"bench step (r18 bf16, bag {args.patches}x{args.patch}px, CE+aux, Adam)",
-            lambda: bench_step(args.patches, args.patch, device), args, cuda)
+            lambda use_pallas: bench_step(args.patches, args.patch, device, use_pallas), args,
+            cuda)
         if args.bucket:
             results["shipped"] = profile(
                 f"shipped step (Config(), f32, bucket {args.bucket} at {args.patch}px)",
-                lambda: shipped_step(args.bucket, args.patch, device), args, cuda)
+                lambda use_pallas: shipped_step(args.bucket, args.patch, device,
+                                                use_pallas=use_pallas), args, cuda)
     return results
 
 

@@ -41,8 +41,8 @@ device of ``mesh`` (default: every visible CUDA device), on the float
 embed; the training loops through their ``sharded_step_fn``
 (``train/state.py::make_train_step_sharded``).  On one device, or when the
 bucket does not divide over the devices, it runs whole, as JAX's does on
-one chip; a training bag that would then not fit the card raises first
-(:func:`_check_unrouted_train_bag`).
+one chip.  Any training bag that trains whole and would not fit the card
+raises before its step (:func:`_check_unrouted_train_bag`).
 
 A loader is anything with ``epoch(e)`` yielding ``(Bag, record)``, or a
 plain iterable of such pairs.
@@ -60,7 +60,7 @@ from montecarlo_gated_mil_tpu_torch.core import rng
 from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn, mc_head
 from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
 from montecarlo_gated_mil_tpu_torch.models.resnet import exact_float_grads
-from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import GatedAttentionParams, kernel_on
 from montecarlo_gated_mil_tpu_torch.parallel.mesh import Mesh, replicated, shard_mesh_for
 from montecarlo_gated_mil_tpu_torch.train.criteria import bce_on_probs
 from montecarlo_gated_mil_tpu_torch.train.state import TrainState
@@ -71,35 +71,60 @@ def _items(loader, epoch: int):
     return loader.epoch(epoch) if hasattr(loader, "epoch") else iter(loader)
 
 
-# Training-step memory per input element on the card: the shipped step
-# (r18, f32, CE + aux) peaked at 26.15 GiB at bucket 1024 of 224x224x3
-# patches, 182 B per element (PERF.md section 5, chip_smoke.py phase 7 on an
-# H100), about linear in the bucket; rounded up to 192, which also covers
-# the 27.5-27.8 GiB that phase 7's whole run_training has since read with
-# the loader's bags in flight.
-_TRAIN_BYTES_PER_INPUT_ELEM = 192.0
+# Training-step memory per input element on the card, by backbone and
+# compute dtype.  The shipped step (r18, f32, CE + aux) peaked at 26.15 GiB at
+# bucket 1024 of 224x224x3 patches, 182 B per element (PERF.md section 5,
+# chip_smoke.py phase 7 on an H100), about linear in the bucket; rounded up
+# to 192, which also covers the 27.5-27.8 GiB that phase 7's whole
+# run_training has since read with the loader's bags in flight.  The others
+# are chip_smoke.py phase 14 (c)'s peaks (tools/measure_hbm.py::train_peaks,
+# buckets 256-1024, NVIDIA H100 80GB HBM3 at 700 W): the largest peak over
+# input elements of each pair, plus 5 %, rounded up to a multiple of 16 --
+# r18 bf16 196.5 B, r34 f32 235.4, r34 bf16 198.6, r50 f32 589.4 (its
+# bucket 1024 would not fit the card), r50 bf16 322.8.  A bf16 step of r18
+# or r34 takes as much as the f32 one or more (PERF.md section 7).  float64
+# by the same rule from phase 14 (c)'s buckets 128-512 (the same card):
+# r18 354.1 B, r34 440.3, r50 1203.5.
+_TRAIN_BYTES_PER_INPUT_ELEM = {
+    ("r18", torch.float32): 192.0,
+    ("r18", torch.bfloat16): 208.0,
+    ("r18", torch.float64): 384.0,
+    ("r34", torch.float32): 256.0,
+    ("r34", torch.bfloat16): 224.0,
+    ("r34", torch.float64): 464.0,
+    ("r50", torch.float32): 624.0,
+    ("r50", torch.bfloat16): 352.0,
+    ("r50", torch.float64): 1264.0,
+}
 
 
-def _train_step_bytes(bag) -> float:
-    """The card memory a whole-bag training step of ``bag`` is estimated to
-    take at its peak."""
-    return bag.patches.numel() * _TRAIN_BYTES_PER_INPUT_ELEM + (1 << 29)
+def _train_step_bytes(bag, model=None) -> float:
+    """The card memory a whole-bag training step of ``bag`` through
+    ``model`` is estimated to take at its peak: the bytes per input element
+    of its backbone and compute dtype, plus 0.5 GiB; with no model, the
+    largest entry."""
+    if model is None:
+        per_elem = max(_TRAIN_BYTES_PER_INPUT_ELEM.values())
+    else:
+        per_elem = _TRAIN_BYTES_PER_INPUT_ELEM[(model.backbone, model.dtype)]
+    return bag.patches.numel() * per_elem + (1 << 29)
 
 
-def _check_unrouted_train_bag(bag, shard_over: int | None) -> None:
-    """Fail fast, with what to do, when an OVERSIZED training bag could not
-    route to the instance-sharded step and would not fit the card.
+def _check_unrouted_train_bag(bag, shard_over: int | None, model=None) -> None:
+    """Fail fast, with what to do, when a training bag that trains whole
+    would not fit the card.
 
-    Routing fails on one device, under multi-process fold fan-out, or when
-    the extended bucket does not divide over the devices
-    (``parallel/mesh.py::shard_mesh_for``); the bag then trains whole, and
-    past about 3000 tiles at 224 px that exceeds an 80 GB card, which would
-    fail with an out-of-memory error deep in the backward.  The limit is the
-    bag's card's memory (``MCGMIL_HBM_LIMIT_BYTES`` overrides it, as in the
-    JAX package); on the CPU, with no override, there is none.
+    Every bag that the loops do not route to the instance-sharded step
+    trains whole: one within the registry's buckets, and an OVERSIZED one
+    (bucket above ``shard_over``) that could not route -- on one device,
+    under multi-process fold fan-out, or when the extended bucket does not
+    divide over the devices (``parallel/mesh.py::shard_mesh_for``).  Where
+    its step's estimate (:func:`_train_step_bytes` for ``model``, the model
+    the step trains) exceeds 95 % of the limit, the step would fail with an
+    out-of-memory error deep in its backward, so this raises before it.  The
+    limit is the bag's card's memory (``MCGMIL_HBM_LIMIT_BYTES`` overrides
+    it, as in the JAX package); on the CPU, with no override, there is none.
     """
-    if shard_over is None or bag.bucket <= shard_over:
-        return
     import os
 
     env = os.environ.get("MCGMIL_HBM_LIMIT_BYTES")
@@ -109,28 +134,44 @@ def _check_unrouted_train_bag(bag, shard_over: int | None) -> None:
         limit = float(torch.cuda.get_device_properties(bag.patches.device).total_memory)
     else:
         return
-    est = _train_step_bytes(bag)
-    if est > 0.95 * limit:
+    est = _train_step_bytes(bag, model)
+    if est <= 0.95 * limit:
+        return
+    need = (f"(bucket {bag.bucket}, patches {tuple(bag.patches.shape)}) needs "
+            f"~{est / 2**30:.1f} GiB for the training step but the device has "
+            f"{limit / 2**30:.1f} GiB")
+    if shard_over is not None and bag.bucket > shard_over:
         raise ValueError(
-            f"oversized training bag (bucket {bag.bucket}, patches "
-            f"{tuple(bag.patches.shape)}) needs ~{est / 2**30:.1f} GiB for the training step "
-            f"but the device has {limit / 2**30:.1f} GiB; it could not instance-shard "
-            "(single device, multi-process fold fan-out, or bucket not divisible by the "
-            "device count). Options: run on several cards (oversized bags then train "
-            "instance-sharded), reduce the tile count (lower overlap, raise "
-            "empty_threshold), or accept truncation with tpu.oversized_bags='truncate'."
+            f"oversized training bag {need}; it could not instance-shard (single device, "
+            "multi-process fold fan-out, or bucket not divisible by the device count). "
+            "Options: run on several cards (oversized bags then train instance-sharded), "
+            "reduce the tile count (lower overlap, raise empty_threshold), or accept "
+            "truncation with tpu.oversized_bags='truncate'."
         )
+    what = "" if model is None else f" of {model.backbone} in {str(model.dtype)[6:]}"
+    raise ValueError(
+        f"training bag {need}: a whole-bag step{what} does not fit. Options: lower the "
+        "largest of tpu.buckets so that bags this large are oversized (they then train "
+        "instance-sharded on several cards, or are cut to the largest bucket with "
+        "tpu.oversized_bags='truncate'), or train a backbone or compute dtype whose step "
+        "takes less (train/loops.py::_TRAIN_BYTES_PER_INPUT_ELEM; r50's bfloat16 step, "
+        "for one, takes about half of its float32 one)."
+    )
 
 
-def warn_float_shard(quantized: bool = False) -> None:
-    """Oversized bags evaluate on the float instance-sharded path; the int8
-    embed is a single-device program and does not apply there.  Callers say
-    so once per loop, so a metric labeled int8 is never silently a
-    mixed-regime number."""
+def warn_float_shard(quantized: bool = False, use_pallas: bool = False) -> None:
+    """Oversized bags evaluate on the float instance-sharded path, whose
+    head is plain (``parallel/instance.py``); the int8 embed and the fused
+    head kernel are single-device programs and do not apply there.  Callers
+    say so once per loop, so a metric labeled int8 or fused-kernel is never
+    silently a mixed-regime number."""
     import warnings
 
+    what = " + ".join(
+        n for n, on in (("int8", quantized), ("fused-kernel", use_pallas)) if on
+    )
     warnings.warn(
-        "oversized bag routed to the instance-sharded EXACT float path; the int8 "
+        f"oversized bag routed to the instance-sharded EXACT float path; the {what} "
         "single-device variant does not apply there — this metric mixes evaluation "
         "regimes for such bags",
         stacklevel=3,
@@ -260,7 +301,7 @@ def train_epoch(
                 bag.bucket, shard_over, mesh) is not None:
             fn = sharded_step_fn
         else:
-            _check_unrouted_train_bag(bag, shard_over)
+            _check_unrouted_train_bag(bag, shard_over, getattr(state, "model", None))
         timer = _StepTimer(bag.patches.device)
         state, out = fn(state, bag, seed, do_update)
         ms = timer.stop()
@@ -348,7 +389,7 @@ def train_epoch_dp(
             add({"loss_sum": out["loss"], "aux_sum": out["aux_loss"],
                  "correct_sum": out["correct"], "count": 1})
             continue
-        _check_unrouted_train_bag(bag, shard_over)
+        _check_unrouted_train_bag(bag, shard_over, getattr(state, "model", None))
         for group in batcher.add(bag, i):
             state, pending, out = flush(group, state, pending)
             add(out)
@@ -472,11 +513,17 @@ def mc_validate(
     key: int,
     metrics: Metrics | None = None,
     fold: int | None = None,
+    use_pallas: bool | None = None,
     shard_over: int | None = None,
     mesh: Mesh | None = None,
 ) -> float:
     """MC validation; bag ``i`` of epoch ``e`` samples with seed
-    ``fold_in(fold_in(key, e), i)``."""
+    ``fold_in(fold_in(key, e), i)``.  ``use_pallas``: ``None`` and ``True``
+    run the head kernel on the card, ``False`` the plain head there; on the
+    CPU all three run the plain head.  JAX's default is ``False`` (its
+    kernel runs on a TPU only); the port's kernel runs on every card.  An
+    oversized bag's sharded head is plain, and the kernel path says so once
+    (:func:`warn_float_shard`)."""
     running_loss = running_aux = correct = total = 0.0
     sharded = None
     with torch.no_grad():
@@ -484,12 +531,15 @@ def mc_validate(
             seed = rng.fold_in(rng.fold_in(key, epoch), i)
             shard_mesh = shard_mesh_for(bag.bucket, shard_over, mesh)
             if shard_mesh is not None:
+                if sharded is None and kernel_on(use_pallas) and bag.patches.is_cuda:
+                    warn_float_shard(use_pallas=True)
                 sharded = sharded or _mc_val_step_sharded(model, criterion, num_samples,
                                                           shard_mesh)
                 loss, aux, pred = sharded(bag.patches, bag.mask, bag.label, seed)
             else:
                 H = model.embed(bag.patches, bag.mask)
-                out = mc_head(model, H, bag.mask, num_samples, seed)
+                out = mc_head(model, H, bag.mask, num_samples, seed,
+                              kernel=kernel_on(use_pallas))
                 loss, aux, pred = _mc_val_finish(
                     model, criterion, out.predictions, out.attention, bag.label
                 )
@@ -553,26 +603,29 @@ def mc_test(
     seed: int,
     metrics: Metrics | None = None,
     fold: int | None = None,
+    use_pallas: bool | None = None,
     quantized: bool = False,
     shard_over: int | None = None,
     mesh: Mesh | None = None,
 ):
     """MC test pass: ``(accuracy, Report)`` from the argmax of the MC-mean
     softmax.  Bag ``i`` samples with seed ``fold_in(seed, i)``;
-    ``quantized=True`` embeds through the int8 PTQ path.  An oversized bag
-    (bucket above ``shard_over``) evaluates instance-sharded over
-    ``mesh``'s devices on the float embed, where there are several (see the
-    module docstring); the int8 path then says once that the metric mixes
-    regimes (:func:`warn_float_shard`)."""
+    ``quantized=True`` embeds through the int8 PTQ path; ``use_pallas`` as
+    in :func:`mc_validate` (JAX's default ``False``, the port's kernel on
+    every card).  An oversized bag (bucket above ``shard_over``) evaluates
+    instance-sharded over ``mesh``'s devices on the float embed and the
+    plain head, where there are several (see the module docstring); the
+    int8 or kernel path then says once that the metric mixes regimes
+    (:func:`warn_float_shard`)."""
     targets, preds, _ = _mc_test_outputs(
-        model, loader, num_samples=num_samples, seed=seed, quantized=quantized,
-        shard_over=shard_over, mesh=mesh,
+        model, loader, num_samples=num_samples, seed=seed, use_pallas=use_pallas,
+        quantized=quantized, shard_over=shard_over, mesh=mesh,
     )
     return _finish_test(targets, preds, metrics, fold)
 
 
-def _mc_test_outputs(model, loader, *, num_samples, seed, quantized=False, shard_over=None,
-                     mesh=None) -> tuple[list[int], list[int], list[torch.Tensor]]:
+def _mc_test_outputs(model, loader, *, num_samples, seed, use_pallas=None, quantized=False,
+                     shard_over=None, mesh=None) -> tuple[list[int], list[int], list[torch.Tensor]]:
     """:func:`mc_test`'s pass: per bag its target, predicted label and MC
     logits ``Y (T, C)`` on the CPU, in stream order."""
     embed = make_embed_fn(model, quantized)
@@ -583,13 +636,15 @@ def _mc_test_outputs(model, loader, *, num_samples, seed, quantized=False, shard
             seed_i = rng.fold_in(seed, i)
             shard_mesh = shard_mesh_for(bag.bucket, shard_over, mesh)
             if shard_mesh is not None:
-                if sharded is None and quantized:
-                    warn_float_shard(quantized=True)
+                kernel = kernel_on(use_pallas) and bag.patches.is_cuda
+                if sharded is None and (quantized or kernel):
+                    warn_float_shard(quantized=quantized, use_pallas=kernel)
                 sharded = sharded or _mc_test_step_sharded(model, num_samples, shard_mesh)
                 y = sharded(bag.patches, bag.mask, seed_i)
             else:
                 H = embed(bag.patches, bag.mask)
-                y = mc_head(model, H, bag.mask, num_samples, seed_i).predictions
+                y = mc_head(model, H, bag.mask, num_samples, seed_i,
+                            kernel=kernel_on(use_pallas)).predictions
             preds.append(int(_mc_labels(y)))
             ys.append(y.cpu())
             targets.append(int(bag.label))

@@ -37,6 +37,7 @@ import torch
 from montecarlo_gated_mil_tpu_torch.core.bag import Bag
 from montecarlo_gated_mil_tpu_torch.models.gamil import auxiliary_loss
 from montecarlo_gated_mil_tpu_torch.models.resnet import exact_float_grads
+from montecarlo_gated_mil_tpu_torch.ops.gated_attention import kernel_on
 
 
 @dataclass
@@ -94,6 +95,7 @@ def make_train_step(
     *,
     debug_nans: bool = False,
     debug_infs: bool = False,
+    use_pallas: bool | None = None,
 ):
     """The one-bag training step ``step(state, bag, seed, do_update)``.
 
@@ -107,10 +109,20 @@ def make_train_step(
     Inf checks) raise ``FloatingPointError`` when the loss or an accumulated
     gradient holds a NaN / an Inf, before the optimizer steps; each costs a
     host sync per step.
+
+    ``use_pallas``: ``None`` (the default) and ``True`` run the head's
+    forward and backward kernels (K1/K5, K2/K4 for a shared gate) on the
+    card; ``False`` runs the plain head there, its backward by autograd.  On
+    the CPU all three run the plain head.  JAX's default is ``False``,
+    because the JAX package trains its head in jnp unless
+    ``tpu.use_pallas_train`` is set; the port trains on its kernels
+    (``core/config.py``), and ``use_pallas_train`` stays parsed only.
     """
+    kernel = kernel_on(use_pallas)
 
     def step(state: TrainState, bag: Bag, seed: int, do_update: bool):
-        y, _, aux = model(bag.patches, bag.mask, bag.label, train=True, seed=seed)
+        y, _, aux = model(bag.patches, bag.mask, bag.label, train=True, seed=seed,
+                          kernel=kernel)
         loss = criterion(y[None, :], bag.label[None]) + aux
         with exact_float_grads(model.dtype):
             (loss / accumulation_steps).backward()

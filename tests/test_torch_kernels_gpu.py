@@ -131,6 +131,75 @@ def test_autograd_through_the_kernels(cuda, separate):
     _assert_grads_close(got, grads(tga.mc_head_reference))
 
 
+HEAD_KERNELS = ("mc_head_sep", "mc_head_shared", "mc_head_bwd_sep", "mc_head_bwd_shared")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("separate", [False, True])
+def test_plain_head_switch_launches_no_head_kernel(cuda, separate):
+    """``kernel=False`` (what ``use_pallas=False`` passes down) on the card:
+    a forward and a backward with dropout on launch no K1, K2, K4 or K5 and
+    split no gate weights for the wgmma pass; Y within 1e-4 and A within
+    1e-5 of the kernel path (K1's limits), the gradients within the
+    backward kernels' limits of theirs."""
+    g = torch.Generator().manual_seed(7)
+    N, T = 300, 3
+    H = torch.rand(N, 128, generator=g).to(cuda)
+    mask = (torch.arange(N) % 5 != 4).to(cuda)
+    params = _params(separate, D=64).to(cuda)
+    dY = torch.randn(T, 2, generator=g).to(cuda)
+    dA = (torch.randn(T, 2, N, generator=g) * 0.1).to(cuda)
+
+    def run(kernel):
+        leaves = [H.clone().requires_grad_(True)] + [
+            getattr(params, f).clone().requires_grad_(True) for f in FIELDS
+        ]
+        prm = tga.GatedAttentionParams(*leaves[1:], params.w_cls)
+        cuda_build.reset_launch_counts()
+        split = len(tga._gate_split_cache)
+        y, a = tga.mc_gated_attention(leaves[0], mask, prm, T, 5, 0.1, 0.1, kernel=kernel)
+        grads = torch.autograd.grad((y * dY).sum() + (a * dA).sum(), leaves)
+        torch.cuda.synchronize()
+        launches = {k: cuda_build.KERNELS[k].launches for k in HEAD_KERNELS}
+        return y.detach(), a.detach(), grads, launches, len(tga._gate_split_cache) - split
+
+    y_p, a_p, g_p, plain, plain_split = run(False)
+    y_k, a_k, g_k, kernels, _ = run(True)
+    assert not any(plain.values()) and plain_split == 0, plain
+    assert kernels["mc_head_sep" if separate else "mc_head_shared"] == 1
+    assert kernels["mc_head_bwd_sep" if separate else "mc_head_bwd_shared"] == 1
+    torch.testing.assert_close(y_p, y_k, atol=1e-4, rtol=0)
+    torch.testing.assert_close(a_p, a_k, atol=1e-5, rtol=0)
+    _assert_grads_close(g_p, g_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_pallas", [None, True, False])
+def test_use_pallas_on_a_head_k1_refuses(cuda, use_pallas):
+    """A nine-class model (K1 takes up to 8 classes): ``MCDOPredictor`` with
+    ``use_pallas`` ``None`` or ``True`` raises rather than running the plain
+    head; ``False`` runs the plain head and launches no head kernel."""
+    from montecarlo_gated_mil_tpu_torch.data.pipeline import PipelineConfig
+    from montecarlo_gated_mil_tpu_torch.data.synthetic import synthetic_image
+    from montecarlo_gated_mil_tpu_torch.models.gamil import MultiHeadGatedAttentionMIL
+    from montecarlo_gated_mil_tpu_torch.serve import MCDOPredictor
+
+    torch.manual_seed(3)
+    pipe = PipelineConfig(height=128, width=128, patch_size=64, overlap=0.0,
+                          empty_threshold=0.05, bucket=8)
+    model = MultiHeadGatedAttentionMIL(num_classes=9, shared_attention=False)
+    pred = MCDOPredictor(model, pipe, num_samples=2, use_pallas=use_pallas, device=cuda)
+    img = synthetic_image(128, 128, positive=True, seed=1)
+    cuda_build.reset_launch_counts()
+    if use_pallas is not False:
+        with pytest.raises(ValueError, match="unsupported shapes"):
+            pred.predict(img, "R", seed=3)
+        return
+    r = pred.predict(img, "R", seed=3)
+    assert r.stats.mean_probs.shape == (9,) and torch.isfinite(r.stats.mean_probs).all()
+    assert not any(cuda_build.KERNELS[k].launches for k in HEAD_KERNELS)
+
+
 # Full-width cases (separate gates, C = 2, D = 128): (N, valid rows, where
 # they lie, T, L).  "first" is how serving lays a bag out; "random" leaves
 # few tiles empty; "gap" pads whole tiles in the middle of the bag.
@@ -537,8 +606,9 @@ def test_qconv_plan_convs_run_the_wgmma_kernel(cuda, backbone, stem, convs):
 
     kernel = cuda_build.KERNELS["qconv_i8"]
     before = kernel.launches
+    embed()  # counted alone: a trace that drops its first records is taken again
+    assert kernel.launches - before == convs
     got = _device_launches(embed)
-    assert kernel.launches - before == 2 * convs
     gathers = 1 if stem == "s2d_i8" else 0
     wgmma_fn, pair_fn, gather_fn = cuda_build.DEVICE_FUNCTIONS["qconv.cu"]
     assert got[gather_fn] == gathers and got[wgmma_fn] + got[pair_fn] == convs - gathers

@@ -121,6 +121,36 @@ def test_bag_loader_matches_jax():
         np.testing.assert_allclose(tb.patches.numpy(), np.asarray(jb.patches), atol=1e-6, rtol=0)
 
 
+def test_bag_loader_sample_order_matches_jax():
+    """A fixed ``sample_order`` with a repeated index (shuffling asked for,
+    and overridden by it): the same ``len`` as the JAX loader and the same
+    sequence of records, labels, masks and patches, in that order at every
+    epoch; passing it with ``sample_weights`` raises in both packages."""
+    jr, tr = _records(4, seed=2)
+    order = np.array([2, 0, 2, 3, 1])
+    jl = jpl.BagLoader(jr, jsyn.make_synthetic_reader(128, 128), jpl.PipelineConfig(**CFG),
+                       seed=3, shuffle=True, sample_order=order)
+    tl = tpl.BagLoader(tr, tsyn.make_synthetic_reader(128, 128), tpl.PipelineConfig(**CFG),
+                       seed=3, shuffle=True, sample_order=order, device="cpu")
+    assert len(tl) == len(jl) == 5
+    for epoch in (0, 1):
+        got, want = list(tl.epoch(epoch)), list(jl.epoch(epoch))
+        assert [r.paths for _, r in got] == [r.paths for _, r in want] == [
+            tr[i].paths for i in order]
+        for (tb, _), (jb, _) in zip(got, want):
+            assert int(tb.label) == int(jb.label)
+            np.testing.assert_array_equal(tb.mask.numpy(), np.asarray(jb.mask))
+            np.testing.assert_allclose(tb.patches.numpy(), np.asarray(jb.patches), atol=1e-6,
+                                       rtol=0)
+    weights = trec.class_weights(tr)[1]
+    with pytest.raises(ValueError, match="not both"):
+        tpl.BagLoader(tr, None, tpl.PipelineConfig(**CFG), sample_order=order,
+                      sample_weights=weights, device="cpu")
+    with pytest.raises(ValueError, match="not both"):
+        jpl.BagLoader(jr, None, jpl.PipelineConfig(**CFG), sample_order=order,
+                      sample_weights=weights)
+
+
 def test_augmented_loader_is_seeded():
     _, tr = _records(2, seed=4)
     reader = tsyn.make_synthetic_reader(128, 128)

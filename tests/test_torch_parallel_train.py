@@ -410,22 +410,69 @@ def test_training_loops_route_oversized_bags(loop):
 
 
 def test_unrouted_oversized_train_bag_guard(monkeypatch):
-    """``_check_unrouted_train_bag`` (``test_oversized.py:674``): silent for
-    a bag that is not oversized or when routing is off, and on the CPU with
-    no limit set; with ``MCGMIL_HBM_LIMIT_BYTES`` below the card estimate of
-    an oversized bag it raises saying what to do, above it not."""
+    """``_check_unrouted_train_bag`` (``test_oversized.py:674``): silent on
+    the CPU with no limit set; with ``MCGMIL_HBM_LIMIT_BYTES`` below the card
+    estimate of a bag it raises saying what to do -- for an oversized bag
+    that could not instance-shard, and for one within the buckets or with
+    routing off, whose whole-bag step would not fit either -- and above it
+    not."""
     big = _bag(64, 16, 49, 1, seed=5)
     monkeypatch.delenv("MCGMIL_HBM_LIMIT_BYTES", raising=False)
     for shard_over in (None, 64, 16):
         loops._check_unrouted_train_bag(big, shard_over)
-    est = loops._train_step_bytes(big)
-    assert est == big.patches.numel() * loops._TRAIN_BYTES_PER_INPUT_ELEM + (1 << 29)
+    est = loops._train_step_bytes(big)  # no model: the table's largest entry
+    assert est == big.patches.numel() * max(loops._TRAIN_BYTES_PER_INPUT_ELEM.values()) + (1 << 29)
     monkeypatch.setenv("MCGMIL_HBM_LIMIT_BYTES", str(int(est / 0.95) - 1))
     with pytest.raises(ValueError, match="instance-shard.*truncate"):
         loops._check_unrouted_train_bag(big, 16)
-    loops._check_unrouted_train_bag(big, 64)
+    for shard_over in (None, 64):
+        with pytest.raises(ValueError, match="whole-bag step does not fit.*tpu.buckets.*truncate"):
+            loops._check_unrouted_train_bag(big, shard_over)
     monkeypatch.setenv("MCGMIL_HBM_LIMIT_BYTES", str(int(est / 0.95) + 1))
-    loops._check_unrouted_train_bag(big, 16)
+    for shard_over in (None, 64, 16):
+        loops._check_unrouted_train_bag(big, shard_over)
+
+
+@pytest.mark.parametrize("loop", ["train_epoch", "train_epoch_dp"])
+def test_training_loops_raise_before_an_in_range_bag_that_would_not_fit(monkeypatch, loop):
+    """A bag within the buckets trains whole, so the guard holds it too: with
+    a limit that an r18 f32 step of the bag fits and an r50 f32 one does not
+    (the table's entries), both loops train the r18 bag and raise before
+    any step of the r50 one, naming the backbone and dtype."""
+    import types
+
+    bag = _bag(16, 16, 12, 1, seed=5)
+    r18, r50 = (types.SimpleNamespace(backbone=b, dtype=torch.float32) for b in ("r18", "r50"))
+    limit = (loops._train_step_bytes(bag, r18) + loops._train_step_bytes(bag, r50)) / 2 / 0.95
+    assert loops._train_step_bytes(bag, r18) < 0.95 * limit < loops._train_step_bytes(bag, r50)
+    monkeypatch.setenv("MCGMIL_HBM_LIMIT_BYTES", str(int(limit)))
+    out = {"loss": torch.tensor(0.0), "aux_loss": torch.tensor(0.0),
+           "correct": torch.tensor(0.0)}
+    calls = []
+
+    def step(state, *args):
+        calls.append(state.model.backbone)
+        return state, out
+
+    def dp_step(state, *args):
+        calls.append(state.model.backbone)
+        return state, {"loss_sum": out["loss"], "aux_sum": out["aux_loss"],
+                       "correct_sum": out["correct"], "count": 1}
+
+    def run(model):
+        state = types.SimpleNamespace(model=model)
+        if loop == "train_epoch":
+            loops.train_epoch(step, state, [(bag, None)], epoch=1, accumulation_steps=1, key=0,
+                              shard_over=64)
+        else:
+            loops.train_epoch_dp(dp_step, lambda s: s, state, [(bag, None)], cpu_mesh(data=1),
+                                 epoch=1, accumulation_steps=1, key=0, shard_over=64)
+
+    run(r18)
+    assert calls == ["r18"]
+    with pytest.raises(ValueError, match="whole-bag step of r50 in float32 does not fit"):
+        run(r50)
+    assert calls == ["r18"]
 
 
 @pytest.mark.parametrize("loop", ["train_epoch", "train_epoch_dp"])
