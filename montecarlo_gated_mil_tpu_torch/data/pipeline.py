@@ -36,6 +36,7 @@ from montecarlo_gated_mil_tpu_torch.ops.patching import (
     select_tiles,
     tile_fill_scores_sat,
 )
+from montecarlo_gated_mil_tpu_torch.utils.profiling import adopt, count, span
 
 # ImageNet statistics (reference transforms, utils.py:48).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -306,6 +307,13 @@ class BagLoader:
     ``num_workers``; uploads and bag building stay on the one producer
     thread, in record order, so the bags are the same for any
     ``io_workers``.
+
+    While spans are recorded (``utils/profiling.py::span``) each bag is a
+    tree begun by ``loader.read`` (its ``epoch`` and ``position``: the wait
+    on the IO pool's read, or the read itself at ``io_workers`` 1), then
+    ``loader.build`` on the producer (``_make_bag``; it counts
+    ``loader.exact_count`` where the device count decided the bucket) and
+    ``loader.wait``, the consumer's wait for the bag.
     """
 
     def __init__(
@@ -406,6 +414,7 @@ class BagLoader:
             image, flip, self._starts_np, cfg, margin_hi=ESTIMATE_MARGIN_HI
         )
         if est is None or self._decide(est[0], may_overflow) != self._decide(est[1], may_overflow):
+            count("loader.exact_count")
             n = count_valid_tiles(img, flip, self._starts, cfg, device=self.device)
         else:
             n = est[0]
@@ -435,31 +444,36 @@ class BagLoader:
             return min(self.bucket_spec.bucket_for(n), cfg.bucket), False
         return cfg.bucket, False
 
-    def _reads(self, order: np.ndarray, cancel: threading.Event) -> Iterator[tuple[int, object]]:
-        """``(index, raw pixels)`` in ``order``: read here, or with
+    def _reads(self, order: np.ndarray, epoch: int,
+               cancel: threading.Event) -> Iterator[tuple[int, object, int | None]]:
+        """``(index, raw pixels, root)`` in ``order``: read here, or with
         ``io_workers > 1`` by a thread pool holding exactly ``io_workers``
         reads in flight (each a whole decoded image, so the window bounds
-        the host memory)."""
+        the host memory).  ``root`` is the bag's span tree (None while
+        spans are not recorded)."""
         if self.io_workers == 1:
-            for i in order:
-                yield int(i), self.reader(self.records[int(i)])
+            for k, i in enumerate(order):
+                with span("loader.read", epoch=epoch, position=k) as root:
+                    raw = self.reader(self.records[int(i)])
+                yield int(i), raw, root
             return
         with ThreadPoolExecutor(self.io_workers) as pool:
             pending: deque = deque()
-            it = iter(order)
+            it = enumerate(order)
 
             def submit_next() -> None:
-                i = next(it, None)
+                k, i = next(it, (None, None))
                 if i is not None and not cancel.is_set():
-                    pending.append((int(i), pool.submit(self.reader, self.records[int(i)])))
+                    pending.append((k, int(i), pool.submit(self.reader, self.records[int(i)])))
 
             for _ in range(self.io_workers):
                 submit_next()
             while pending:
-                i, fut = pending.popleft()
-                raw = fut.result()
+                k, i, fut = pending.popleft()
+                with span("loader.read", epoch=epoch, position=k) as root:
+                    raw = fut.result()
                 submit_next()
-                yield i, raw
+                yield i, raw, root
 
     def epoch(self, epoch: int = 0) -> Iterator[tuple[Bag, BagRecord]]:
         """Yield ``(Bag, record)`` in the epoch's order, built one ahead by
@@ -480,23 +494,27 @@ class BagLoader:
             return False
 
         def produce():
-            reads = self._reads(order, cancel)
+            reads = self._reads(order, epoch, cancel)
             try:
-                for i, raw in reads:
-                    if not put(self._make_bag(i, epoch, raw)):
+                for i, raw, root in reads:
+                    with span("loader.build", root=root):
+                        item = self._make_bag(i, epoch, raw)
+                    if not put((root, item)):
                         return
             except Exception as e:  # handed to the consumer, which raises it
-                put(e)
+                put((None, e))
                 return
             finally:
                 reads.close()
-            put(done)
+            put((None, done))
 
         t = threading.Thread(target=produce, daemon=True)
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("loader.wait"):
+                    root, item = q.get()
+                    adopt(root)
                 if item is done:
                     return
                 if isinstance(item, Exception):

@@ -21,6 +21,7 @@ devices.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import warnings
 from dataclasses import dataclass, replace
@@ -57,6 +58,7 @@ from montecarlo_gated_mil_tpu_torch.parallel.mesh import (
     replicated,
     shard_mesh_for,
 )
+from montecarlo_gated_mil_tpu_torch.utils.profiling import count, span
 from montecarlo_gated_mil_tpu_torch.viz.attention import attention_map_stats
 
 
@@ -94,6 +96,18 @@ def _host(x):
     return type(x)(**{k: v.cpu() for k, v in vars(x).items()})
 
 
+@contextlib.contextmanager
+def _held(semaphore: threading.BoundedSemaphore, wait_span: str):
+    """Hold ``semaphore`` for the body; the wait to acquire it is the span
+    ``wait_span``."""
+    with span(wait_span):
+        semaphore.acquire()
+    try:
+        yield
+    finally:
+        semaphore.release()
+
+
 class MCDOPredictor:
     """Warm end-to-end MCDO inference for one pipeline configuration.
 
@@ -118,6 +132,17 @@ class MCDOPredictor:
 
     ``quantized=True`` embeds through the int8 PTQ path (static k-sigma
     scales, ``ops/quantized.py``); its plan is built once, here.
+
+    While spans are recorded (``utils/profiling.py::span``) a ``predict``
+    is the tree ``serve.request``: ``serve.prep`` (pixels, the bucket's
+    estimate, the route; it counts ``serve.bucket_rounded_up`` where the
+    estimate's band took the larger bucket), ``serve.upload_wait``,
+    ``serve.upload``, ``serve.gate_wait``, then ``serve.execute`` while the
+    execute gate is held, over ``serve.bag``, ``serve.embed``,
+    ``serve.head`` (the host issuing each stage), ``serve.stats`` (which
+    begins by waiting on the request's device work: ``torch.quantile``'s
+    quantiles are a blocking host-to-device copy) and ``serve.fetch`` (the
+    host reading the results back).
 
     ``use_pallas``: ``None`` (the default) and ``True`` run the head kernel
     (K1, K2 for a shared gate) on the card, ``False`` the plain head there
@@ -239,6 +264,8 @@ class MCDOPredictor:
         n, n_hi = est
         bucket_lo, over_lo = self._decide_bucket(n, may_overflow)
         bucket_hi, _ = self._decide_bucket(n_hi, may_overflow)
+        if bucket_hi > bucket_lo:
+            count("serve.bucket_rounded_up")
         if over_lo and self.oversized != "extend":
             with self._lock:
                 self.truncated_requests += 1
@@ -293,21 +320,26 @@ class MCDOPredictor:
     def _infer(self, image: torch.Tensor, flip: bool, seed: int, inv_max: float, bucket: int):
         """The request on the device: bag, features, T head samples, stats.
         An oversized bucket runs instance-sharded where the mesh allows."""
-        bag = self._bag(image, flip, inv_max, bucket)
+        with span("serve.bag"):
+            bag = self._bag(image, flip, inv_max, bucket)
         shard_mesh = shard_mesh_for(bucket, self.pipeline.bucket, self._mesh())
         if shard_mesh is not None:
             from montecarlo_gated_mil_tpu_torch.parallel.instance import mc_inference_sharded
 
-            y, a = mc_inference_sharded(self.model, bag.patches, bag.mask, self.num_samples,
-                                        seed, shard_mesh, params=self._head_params,
-                                        replicas=self._mesh_replicas())
-            y, a = y.to(self.device), a.to(self.device)
+            with span("serve.embed"):  # the sharded call embeds and samples the head
+                y, a = mc_inference_sharded(self.model, bag.patches, bag.mask, self.num_samples,
+                                            seed, shard_mesh, params=self._head_params,
+                                            replicas=self._mesh_replicas())
+                y, a = y.to(self.device), a.to(self.device)
         else:
-            H = self._embed(bag.patches, bag.mask)
-            out = mc_head(self.model, H, bag.mask, self.num_samples, seed, self._head_params,
-                          kernel=self._kernel)
+            with span("serve.embed"):
+                H = self._embed(bag.patches, bag.mask)
+            with span("serve.head"):
+                out = mc_head(self.model, H, bag.mask, self.num_samples, seed,
+                              self._head_params, kernel=self._kernel)
             y, a = out.predictions, out.attention
-        return bag, y, a, predictive_stats(y), attention_stats(a, bag.mask)
+        with span("serve.stats"):
+            return bag, y, a, predictive_stats(y), attention_stats(a, bag.mask)
 
     def _mark_warm(self, bucket: int) -> None:
         with self._lock:
@@ -389,11 +421,13 @@ class MCDOPredictor:
         """
         if map_downsample < 1:
             raise ValueError(f"map_downsample must be >= 1, got {map_downsample}")
-        arr, inv_max = _prepare_image(image, pixel_max)
-        bucket = self._route(self._pick_bucket(arr, laterality))
-        with self._upload_slots:
-            result = self._run(arr, laterality == "R", seed, inv_max, bucket,
-                               map_downsample if return_maps else None)
+        with span("serve.request"):
+            with span("serve.prep"):
+                arr, inv_max = _prepare_image(image, pixel_max)
+                bucket = self._route(self._pick_bucket(arr, laterality))
+            with _held(self._upload_slots, "serve.upload_wait"):
+                result = self._run(arr, laterality == "R", seed, inv_max, bucket,
+                                   map_downsample if return_maps else None)
         self._mark_warm(bucket)
         return result
 
@@ -403,18 +437,22 @@ class MCDOPredictor:
         Returns host results only, so the request's device tensors are
         released when it returns (the caller holds an upload slot until
         then)."""
-        dev = self._upload(arr)
-        with self._execute_gate, torch.inference_mode():
+        with span("serve.upload"):
+            dev = self._upload(arr)
+        with (_held(self._execute_gate, "serve.gate_wait"), span("serve.execute"),
+              torch.inference_mode()):
             bag, _, a, stats, att = self._infer(dev, flip, seed, inv_max, bucket)
-            maps = (None, None)
-            if map_downsample is not None:
-                maps = tuple(
-                    m.cpu().numpy() for m in attention_map_stats(
-                        a, bag.tile_indices, bag.mask, self._grid, downsample=map_downsample,
+            with span("serve.fetch"):
+                maps = (None, None)
+                if map_downsample is not None:
+                    maps = tuple(
+                        m.cpu().numpy() for m in attention_map_stats(
+                            a, bag.tile_indices, bag.mask, self._grid,
+                            downsample=map_downsample,
+                        )
                     )
-                )
-            n_inst = int(bag.num_instances)
-            stats, att = _host(stats), _host(att)
+                n_inst = int(bag.num_instances)
+                stats, att = _host(stats), _host(att)
         return PredictionResult(
             prediction=int(stats.prediction),
             stats=stats,

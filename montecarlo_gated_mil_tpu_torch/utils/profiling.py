@@ -1,5 +1,5 @@
 """Profiling: per-phase timers, the slope and CUDA-event timers, profiler
-traces and the card's kernel table.
+traces, the card's kernel table, and the port's spans and counters.
 
 Counterpart of ``montecarlo_gated_mil_tpu/utils/profiling.py``.  The JAX
 package chains k calls inside one jitted ``lax.scan`` and takes the median
@@ -10,18 +10,25 @@ carry from the one before, and timed by CUDA events behind a sleep kernel
 prints it, the sleep-ahead event timer (:func:`time_ms`), the device time
 per device function of a traced call (:func:`kernel_table`) and the peak
 device memory of a call (:func:`peak_gib`), which ``chip_smoke.py``, the
-tools (``montecarlo_gated_mil_tpu_torch/tools``) and the tests share.
+tools (``montecarlo_gated_mil_tpu_torch/tools``) and the tests share; and
+the recorder of the spans and counters the port's request and loader paths
+open (:func:`span`, which is :func:`annotate`, :func:`count`,
+:func:`recording`, :func:`spans`).  This module imports nothing of the
+port at load: ``chip_smoke.py`` loads it by its file.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import subprocess
 import sys
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from dataclasses import dataclass, field
 from dataclasses import replace as _replace
+from typing import NamedTuple
 
 import torch
 
@@ -332,28 +339,197 @@ def _activities():
     return acts
 
 
+def _all_threads_config():
+    """The profiler's setting that records host ops and spans of every
+    thread, not only the one that starts it; None where torch lacks it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Capture a ``torch.profiler`` trace (host ops, and on a machine with a
-    card its kernels) into ``log_dir`` as a Chrome trace
-    (``*.pt.trace.json``) that TensorBoard's profiler and Perfetto read.
-    Yields the profiler."""
+    """Capture a ``torch.profiler`` trace (host ops and spans of every
+    thread, and on a machine with a card its kernels) into ``log_dir`` as a
+    Chrome trace (``*.pt.trace.json``) that TensorBoard's profiler and
+    Perfetto read.  Yields the profiler."""
     from torch.profiler import profile, tensorboard_trace_handler
 
-    with profile(activities=_activities(), on_trace_ready=tensorboard_trace_handler(log_dir)) as p:
+    with profile(activities=_activities(), on_trace_ready=tensorboard_trace_handler(log_dir),
+                 experimental_config=_all_threads_config()) as p:
         yield p
 
 
+# ---------------------------------------------------------------------------
+# Spans and counters.  The port marks the boundaries of its host layers
+# (``serve.py``, ``data/pipeline.py::BagLoader``) with ``span`` and counts
+# decisions with ``count``.  Recording is on while a ``torch.profiler``
+# session runs (``torch.autograd.profiler._is_profiler_enabled``, which
+# every thread reads) and inside ``recording()``; off, a span costs one flag
+# read.  On, each span is kept in a bounded buffer with its start and end on
+# ``time.time_ns()`` (the clock of an exported trace's ``ts`` * 1000 +
+# ``baseTimeNanoseconds``), its thread, parent and root, and shows in the
+# profiler's own timeline (``_RecordFunctionFast``).
+
+SPAN_CAPACITY = 65_536
+
+
+class Span(NamedTuple):
+    """One closed span.  ``root`` is the id of the span that began its tree:
+    every span of one request or one bag shares it.  ``thread`` is the
+    native thread id (a trace's ``tid``); times are ``time.time_ns()``."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    id: int
+    parent: int | None
+    root: int
+    attrs: dict
+    counts: dict
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+_profiler_state = torch.autograd.profiler  # ``_is_profiler_enabled`` is read at each span
+_forced = 0  # open ``recording()`` contexts
+_ids = itertools.count(1)
+_local = threading.local()  # ``stack``: this thread's open spans
+_lock = threading.Lock()  # guards the buffer, ``_dropped`` and ``_forced``
+_buffer: deque = deque(maxlen=SPAN_CAPACITY)
+_dropped = 0
+
+
+def _marker(name: str):
+    try:
+        return torch._C._profiler._RecordFunctionFast(name)
+    except AttributeError:
+        return torch.profiler.record_function(name)
+
+
+class _Open:
+    """A span while it is open."""
+
+    __slots__ = ("name", "root", "attrs", "counts", "id", "parent", "start", "_rf")
+
+    def __init__(self, name: str, root: int | None, attrs: dict):
+        self.name, self.root, self.attrs, self.counts = name, root, attrs, {}
+
+    def __enter__(self) -> int:
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        outer = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = outer.id if outer is not None else None
+        if self.root is None:
+            self.root = outer.root if outer is not None else self.id
+        stack.append(self)
+        self._rf = _marker(self.name)
+        self._rf.__enter__()
+        self.start = time.time_ns()
+        return self.root
+
+    def __exit__(self, *exc) -> bool:
+        global _dropped
+        end = time.time_ns()
+        self._rf.__exit__(*exc)
+        _local.stack.pop()
+        rec = Span(self.name, self.start, end, threading.get_native_id(), self.id,
+                   self.parent, self.root, self.attrs, self.counts)
+        with _lock:
+            if len(_buffer) == SPAN_CAPACITY:
+                _dropped += 1
+            _buffer.append(rec)
+        return False
+
+
+class _Off:
+    """What ``span`` gives while recording is off: nothing at all."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, *, root: int | None = None, **attrs):
+    """Context manager: a span named ``name`` around the body, with
+    ``attrs``.  Its parent is this thread's innermost open span and its
+    root the parent's, or ``root`` where given (a span that continues a
+    tree begun on another thread), else its own id.  ``with span(...) as
+    r`` binds the root id, None while recording is off."""
+    if not (_forced or _profiler_state._is_profiler_enabled):
+        return _OFF
+    return _Open(name, root, attrs)
+
+
+annotate = span  # the JAX package's name
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``name`` in the counts of this thread's innermost open
+    span (nothing where none is open or recording is off)."""
+    if not (_forced or _profiler_state._is_profiler_enabled):
+        return
+    stack = getattr(_local, "stack", None)
+    if stack:
+        counts = stack[-1].counts
+        counts[name] = counts.get(name, 0) + n
+
+
+def adopt(root: int | None) -> None:
+    """Make this thread's innermost open span part of ``root``'s tree: for a
+    wait that learns only as it ends which request or bag it waited for."""
+    if root is None or not (_forced or _profiler_state._is_profiler_enabled):
+        return
+    stack = getattr(_local, "stack", None)
+    if stack:
+        stack[-1].root = root
+
+
 @contextlib.contextmanager
-def annotate(name: str):
-    """Label a host region in profiler timelines (``record_function``), and
-    on a machine with a card in NVTX too."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+def recording():
+    """Record spans inside the body whether or not a profiler runs."""
+    global _forced
+    with _lock:
+        _forced += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _forced -= 1
+
+
+def spans() -> list[Span]:
+    """The spans kept so far, oldest first (at most ``SPAN_CAPACITY``)."""
+    with _lock:
+        return list(_buffer)
+
+
+def dropped() -> int:
+    """Spans dropped, oldest first, because the buffer was full."""
+    return _dropped
+
+
+def clear() -> None:
+    """Empty the buffer and zero ``dropped()``."""
+    global _dropped
+    with _lock:
+        _buffer.clear()
+        _dropped = 0
 
 
 def peak_gib(fn):

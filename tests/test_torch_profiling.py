@@ -1,7 +1,8 @@
 """The port's ``utils/profiling.py`` against the JAX package's (CPU): the
 phase timer and the slope arithmetic under one fake clock, the slope
 timer's perturbation, the train-step chain against sequential steps and
-against JAX's chain in f64, and the profiler trace."""
+against JAX's chain in f64, and the profiler trace with every thread's
+spans."""
 
 import glob
 import json
@@ -200,6 +201,31 @@ def test_trace_holds_the_annotated_region(tmp_path):
     assert len(files) == 1
     events = json.load(open(files[0]))["traceEvents"]
     assert any(e.get("name") == "mcgmil-annotated-region" for e in events)
+
+
+def test_trace_holds_a_threads_span_on_the_recorders_clock(tmp_path):
+    """A span opened in a thread started inside ``trace`` appears by name in
+    the exported trace, on that thread, and its ``ts`` * 1000 +
+    ``baseTimeNanoseconds`` lies within 1 ms of the recorder's start."""
+    import threading
+
+    tprof.clear()
+
+    def work():
+        with tprof.span("mcgmil-thread-span"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+
+    with tprof.trace(str(tmp_path)):
+        t = threading.Thread(target=work)
+        t.start()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    rec, = [s for s in tprof.spans() if s.name == "mcgmil-thread-span"]
+    tprof.clear()
+    doc = json.load(open(glob.glob(str(tmp_path / "*.pt.trace.json"))[0]))
+    ev, = [e for e in doc["traceEvents"] if e.get("name") == "mcgmil-thread-span"]
+    assert abs(float(ev["ts"]) * 1000 + int(doc["baseTimeNanoseconds"]) - rec.start_ns) < 1e6
+    assert int(ev["tid"]) == rec.thread
 
 
 def test_card_only_readers_refuse_without_a_card():
