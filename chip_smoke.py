@@ -26,6 +26,12 @@ Phases, each of which raises on failure:
    again through ``MCDOPredictor(use_pallas=False)`` (the plain head on the
    card): no K1/K2 launch, its statistics within 1e-4 and attention within
    1e-5 of the kernel predictor's, both predictors' ms;
+4f. the f32 embed's masked BN (``ops/float_bn.py``) at bucket 3072, 2400
+   valid instances: K9 at every distinct (shape, epilogue) one r18 request
+   launches (``K9_SHAPES``), bit for bit against the plain chain, and K7 in
+   f32 at every shape (``K7_SHAPES``, all 20 of a request) against float64
+   sums; each timed beside its byte bound and the plain chain, then the
+   per-request sums weighted by launches;
 4b. the serving front-ends on full-size mammograms written as ``.npy``:
    ``serve_jsonl`` through phase 4's predictor (with a malformed line and a
    missing file), ``cli.main(["serve", ...])`` with a YAML of ``Config()``,
@@ -197,6 +203,7 @@ apart): the shipped configuration computes in float32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
@@ -209,6 +216,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _load_profiling():
@@ -615,6 +623,9 @@ def main() -> int:
     request_breakdown(pred, d)
     check_small_request_against_cpu()
     check_plain_head_request(pred, cfg, weights, requests[0], first)
+
+    header("4f", "the f32 embed's masked BN: K9 and K7 in f32 at bucket 3072's shapes")
+    rows["bn_apply"] = check_float_bn()
 
     header("4b", "serving front-ends: serve_jsonl, cli serve, HTTP server (full-size requests)")
     front_launches = check_front_ends(pred, d)
@@ -1667,6 +1678,142 @@ def check_bn_epilogues(g) -> tuple[dict, dict, float]:
     print(f"  K7 at every shape, weighted by the 20 launches a request made before its sums "
           f"moved into K6's epilogue: {every_shape:.4f} ms", flush=True)
     return rows["bn_stats"], rows["bn_relu_quant"], every_shape
+
+
+# One r18 f32 request's K9 launches at 224 px: label, (H, W, C), epilogue,
+# launches per request (17: the downsample's BN runs inside its block end's).
+K9_SHAPES = (
+    ("stem pool", (112, 112, 64), "pool", 1),
+    ("layer1 relu", (56, 56, 64), "relu", 2),
+    ("layer1 identity", (56, 56, 64), "identity", 2),
+    ("layer2 relu", (28, 28, 128), "relu", 2),
+    ("layer2 identity", (28, 28, 128), "identity", 1),
+    ("layer2 downsample", (28, 28, 128), "downsample", 1),
+    ("layer3 relu", (14, 14, 256), "relu", 2),
+    ("layer3 identity", (14, 14, 256), "identity", 1),
+    ("layer3 downsample", (14, 14, 256), "downsample", 1),
+    ("layer4 relu", (7, 7, 512), "relu", 2),
+    ("layer4 identity", (7, 7, 512), "identity", 1),
+    ("layer4 downsample", (7, 7, 512), "downsample", 1),
+)
+F32_BN_VALID = 2400  # valid instances of the QUANT_N bucket, at seeded positions
+
+
+def f32_bn_case(hwc, epilogue, n, n_valid, g, dtype=torch.float32):
+    """Seeded inputs of one K9 launch: raw conv output ``t (n, C, H, W)``
+    in channels_last memory, ``scale`` and :class:`Norm` from K7's sums
+    under a mask of ``n_valid`` random instances (weights of both signs),
+    and the keyword arguments of the epilogue; plus the bytes the launch
+    reads and writes."""
+    from montecarlo_gated_mil_tpu_torch.models import resnet
+    from montecarlo_gated_mil_tpu_torch.ops import float_bn as fb
+
+    h, w, c = hwc
+
+    def raw():
+        return (torch.randn((n, h, w, c), generator=g, device="cuda") * 3.0 + 0.5).to(
+            dtype).permute(0, 3, 1, 2)
+
+    def norm(x):
+        _, _, mean, inv, scale = resnet._moments(x, mask, 1e-5)
+        return scale, fb.Norm(mean, inv, torch.randn(c, generator=g, device="cuda"),
+                              torch.randn(c, generator=g, device="cuda") * 0.1)
+
+    mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+    mask[torch.randperm(n, generator=g, device="cuda")[:n_valid]] = True
+    t = raw()
+    scale, nm = norm(t)
+    kw = dict(relu=True)
+    size = t.numel() * t.element_size()
+    nbytes = 2 * size
+    if epilogue == "pool":
+        kw["pool"] = True
+        nbytes = size + size // 4
+    elif epilogue == "identity":
+        kw["residual"] = raw()
+        nbytes += size
+    elif epilogue == "downsample":
+        d = raw()
+        kw["residual"] = fb.Downsample(d, norm(d)[1])
+        nbytes += size
+    return t, scale, nm, kw, nbytes
+
+
+def check_float_bn() -> dict:
+    """Phase 4f: K9 at every ``K9_SHAPES`` launch and K7 in f32 at every
+    ``K7_SHAPES`` launch of one r18 f32 request at QUANT_N, F32_BN_VALID
+    valid.  K9 against the plain chain (``float_bn.bn_apply_chain`` on the
+    card), bit for bit; K7 against float64 sums within one f32 rounding
+    (2^-24 of the sum) and 1e-11 of the sum of |x| (the f64 accumulation).
+    Each timed (K9 out of place, as the training forward runs it; serving
+    writes over its input, the same bytes) beside its byte bound and the
+    plain chain's time, the library yardstick: PyTorch's own kernels are
+    what the f32 embed ran before.  Returns the ``kernels`` line's row for
+    K9 (the stem's)."""
+    from montecarlo_gated_mil_tpu_torch.ops import float_bn as fb
+    from montecarlo_gated_mil_tpu_torch.ops import quant_kernels as qk
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    n, rows = QUANT_N, {}
+    sums = {"K9": [0.0, 0.0, 0.0], "K7 f32": [0.0, 0.0, 0.0]}  # ms, bound, chain a request
+    for label, hwc, epilogue, launches in K9_SHAPES:
+        t, scale, nm, kw, nbytes = f32_bn_case(hwc, epilogue, n, F32_BN_VALID, g)
+
+        def kernel():
+            return fb.bn_apply(t, scale, nm, **kw)
+
+        def chain():
+            return fb.bn_apply_chain(t, scale, nm, **kw)
+
+        got, want = kernel(), chain()
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        differ = int((got != want).sum()) if not same else 0
+        del got, want
+        ms = time_ms(kernel, iters=5, what=f"K9 {label}")
+        plain = time_ms(chain, iters=2, what=f"chain {label}").ms
+        bound, by = _bound(nbytes)
+        print(f"  K9 bn_apply {label} {tuple(t.shape)} f32, {launches} per request: "
+              f"{'bit for bit' if same else f'{differ} elements DIFFER'} from the plain chain; "
+              f"kernel {ms}; chain {plain:.3f} ms ({plain / ms.ms:.2f}x); bound {bound:.4f} ms "
+              f"({by}), share {bound / ms.ms:.1%}", flush=True)
+        if not same:
+            raise RuntimeError(f"K9 {label}: {differ} elements differ from the plain chain")
+        rows.setdefault("bn_apply", dict(max_abs_err=0.0, ms=ms.ms, plain_ms=plain,
+                                         bound_ms=bound, bound_by=by, library_ms=plain))
+        for i, v in enumerate((ms.ms, bound, plain)):
+            sums["K9"][i] += launches * v
+        del t, kw
+        torch.cuda.empty_cache()
+    for label, hwc, launches in K7_SHAPES:
+        x = torch.randn((n, *hwc), generator=g, device="cuda") * 3.0 + 0.5
+        s1, s2 = qk.bn_stats(x)
+        xd = x.to(torch.float64)
+        worst = 0.0
+        for got, v in ((s1, xd), (s2, xd.square())):
+            exact = v.sum(dim=(1, 2))
+            room = 2.0**-24 * exact.abs() + 1e-11 * v.abs().sum(dim=(1, 2))
+            worst = max(worst, float(((got.to(torch.float64) - exact).abs() / room).max()))
+        del xd, s1, s2
+        ms = time_ms(lambda: qk.bn_stats(x), iters=5, what=f"K7 f32 {label}")
+        nchw = x.permute(0, 3, 1, 2)
+        plain = time_ms(lambda: fb.bn_sums_chain(nchw), iters=2, what="chain sums").ms
+        bound, by = _bound(x.numel() * 4 + 2 * n * hwc[-1] * 4)
+        print(f"  K7 bn_stats {label} {tuple(x.shape)} f32, {launches} per request: gap over "
+              f"its room {worst:.3f} (limit 1); kernel {ms}; chain's sums {plain:.3f} ms "
+              f"({plain / ms.ms:.2f}x); bound {bound:.4f} ms ({by}), share {bound / ms.ms:.1%}",
+              flush=True)
+        if worst > 1.0:
+            raise RuntimeError(f"K7 f32 {label}: sums off the float64 sums by {worst:.3f} of "
+                               "their room")
+        for i, v in enumerate((ms.ms, bound, plain)):
+            sums["K7 f32"][i] += launches * v
+        del x, nchw
+        torch.cuda.empty_cache()
+    for name, (ms, bound, plain) in sums.items():
+        print(f"  {name} per request (launch-weighted, N={n}): {ms:.4f} ms against a bound of "
+              f"{bound:.4f} ms ({bound / ms:.1%}); the plain chain {plain:.4f} ms", flush=True)
+    return rows["bn_apply"]
 
 
 def check_int8_embed(qpred, d) -> float:
@@ -3733,6 +3880,35 @@ print("EXACT_STEP " + json.dumps([chip_smoke.default_flags_step(),
 """
 
 
+# Pre-ReLU signs of the 64 px step (valid instances) that the f32 forward
+# may set apart from the free f64 forward's, which the f64 step then
+# follows: 3 measured on an H100 (1 before the float BN kernels); a forward
+# that drifts moves many more.
+RELU_FLIPS_64PX = 6
+
+
+@contextlib.contextmanager
+def _relu_pattern(record: list | None = None, pin: list | None = None):
+    """Inside: each call of ``F.relu`` appends its sign pattern (``x > 0``)
+    to ``record``, or, with ``pin``, keeps the entries that the same call
+    of a recorded run kept (``torch.where``, whose gradient passes there
+    alone) instead of its own."""
+    relu = F.relu
+    pinned = iter(pin or ())
+
+    def patched(x, inplace=False):
+        if pin is not None:
+            return torch.where(next(pinned), x, torch.zeros((), dtype=x.dtype, device=x.device))
+        record.append(x.detach() > 0)
+        return relu(x, inplace=inplace)
+
+    F.relu = patched
+    try:
+        yield
+    finally:
+        F.relu = relu
+
+
 def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int = 224,
                        steps: int = 3) -> dict:
     """One f32 training step of the shipped model (``tools/profile_train.py::
@@ -3747,7 +3923,14 @@ def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int
     ``tf32``, the same loss back-propagated outside ``exact_float_grads``,
     as the port's steps did before it; ``plain head``, the step with the
     plain head.  Each is held against an f64 step of the same weights, bag
-    and dropout (the plain head in f64).  Then ``exact`` and ``tf32`` are
+    and dropout (the plain head in f64) on the f32 forward's ReLU pattern
+    (:func:`_relu_pattern`; the four share one forward): an activation that
+    lies within f32 rounding of 0 may fall on the other side in f64, and the
+    gradient through it is then another function, not a rounding of the same
+    one (a seeded r18 at 64 px has such activations, 1.1e-7 from 0).  The
+    excess against the free f64 step (``excess_free``) and the count of
+    activations whose sign differs between the two forwards (``relu_flips``)
+    are reported beside it.  Then ``exact`` and ``tf32`` are
     timed by CUDA events with cuDNN's default algorithm choice, the
     optimizer included (mean of ``steps`` after one).  Returns, per
     variant, whether its gradients equal ``off``'s bit for bit, its excess
@@ -3794,6 +3977,9 @@ def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int
         finally:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
+    pattern, pattern64 = [], []
+    with _relu_pattern(record=pattern):
+        grads(model, lambda: step(state, bag, seed, False)[1]["loss"])
     m64 = copy.deepcopy(model).to(torch.float64)
     m64.dtype = m64.feature_extractor.dtype = torch.float64
     bag64 = Bag(bag.patches.double(), bag.mask, bag.label, bag.tile_indices)
@@ -3801,12 +3987,18 @@ def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int
     step64 = make_train_step(m64, crit, opt64, 1, use_pallas=False)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    want, loss64 = grads(m64, lambda: step64(TrainState(m64, opt64), bag64, seed,
-                                             False)[1]["loss"])
+    with _relu_pattern(pin=pattern):
+        want, loss64 = grads(m64, lambda: step64(TrainState(m64, opt64), bag64, seed,
+                                                 False)[1]["loss"])
     out = {"flags": flags, "f64_seconds": time.perf_counter() - t0, "bucket": bucket,
            "f64_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss_f64": loss64,
            "valid": int(bag.mask.sum())}
-    del m64, bag64, opt64, step64
+    with _relu_pattern(record=pattern64):
+        want_free, _ = grads(m64, lambda: step64(TrainState(m64, opt64), bag64, seed,
+                                                 False)[1]["loss"])
+    keep = bag.mask.to(pattern[0].device)
+    out["relu_flips"] = sum(int((a[keep] != b[keep]).sum()) for a, b in zip(pattern, pattern64))
+    del m64, bag64, opt64, step64, pattern, pattern64
     torch.cuda.empty_cache()
     cuda_build.reset_launch_counts()
     got = {"exact": grads(model, lambda: step(state, bag, seed, False)[1]["loss"])}
@@ -3818,11 +4010,12 @@ def default_flags_step(bucket: int = 1024, valid: float = 650 / 1024, patch: int
     for name, (g, loss) in got.items():
         excess = {k: _excess({k: g[k]}, {k: want[k]}, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL)
                   for k in want}
+        excess_free = _excess(g, want_free, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL)
         rel = {k: float((g[k] - want[k]).abs().max() / max(float(want[k].abs().max()), 1e-30))
                for k in want}
         out[name] = dict(
             loss=loss, equal_to_off=all(torch.equal(g[k], got["off"][0][k]) for k in g),
-            excess=max(excess.values()), rel=max(rel.values()),
+            excess=max(excess.values()), excess_free=excess_free, rel=max(rel.values()),
             norm=sum(float((g[k] - want[k]).square().sum()) for k in want) ** 0.5
             / sum(float(want[k].square().sum()) for k in want) ** 0.5,
             worst=[(k, excess[k], rel[k], float((g[k] - want[k]).abs().max()),
@@ -3849,9 +4042,13 @@ def check_exact_step(phase7_ms: float) -> dict:
     fails; when at either size the step's gradients under the default flags
     differ by one bit from the TF32-off step's, or the TF32 backward's do
     not; or when at 64 px the step's gradients exceed phase 14's limits
-    against f64.  At bucket 1024 no f32 step meets those limits at the stem
-    conv's weights, TF32 or not (PERF.md), so the f64 comparison there is
-    printed.  Returns the launches of both steps."""
+    against f64 on the f32 step's ReLU pattern, or more than
+    ``RELU_FLIPS_64PX`` of its pre-ReLU signs differ from the free f64
+    forward's.  At bucket 1024 the
+    comparison is printed: against the free f64 step no f32 step meets those
+    limits at the stem conv's weights, TF32 or not, for 746 activations
+    there round to the other side of 0; on the f32 step's pattern the exact
+    step does (PERF.md).  Returns the launches of both steps."""
     import os
 
     root = Path(__file__).resolve().parent
@@ -3869,7 +4066,8 @@ def check_exact_step(phase7_ms: float) -> dict:
         print(f"  (a) one f32 step at bucket {r['bucket']} ({r['valid']} valid), TF32 flags at "
               f"PyTorch's defaults (cuDNN {r['flags'][0]}, matmul {r['flags'][1]}); f64 step "
               f"{r['f64_seconds']:.1f} s, peak {r['f64_peak_gib']:.2f} GiB; loss f64 "
-              f"{r['loss_f64']:.9f}", flush=True)
+              f"{r['loss_f64']:.9f}; pre-ReLU signs differing between the f32 and the free "
+              f"f64 forward: {r['relu_flips']} (the f64 step follows the f32 one's)", flush=True)
         for name, what in (("exact", "the step (exact_float_grads)"),
                            ("off", "the step with TF32 off in the whole process (phase 7's)"),
                            ("tf32", "the same loss back-propagated outside exact_float_grads, "
@@ -3879,7 +4077,8 @@ def check_exact_step(phase7_ms: float) -> dict:
             print(f"  (a) {what}: loss {x['loss']:.9f}; gradients bit for bit equal to the "
                   f"TF32-off step's: {x['equal_to_off']}; against f64: excess over rtol "
                   f"{SHARD_GRAD_RTOL:g} / atol {SHARD_GRAD_ATOL:g} {x['excess']:.3e} "
-                  f"({'within' if x['excess'] <= 0 else 'over'}), worst max|d|/max|f64| "
+                  f"({'within' if x['excess'] <= 0 else 'over'}; against the free f64 step "
+                  f"{x['excess_free']:.3e}), worst max|d|/max|f64| "
                   f"{x['rel']:.3e}, over all weights ||d|| / ||f64|| {x['norm']:.3e}"
                   + (f"; {x['ms']:.1f} ms per step (CUDA events, optimizer included)"
                      if "ms" in x else ""), flush=True)
@@ -3898,6 +4097,9 @@ def check_exact_step(phase7_ms: float) -> dict:
     if small["exact"]["excess"] > 0:
         raise RuntimeError(f"(a) at 64 px the step's gradients are {small['exact']['excess']:.3e}"
                            " over phase 14's limits against f64")
+    if small["relu_flips"] > RELU_FLIPS_64PX:
+        raise RuntimeError(f"(a) at 64 px {small['relu_flips']} pre-ReLU signs differ between the "
+                           f"f32 and the f64 forward (at most {RELU_FLIPS_64PX})")
     if not (launches["mc_head_sep"] and launches["mc_head_bwd_sep"]):
         raise RuntimeError(f"(a) the steps did not launch K1 and K5: {launches}")
     return launches

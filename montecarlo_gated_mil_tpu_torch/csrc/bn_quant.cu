@@ -4,13 +4,15 @@
 // montecarlo_gated_mil_tpu/ops/quantized.py (no Pallas kernel there):
 // - K7 `bn_stats`: the per-instance sums of `_bn_affine` (:409), sum and sum
 //   of squares over (h, w) of a stored conv output, per (instance, channel);
+//   the float embed's masked BN takes its sums from it too, in f32 and f64
+//   (then K9, bn_apply.cu, normalizes);
 // - K8 `bn_relu_quant`: `norm_relu_quant` (:497), the residual add, ReLU
 //   and requantize or the last block's mean pool (:531-550), and the stem's
 //   normalize, ReLU and pool-first max-pool before quantizing (:473-493).
 // The masked reduction over instances and the (C,) affines stay in torch:
 // a few (N, C) operations.
 //
-// What bounds them on an H100: bytes.  Each reads its inputs once (1-2 bytes
+// What bounds them on an H100: bytes.  Each reads its inputs once (1-8 bytes
 // an element) and writes 1 byte (K8) or an (N, C) f32 row (K7), at 3.35 TB/s;
 // the arithmetic is a few operations an element.
 //
@@ -91,14 +93,32 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&v)[8]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) v[i] = static_cast<float>(h[i]);
 }
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, const float* tq, int c, float (&v)[8]) {
-  load8(p, v);
-  if (tq != nullptr) {
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const double* p, double (&v)[8]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(v[i], tq[c + i]);
+  for (int i = 0; i < 4; ++i) {
+    const double2 d = reinterpret_cast<const double2*>(p)[i];
+    v[2 * i] = d.x;
+    v[2 * i + 1] = d.y;
   }
 }
+template <typename T, typename V>
+__device__ __forceinline__ void load8(const T* p, const float* tq, int c, V (&v)[8]) {
+  load8(p, v);
+  if constexpr (std::is_same_v<V, float>) {
+    if (tq != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(v[i], tq[c + i]);
+    }
+  }
+}
+
+// K7's value and sum type: f64 for an f64 input, f32 for the rest.
+template <typename T>
+using SumT = std::conditional_t<std::is_same_v<T, double>, double, float>;
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
@@ -185,8 +205,9 @@ struct Channels {
 template <typename T>
 __global__ void __launch_bounds__(256) bn_stats_kernel(const T* __restrict__ t,
                                                        const float* __restrict__ tq, int64_t HW,
-                                                       int C, float* __restrict__ s1,
-                                                       float* __restrict__ s2) {
+                                                       int C, SumT<T>* __restrict__ s1,
+                                                       SumT<T>* __restrict__ s2) {
+  using V = SumT<T>;
   __shared__ double red[2][THREADS * 8];
   const int n = blockIdx.x, G = C / 8;
   const int cg = threadIdx.x % G, row = threadIdx.x / G, rows = THREADS / G;
@@ -196,7 +217,7 @@ __global__ void __launch_bounds__(256) bn_stats_kernel(const T* __restrict__ t,
   if (row < rows) {
     const T* base = t + static_cast<int64_t>(n) * HW * C + cg * 8;
     for (int64_t p = row; p < HW; p += rows) {
-      float v[8];
+      V v[8];
       load8(base + p * C, tq, cg * 8, v);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -217,8 +238,8 @@ __global__ void __launch_bounds__(256) bn_stats_kernel(const T* __restrict__ t,
       x += red[0][r * C + c];
       y += red[1][r * C + c];
     }
-    s1[static_cast<int64_t>(n) * C + c] = static_cast<float>(x);
-    s2[static_cast<int64_t>(n) * C + c] = static_cast<float>(y);
+    s1[static_cast<int64_t>(n) * C + c] = static_cast<V>(x);
+    s2[static_cast<int64_t>(n) * C + c] = static_cast<V>(y);
   }
 }
 
@@ -489,9 +510,10 @@ __global__ void __launch_bounds__(THREADS) stem_pool_quant_kernel(
 }
 
 template <typename T>
-cudaError_t stats_launch(const void* t, const float* tq, int N, int64_t HW, int C, float* s1,
-                         float* s2, cudaStream_t s) {
-  bn_stats_kernel<T><<<N, THREADS, 0, s>>>(static_cast<const T*>(t), tq, HW, C, s1, s2);
+cudaError_t stats_launch(const void* t, const float* tq, int N, int64_t HW, int C, void* s1,
+                         void* s2, cudaStream_t s) {
+  bn_stats_kernel<T><<<N, THREADS, 0, s>>>(static_cast<const T*>(t), tq, HW, C,
+                                           static_cast<SumT<T>*>(s1), static_cast<SumT<T>*>(s2));
   return cudaGetLastError();
 }
 
@@ -540,10 +562,11 @@ bool channels_ok(int C) { return C > 0 && C % 8 == 0 && C <= 8 * THREADS; }
 
 extern "C" {
 
-// dtype codes: 0 bf16, 1 float8_e4m3fn, 2 int8 (then tq (C,) scales it).
-// t (N, HW, C); s1, s2 (N, C) f32.  Returns the cudaError_t of the launch.
-int bn_stats(const void* t, int dtype, const float* tq, int N, long long HW, int C, float* s1,
-             float* s2, void* stream) {
+// dtype codes: 0 bf16, 1 float8_e4m3fn, 2 int8 (then tq (C,) scales it),
+// 3 f32, 4 f64.  t (N, HW, C); s1, s2 (N, C) f64 for f64, else f32.
+// Returns the cudaError_t of the launch.
+int bn_stats(const void* t, int dtype, const float* tq, int N, long long HW, int C, void* s1,
+             void* s2, void* stream) {
   if (N == 0) return static_cast<int>(cudaSuccess);
   if (!channels_ok(C)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -552,8 +575,14 @@ int bn_stats(const void* t, int dtype, const float* tq, int N, long long HW, int
     err = stats_launch<__nv_bfloat16>(t, tq, N, HW, C, s1, s2, s);
   else if (dtype == 1)
     err = stats_launch<__nv_fp8_e4m3>(t, tq, N, HW, C, s1, s2, s);
-  else
+  else if (dtype == 2)
     err = stats_launch<int8_t>(t, tq, N, HW, C, s1, s2, s);
+  else if (dtype == 3)
+    err = stats_launch<float>(t, tq, N, HW, C, s1, s2, s);
+  else if (dtype == 4)
+    err = stats_launch<double>(t, tq, N, HW, C, s1, s2, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

@@ -21,27 +21,52 @@ One walk through the network (:func:`_walk`, :func:`_walk_block`) serves a
 whole bag and a bag split into instance shards over several devices
 (:func:`sharded_features`, ``parallel/instance.py``); the two differ only in
 the BN step they hand it.
+
+On the card every masked BN takes its sums from K7 and normalizes with K9
+(``ops/float_bn.py``).  Where autograd does not record (serving, the
+evaluation paths) K9 also runs what follows the BN, the ReLU, the block
+end's residual add and ReLU (the downsample's BN inline) or the stem's
+max-pool, and writes over the conv output, which nothing else holds; under
+autograd it only normalizes, out of place, and the rest stays torch's.  On
+the CPU the plain chain runs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from montecarlo_gated_mil_tpu_torch.ops.float_bn import (
+    Downsample,
+    Norm,
+    bn_apply,
+    bn_sums,
+    epilogue,
+)
+from montecarlo_gated_mil_tpu_torch.ops.float_bn import stats_dtype as _stats_dtype
 from montecarlo_gated_mil_tpu_torch.utils.tf32 import tf32_off
 
 # Feature dimension produced by each backbone (torchvision fc.in_features).
 FEATURE_DIMS = {"r18": 512, "r34": 512, "r50": 2048}
 
 
-def _stats_dtype(dtype: torch.dtype) -> torch.dtype:
-    """Statistics in >= float32: promote bf16/f16, never demote float64."""
-    return torch.promote_types(dtype, torch.float32)
+def _records(xs, bn) -> bool:
+    """Whether autograd records a BN of ``xs`` with ``bn``'s weights."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in [*xs, bn.weight, bn.bias])
+
+
+class _Pending(NamedTuple):
+    """A block end's downsample: the conv's raw output ``x``, which ``bn``
+    still has to normalize."""
+
+    x: torch.Tensor
+    bn: "MaskedBatchStatsNorm"
 
 
 class _MaskedBatchNorm(torch.autograd.Function):
@@ -50,37 +75,19 @@ class _MaskedBatchNorm(torch.autograd.Function):
     Saves the input, the per-channel mean and ``rsqrt(var + eps)`` only, so a
     training step keeps one tensor per BN instead of the three an autograd
     of the plain ops keeps (normalized input, centred input, and the input
-    of the square).  The forward runs the same operations in the same order
-    as ever, in place on a fresh tensor, so its numbers are unchanged.
+    of the square).  The forward's sums are K7's on the card and the
+    chain's on the CPU (:func:`_moments`); it normalizes out of place (K9,
+    or the chain), with the chain's operations in the chain's order.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, mask, eps):
         # x: (N, C, h, w) in any memory format.
-        sd = _stats_dtype(x.dtype)
-        xf = x.to(sd)
-        hw = x.shape[2] * x.shape[3]
-        # Per-instance spatial sums first, then the masked sum over N: the
-        # (N, C) partials keep the masked reduction from materializing
-        # another full-size tensor.
-        s1 = xf.sum(dim=(2, 3))
-        s2 = xf.square().sum(dim=(2, 3))
-        if mask is None:
-            m = None
-            count = x.shape[0] * hw
-            mean = s1.sum(0) / count
-            var = s2.sum(0) / count - mean.square()
-            scale = None
-            y = xf.clone() if xf is x else xf
-        else:
-            m = mask.to(sd)
-            count, mean, var, scale = _masked_moments(s1, s2, m, hw)
-            y = xf * scale
-        inv = torch.rsqrt(var + eps)
-        _normalize_(y, mean, inv, weight, bias)
+        m, count, mean, inv, scale = _moments(x, mask, eps)
+        y = bn_apply(x, scale, Norm(mean, inv, weight, bias))
         ctx.save_for_backward(x, weight, mean, inv)
         ctx.stats = (m, count, scale)
-        return y.to(x.dtype)
+        return y
 
     @staticmethod
     def backward(ctx, gy):
@@ -118,32 +125,43 @@ def _masked_moments(s1: torch.Tensor, s2: torch.Tensor, m: torch.Tensor, hw: int
     return count, mean, var, torch.clamp(n_valid, max=1.0)
 
 
-def _normalize_(y: torch.Tensor, mean, inv, weight, bias) -> None:
-    """``y = (y - mean) * inv * weight + bias`` per channel, in place."""
-    y.sub_(mean[None, :, None, None]).mul_(inv[None, :, None, None])
-    y.mul_(weight.to(y.dtype)[None, :, None, None])
-    y.add_(bias.to(y.dtype)[None, :, None, None])
+def _moments(x: torch.Tensor, mask: torch.Tensor | None, eps: float):
+    """``(m, count, mean, inv, scale)`` of the masked BN of ``x (N, C, h,
+    w)`` from its per-instance channel sums (:func:`bn_sums`: K7 on the
+    card); without a mask ``m`` and ``scale`` are None and ``count`` is
+    ``N * h * w``."""
+    # Per-instance spatial sums first, then the masked sum over N: the
+    # (N, C) partials keep the masked reduction from materializing another
+    # full-size tensor.
+    s1, s2 = bn_sums(x)
+    hw = x.shape[2] * x.shape[3]
+    if mask is None:
+        m = scale = None
+        count = x.shape[0] * hw
+        mean = s1.sum(0) / count
+        var = s2.sum(0) / count - mean.square()
+    else:
+        m = mask.to(_stats_dtype(x.dtype))
+        count, mean, var, scale = _masked_moments(s1, s2, m, hw)
+    return m, count, mean, torch.rsqrt(var + eps), scale
 
 
 def _shard_moments(xs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor], eps: float):
     """The whole bag's BN moments from its shards, on the first shard's
     device: each shard's per-instance channel sums and sums of squares over
-    ``(h, w)``, concatenated in shard order (``parallel/mesh.py::
-    gather_shards``), then reduced as the unsharded BN reduces them
-    (:func:`_masked_moments`).  Returns ``(count, mean, inv, scale)``."""
+    ``(h, w)`` (:func:`bn_sums`), concatenated in shard order
+    (``parallel/mesh.py::gather_shards``), then reduced as the unsharded BN
+    reduces them (:func:`_masked_moments`).  Returns ``(count, mean, inv,
+    scale)``."""
     from montecarlo_gated_mil_tpu_torch.parallel.mesh import gather_shards
 
     sd = _stats_dtype(xs[0].dtype)
     hw = xs[0].shape[2] * xs[0].shape[3]
-    s1s, s2s = [], []
-    for x in xs:
-        xf = x.to(sd)
-        s1s.append(xf.sum(dim=(2, 3)))
-        s2s.append(xf.square().sum(dim=(2, 3)))
+    s1s, s2s = zip(*(bn_sums(x) for x in xs))
     dev = xs[0].device
     m = gather_shards([mask.to(sd) for mask in masks], dev)
-    count, mean, var, scale = _masked_moments(gather_shards(s1s, dev), gather_shards(s2s, dev),
-                                              m, hw)
+    count, mean, var, scale = _masked_moments(gather_shards(list(s1s), dev),
+                                              gather_shards(list(s2s), dev), m, hw)
     return count, mean, torch.rsqrt(var + eps), scale
 
 
@@ -172,12 +190,8 @@ class _ShardedMaskedBatchNorm(torch.autograd.Function):
         count, mean, inv, scale = _shard_moments(xs, masks, bns[0].eps)
         ctx.bns, ctx.masks, ctx.count, ctx.scale = bns, masks, count, scale
         ctx.save_for_backward(mean, inv, *xs)
-        ys = []
-        for x, bn in zip(xs, bns):
-            y = x.to(_stats_dtype(x.dtype)) * scale.to(x.device)
-            _normalize_(y, mean.to(y.device), inv.to(y.device), bn.weight, bn.bias)
-            ys.append(y.to(x.dtype))
-        return tuple(ys)
+        return tuple(bn_apply(x, scale.to(x.device), _shard_norm(bn, mean, inv, x.device))
+                     for x, bn in zip(xs, bns))
 
     @staticmethod
     def backward(ctx, *gys):
@@ -217,14 +231,21 @@ class _ShardedMaskedBatchNorm(torch.autograd.Function):
                 d_bias.to(bns[0].bias.dtype), *rest)
 
 
+def _shard_norm(bn, mean, inv, device) -> Norm:
+    return Norm(mean.to(device), inv.to(device), bn.weight, bn.bias)
+
+
 def sharded_batch_norm(
     bns: Sequence["MaskedBatchStatsNorm"], xs: list, masks: Sequence[torch.Tensor],
-    relu: bool = False,
+    relu: bool = False, residual: list | None = None, pool: bool = False,
 ) -> list[torch.Tensor]:
     """:class:`MaskedBatchStatsNorm` over a bag whose instances are split
     into shards: ``xs[s] (n_s, C, h, w)`` with validity ``masks[s]`` and
-    ``bns[s]``, the BN's copy, all on shard ``s``'s device; with ``relu``
-    the ReLU that follows.
+    ``bns[s]``, the BN's copy, all on shard ``s``'s device; then what
+    follows it (``ops/float_bn.py::epilogue``): the ReLU with ``relu``, a
+    block end's ``relu(y + residual[s])`` (``residual[s]`` a tensor or a
+    :class:`_Pending` downsample, normalized over the bag as well), the
+    stem's max-pool with ``pool``.
 
     The only coupling between shards is the statistics.  Each shard takes
     its instances' channel sums and sums of squares over ``(h, w)``, as the
@@ -241,39 +262,56 @@ def sharded_batch_norm(
     Where autograd records (training's instance-sharded step), the layer is
     one :class:`_ShardedMaskedBatchNorm` node, whose backward reduces its
     channel sums across shards the same way; it keeps every shard's input
-    for the backward, as the unsharded BN keeps the bag's.  Otherwise (the
-    evaluation paths) the entries of ``xs`` are released as their shards are
-    normalized, so a layer holds about one copy of its activations, as the
-    unsharded layer does.
+    for the backward, as the unsharded BN keeps the bag's, and the epilogue
+    is torch's.  Otherwise (the evaluation paths) each shard is normalized
+    with its epilogue in one pass (K9 on the card, in place) and the
+    entries of ``xs`` are released as their shards are, so a layer holds
+    about one copy of its activations, as the unsharded layer does.
     """
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in [*xs, bns[0].weight, bns[0].bias]
-    ):
+    pending = residual is not None and isinstance(residual[0], _Pending)
+    if _records(xs, bns[0]):
         ys = _ShardedMaskedBatchNorm.apply(bns, list(masks), *xs, *(bn.weight for bn in bns),
                                            *(bn.bias for bn in bns))
         xs.clear()
-        return [F.relu(y) if relu else y for y in ys]
+        rs = residual or [None] * len(ys)
+        if pending:
+            rs = sharded_batch_norm([p.bn for p in rs], [p.x for p in rs], masks)
+        return [epilogue(y, relu, r, pool) for y, r in zip(ys, rs)]
     _, mean, inv, scale = _shard_moments(xs, masks, bns[0].eps)
+    if pending:
+        _, r_mean, r_inv, _ = _shard_moments([p.x for p in residual], masks, residual[0].bn.eps)
     out = []
     for s, bn in enumerate(bns):
         x, xs[s] = xs[s], None
-        dtype = x.dtype
-        y = x.to(_stats_dtype(dtype)) * scale.to(x.device)
-        del x  # freed before the normalize, which runs in place on y
-        _normalize_(y, mean.to(y.device), inv.to(y.device), bn.weight, bn.bias)
-        y = y.to(dtype)
-        out.append(F.relu(y) if relu else y)
+        r = None if residual is None else residual[s]
+        if pending:
+            r = Downsample(r.x, _shard_norm(r.bn, r_mean, r_inv, x.device))
+        out.append(bn_apply(x, scale.to(x.device), _shard_norm(bn, mean, inv, x.device),
+                            relu, r, pool, inplace=True))
     return out
 
 
 def _whole_norm(mask: torch.Tensor | None):
     """The ``norm`` of :func:`_walk` for a whole bag: its one entry through
-    the autograd BN with ``mask``.  The entry is popped, so a conv's output
-    is freed once the BN has read it."""
+    the masked BN with ``mask``, then what follows it (as
+    :func:`sharded_batch_norm`).  Where autograd records, the BN is the
+    autograd :class:`MaskedBatchStatsNorm` and the epilogue torch's;
+    otherwise one pass (K9 on the card) writes over the entry.  The entry
+    is popped, so a conv's output is freed once the BN has read it."""
 
-    def norm(bns, ys, relu):
-        y = bns[0](ys.pop(), mask)
-        return [F.relu(y) if relu else y]
+    def norm(bns, ys, relu, residual=None, pool=False):
+        bn, x = bns[0], ys.pop()
+        r = None if residual is None else residual[0]
+        if _records([x], bn):
+            if isinstance(r, _Pending):
+                r = r.bn(r.x, mask)
+            return [epilogue(bn(x, mask), relu, r, pool)]
+        _, _, mean, inv, scale = _moments(x, mask, bn.eps)
+        if isinstance(r, _Pending):
+            _, _, r_mean, r_inv, _ = _moments(r.x, mask, r.bn.eps)
+            r = Downsample(r.x, Norm(r_mean, r_inv, r.bn.weight, r.bn.bias))
+        return [bn_apply(x, scale, Norm(mean, inv, bn.weight, bn.bias), relu, r, pool,
+                         inplace=True)]
 
     return norm
 
@@ -322,20 +360,25 @@ class _ResidualBlock(nn.Module):
 
 def _walk_block(blocks: Sequence[_ResidualBlock], xs: list, norm) -> list:
     """One residual block over instance shards: ``blocks[s]`` is the block
-    on shard ``s``'s device, ``xs[s]`` its input.  ``norm(bns, ys, relu)``
-    normalizes the shards ``ys`` with the BNs ``bns`` (then the ReLU): the
-    one step in which the whole bag (:func:`_whole_norm`) and its shards
-    (:func:`sharded_batch_norm`) differ."""
+    on shard ``s``'s device, ``xs[s]`` its input.  ``norm(bns, ys, relu,
+    residual=None, pool=False)`` normalizes the shards ``ys`` with the BNs
+    ``bns``, then applies the ReLU, or at the block end ``relu(y +
+    residual)``, or the stem's pool: the one step in which the whole bag
+    (:func:`_whole_norm`) and its shards (:func:`sharded_batch_norm`)
+    differ.  The downsample's conv output goes to the last ``norm`` raw
+    (:class:`_Pending`), which normalizes it with its own BN."""
     depth = blocks[0].depth
     ys = xs
-    for k in range(1, depth + 1):
+    for k in range(1, depth):
         ys = norm([getattr(b, f"bn{k}") for b in blocks],
-                  [_conv(getattr(b, f"conv{k}"), y) for b, y in zip(blocks, ys)], k < depth)
+                  [_conv(getattr(b, f"conv{k}"), y) for b, y in zip(blocks, ys)], True)
     residual = xs
     if blocks[0].downsample is not None:
-        residual = norm([b.downsample[1] for b in blocks],
-                        [_conv(b.downsample[0], x) for b, x in zip(blocks, xs)], False)
-    return [F.relu(y + r) for y, r in zip(ys, residual)]
+        residual = [_Pending(_conv(b.downsample[0], x), b.downsample[1])
+                    for b, x in zip(blocks, xs)]
+    return norm([getattr(b, f"bn{depth}") for b in blocks],
+                [_conv(getattr(b, f"conv{depth}"), y) for b, y in zip(blocks, ys)], True,
+                residual)
 
 
 class BasicBlock(_ResidualBlock):
@@ -511,10 +554,10 @@ def _stages(nets: Sequence[ResNetFeatures], norm) -> list[tuple[str, Callable]]:
         given.clear()
         with _exact_float_convs(net.dtype):
             # The stem's output goes to ``norm`` in a temporary list: held by
-            # a name, it would stay alive through the BN and the ReLU (9.9 GB
+            # a name, it would stay alive through the BN and the pool (9.9 GB
             # at bucket 3072).
-            xs = norm([n.bn1 for n in nets], [n._stem(x) for n, x in zip(nets, xs)], True)
-            return [F.max_pool2d(x, kernel_size=3, stride=2, padding=1) for x in xs]
+            return norm([n.bn1 for n in nets], [n._stem(x) for n, x in zip(nets, xs)], True,
+                        pool=True)
 
     def layer(i: int):
         def run(given: list) -> list:
@@ -551,7 +594,8 @@ def sharded_features(nets: Sequence[ResNetFeatures], xs: list, masks: list) -> l
     shard; every BN takes the whole bag's masked statistics
     (:func:`sharded_batch_norm`), so the features equal ``forward``'s up to
     the order of the statistics' sums."""
-    return _walk(nets, xs, lambda bns, ys, relu: sharded_batch_norm(bns, ys, masks, relu))
+    return _walk(nets, xs, lambda bns, ys, relu, residual=None, pool=False: sharded_batch_norm(
+        bns, ys, masks, relu, residual, pool))
 
 
 def _lecun_normal_init(module: nn.Module) -> None:

@@ -59,6 +59,7 @@ DEVICE_FUNCTIONS: dict[str, tuple[str, ...]] = {
         "bn_stats_kernel", "bn_stats_fold_kernel", "bn_relu_quant_kernel", "bn_relu_mean_kernel",
         "stem_pool_quant_kernel",
     ),
+    "bn_apply.cu": ("bn_apply_kernel", "bn_apply_pool_kernel"),
 }
 
 KERNELS: dict[str, Kernel] = {
@@ -101,6 +102,12 @@ KERNELS: dict[str, Kernel] = {
         Kernel(
             "bn_relu_quant", "bn_quant.cu",
             "montecarlo_gated_mil_tpu/ops/quantized.py:497",
+        ),
+        # K9 replaces the float embed's XLA BatchNorm and what follows it,
+        # not a Pallas kernel.
+        Kernel(
+            "bn_apply", "bn_apply.cu",
+            "montecarlo_gated_mil_tpu/models/resnet.py:43",
         ),
     )
 }

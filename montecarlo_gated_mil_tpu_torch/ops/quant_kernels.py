@@ -20,10 +20,12 @@ arithmetic op for op, so on the card the two agree code for code:
   +-127 (the i8 store scales by ``s / t``, computed once in f32).
 - K7: per (instance, channel) sums of the stored value and of its square,
   accumulated in float64 (in another order on the card: the two agree to
-  the last bit or two of the f32 result).  After a K6 conv the card takes
-  them in K6's epilogue (:func:`qconv_stats`: per run of a warpgroup's 8 x
-  8 output tiles of one instance, then :func:`bn_stats_fold` per instance
-  in tile order, its plain version in the same order); the standalone K7
+  the last bit or two of the f32 result; f64 sums for an f64 input, which
+  the float embed's BN gives it, ``ops/float_bn.py``).  After a K6 conv the
+  card takes them in K6's epilogue (:func:`qconv_stats`: per run of a
+  warpgroup's 8 x 8 output tiles of one instance, then
+  :func:`bn_stats_fold` per instance in tile order, its plain version in
+  the same order); the standalone K7
   (:func:`bn_stats`) runs where no kernel of this repository stored the
   output, after the cuDNN stem.
 - K8: ``relu(v * A + B [+ residual])`` with one rounding per operation, then
@@ -47,6 +49,8 @@ from montecarlo_gated_mil_tpu_torch.ops import cuda_build
 
 STORE_DTYPES = {"bf16": torch.bfloat16, "f8": torch.float8_e4m3fn, "i8": torch.int8}
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
+# K7 also takes the float embed's conv outputs (ops/float_bn.py).
+_STATS_CODE = {**_DTYPE_CODE, torch.float32: 3, torch.float64: 4}
 F8_MAX = 448.0  # largest finite float8_e4m3fn
 
 
@@ -233,12 +237,18 @@ def qconv_stats(a, w, scale, stride: int, pad, store: str, tq=None):
 # --------------------------------------------------------------------- K7
 
 
+def _sums_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def bn_stats_reference(t: torch.Tensor, tq: torch.Tensor | None = None):
     """Plain version of K7: per (instance, channel) sum and sum of squares
-    over (h, w) of the stored tensor's f32 view, accumulated in float64 as
-    the kernel does, rounded to f32."""
-    v = load_stored(t, tq).to(torch.float64)
-    return v.sum(dim=(1, 2)).to(torch.float32), v.square().sum(dim=(1, 2)).to(torch.float32)
+    over (h, w) of the stored tensor's value (an int8 store's f32 view),
+    accumulated in float64 as the kernel does, rounded to f32 (kept f64 for
+    an f64 input)."""
+    v = (t if tq is None else load_stored(t, tq)).to(torch.float64)
+    out = _sums_dtype(t.dtype)
+    return v.sum(dim=(1, 2)).to(out), v.square().sum(dim=(1, 2)).to(out)
 
 
 def _channels_ok(c: int) -> bool:
@@ -247,14 +257,14 @@ def _channels_ok(c: int) -> bool:
 
 def _bn_stats_cuda(t, tq):
     kernel = cuda_build.KERNELS["bn_stats"]
-    _require(kernel.name, t, tuple(_DTYPE_CODE), 4)
+    _require(kernel.name, t, tuple(_STATS_CODE), 4)
     n, h, w, c = t.shape
     if not _channels_ok(c) or (t.dtype == torch.int8) != (tq is not None):
         raise ValueError(f"{kernel.name}: unsupported input {t.dtype} {tuple(t.shape)} "
                          "(C % 8 == 0, C <= 2048; an int8 store needs its tq and only it)")
     if tq is not None:
         _vec(kernel.name, tq, c)
-    s1 = torch.empty((n, c), dtype=torch.float32, device=t.device)
+    s1 = torch.empty((n, c), dtype=_sums_dtype(t.dtype), device=t.device)
     s2 = torch.empty_like(s1)
     if n == 0:
         return s1, s2
@@ -262,16 +272,19 @@ def _bn_stats_cuda(t, tq):
     fn.restype = ctypes.c_int
     i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = [ptr, i32, ptr, i32, i64, i32, ptr, ptr, ptr]
-    err = fn(t.data_ptr(), _DTYPE_CODE[t.dtype], _ptr(tq), n, h * w, c, s1.data_ptr(),
-             s2.data_ptr(), cuda_build.stream_handle(t.device))
+    with torch.cuda.device(t.device):  # t's stream takes launches on t's card alone
+        err = fn(t.data_ptr(), _STATS_CODE[t.dtype], _ptr(tq), n, h * w, c, s1.data_ptr(),
+                 s2.data_ptr(), cuda_build.stream_handle(t.device))
     cuda_build.check(err, kernel.name)
     kernel.launches += 1
     return s1, s2
 
 
 def bn_stats(t: torch.Tensor, tq: torch.Tensor | None = None):
-    """BN statistics (K7) of a stored conv output: ``(sum, sum of squares)``,
-    each ``(N, C)`` f32, over (h, w), in one read."""
+    """BN statistics (K7) of a stored conv output ``(N, h, w, C)``: ``(sum,
+    sum of squares)``, each ``(N, C)`` f32 (f64 for f64), over (h, w), in
+    one read.  Stores: bf16, float8_e4m3fn, int8 (with ``tq``), and the
+    float embed's f32 and f64."""
     if t.is_cuda:
         return _bn_stats_cuda(t, tq)
     return bn_stats_reference(t, tq)

@@ -420,7 +420,9 @@ def test_device_function_names_cover_every_kernel():
     per-kernel sums in ``chip_smoke.py`` miss none."""
     import re
 
-    for source in {k.source for k in cuda_build.KERNELS.values()}:
+    sources = {k.source for k in cuda_build.KERNELS.values()}
+    assert sources == set(cuda_build.DEVICE_FUNCTIONS) and "bn_apply.cu" in sources
+    for source in sources:
         text = (cuda_build.CSRC / source).read_text()
         defined = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([\w, ]+\)\s+)?(\w+)\(",
                              text)
@@ -724,7 +726,8 @@ def test_quantized_embed_on_the_card(cuda, stem, store):
     """The int8 embed of a small r18 bag on the card goes through K6 (19
     int8 convs, each with K7's sums in its epilogue), K7 (the stem), the
     fold and K8 only, and tracks the float embed as the CPU tests hold it
-    (cosine > 0.97 per valid instance)."""
+    (cosine > 0.97 per valid instance); the float embed after it, through
+    K7 and K9 alone (20 BN layers, 17 launches of K9)."""
     from montecarlo_gated_mil_tpu_torch.models.resnet import make_backbone
     from montecarlo_gated_mil_tpu_torch.ops.quantized import (
         quantize_backbone_static,
@@ -737,17 +740,19 @@ def test_quantized_embed_on_the_card(cuda, stem, store):
     patches = torch.clamp(torch.randn(12, 64, 64, 3, generator=g) * 0.8, -2.2, 2.7).to(cuda)
     mask = (torch.arange(12) < 10).to(cuda)
     plan = quantize_backbone_static(backbone, "r18", conv_store=store, stem=stem)
+    names = ("qconv_i8", "bn_stats", "bn_stats_fold", "bn_relu_quant", "bn_apply")
     cuda_build.reset_launch_counts()
     with torch.inference_mode():
         hq = quantized_embed_static(plan, patches, mask)
+        launches = {k: cuda_build.KERNELS[k].launches for k in names}
         hf = backbone(patches, mask)
     torch.cuda.synchronize()
-    launches = {k: cuda_build.KERNELS[k].launches
-                for k in ("qconv_i8", "bn_stats", "bn_stats_fold", "bn_relu_quant")}
     # K7 for the stem alone; the convs' sums in K6's epilogue, folded where
     # a map is more than one tile (at 64 px, layer 1's 16 x 16 only).
     assert launches == {"qconv_i8": 19 + (stem == "s2d_i8"), "bn_stats": 1, "bn_stats_fold": 4,
-                        "bn_relu_quant": 17}
+                        "bn_relu_quant": 17, "bn_apply": 0}
+    assert {k: cuda_build.KERNELS[k].launches - launches[k] for k in names} == {
+        "qconv_i8": 0, "bn_stats": 20, "bn_stats_fold": 0, "bn_relu_quant": 0, "bn_apply": 17}
     cos = torch.nn.functional.cosine_similarity(hq[:10], hf[:10], dim=-1)
     assert bool(torch.isfinite(hq).all()) and float(cos.min()) > 0.97
 
@@ -1497,7 +1502,11 @@ def test_default_flags_step_gradients_match_f64(cuda):
     its gradients equal bit for bit those of the same step with TF32 off in
     the whole process, which the loss back-propagated outside
     ``exact_float_grads`` does not, and lie within phase 14's limits of an
-    f64 step of the same weights, bag and dropout."""
+    f64 step of the same weights, bag and dropout on the f32 step's ReLU
+    pattern: some activations lie within f32 rounding of 0 (1.1e-7), and
+    which side each falls on changes with the last bit of the BN moments.
+    Since the f64 step follows the f32 one's signs, their count is held
+    too: a forward that moves many of them fails."""
     old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
     try:
@@ -1507,4 +1516,141 @@ def test_default_flags_step_gradients_match_f64(cuda):
     print({k: v for k, v in r.items() if k != "launches"})
     assert r["exact"]["equal_to_off"] and not r["tf32"]["equal_to_off"]
     assert r["exact"]["excess"] <= 0, r["exact"]
+    assert r["relu_flips"] <= _chip_smoke().RELU_FLIPS_64PX, r["relu_flips"]
     assert r["launches"]["mc_head_sep"] == r["launches"]["mc_head_bwd_sep"] == 1
+
+
+# ------------------------------------------------------------------ K9
+# The f32 embed's masked BN (ops/float_bn.py): K7's sums in f32 and f64,
+# K9 against the plain chain.  The chain is what the port ran before, so
+# K9 is held to it bit for bit.
+
+from montecarlo_gated_mil_tpu_torch.ops import float_bn as fb  # noqa: E402
+
+K9_SHAPES = _chip_smoke().K9_SHAPES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64],
+                         ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("case", K9_SHAPES, ids=lambda c: c[0])
+def test_bn_apply_kernel_bit_for_bit(cuda, case, dtype):
+    """K9 at every (shape, epilogue) an r18 request launches, 40 instances
+    of which 29 valid, weights of both signs, in each dtype of the float
+    embed: out of place and in place, the chain's bits."""
+    label, hwc, epilogue, _ = case
+    g = torch.Generator(device=cuda).manual_seed(41)
+    t, scale, nm, kw, _ = _chip_smoke().f32_bn_case(hwc, epilogue, 40, 29, g, dtype)
+    kernel = cuda_build.KERNELS["bn_apply"]
+    before = kernel.launches
+    want = fb.bn_apply_chain(t, scale, nm, **kw)
+    got = fb.bn_apply(t, scale, nm, **kw)
+    inplace = fb.bn_apply(t.clone(memory_format=torch.channels_last), scale, nm, inplace=True,
+                          **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want) and torch.equal(inplace, want)
+    assert float((want > 0).float().mean()) > 0.2  # not all clipped away by the ReLU
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask_kind", ["none", "all_masked"])
+def test_bn_apply_kernel_without_mask_and_all_masked(cuda, mask_kind):
+    """No mask (no scale) and an all-masked bag (scale 0) at layer 2's
+    downsampling block end and the stem's pool: the chain's bits."""
+    from montecarlo_gated_mil_tpu_torch.models import resnet
+
+    g = torch.Generator(device=cuda).manual_seed(42)
+    for hwc, epilogue in (((28, 28, 128), "downsample"), ((112, 112, 64), "pool")):
+        t, _, nm, kw, _ = _chip_smoke().f32_bn_case(hwc, epilogue, 6, 6, g)
+        mask = None if mask_kind == "none" else torch.zeros(6, dtype=torch.bool, device=cuda)
+        _, _, mean, inv, scale = resnet._moments(t, mask, 1e-5)
+        nm = fb.Norm(mean, inv, nm.weight, nm.bias)
+        assert torch.equal(fb.bn_apply(t, scale, nm, **kw), fb.bn_apply_chain(t, scale, nm, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("hwc", [(112, 112, 64), (56, 56, 64), (7, 7, 512), (3, 3, 2048)])
+def test_bn_stats_kernel_float_sums(cuda, hwc, dtype):
+    """K7 on the float embed's conv outputs against float64 sums: an f32
+    sum within one rounding of its value (2^-24 of it) plus 1e-11 of the
+    sum of |x| (the float64 accumulation's order); f64 sums in f64 within
+    1e-13 of the sum of |x|.  A second call gives the same bits."""
+    g = torch.Generator().manual_seed(43)
+    x = (torch.randn(5, *hwc, generator=g) * 3.0 + 0.5).to(dtype).to(cuda)
+    s1, s2 = qk.bn_stats(x)
+    again = qk.bn_stats(x)
+    torch.cuda.synchronize()
+    xd = x.to(torch.float64)
+    for got, v in ((s1, xd), (s2, xd.square())):
+        assert got.dtype == dtype and got.shape == (5, hwc[-1])
+        exact = v.sum(dim=(1, 2))
+        size = v.abs().sum(dim=(1, 2))
+        room = 1e-13 * size if dtype == torch.float64 else 2.0**-24 * exact.abs() + 1e-11 * size
+        assert bool(((got.to(torch.float64) - exact).abs() <= room).all())
+    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+
+
+@pytest.mark.gpu
+def test_float_embed_on_the_kernels_against_the_plain_path(cuda, monkeypatch):
+    """A 256-patch r18 f32 embed at 224 px (200 valid) through K7 and K9
+    against the same model on the card with the plain chain in their place.
+    With the chain's sums, K9's embed is the plain one bit for bit.  K7's
+    float64 sums move the features by 2.8e-6 of the largest against the
+    chain's f32 reductions (1e-6 was hoped for; a seeded r18 carries a last
+    bit of the moments that far), so the limit is 1e-5; and the kernels'
+    embed is no farther from the float64 embed than the chain's (3.99e-6
+    against 3.93e-6 measured; 1.1 times allowed).  Each embed launches K7
+    20 times (the stem's BN, 16 in the blocks, 3 downsamples) and K9 17
+    times (a downsample's BN runs inside its block end's launch)."""
+    from montecarlo_gated_mil_tpu_torch.models import resnet
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.manual_seed(0)
+    net = resnet.make_backbone("r18").to(cuda)
+    g = torch.Generator().manual_seed(44)
+    x = torch.randn(256, 224, 224, 3, generator=g).to(cuda)
+    mask = (torch.arange(256) < 200).to(cuda)
+    names = ("bn_stats", "bn_apply")
+    launches = []
+    with torch.inference_mode():
+        for _ in range(2):
+            before = {k: cuda_build.KERNELS[k].launches for k in names}
+            got = net(x, mask)
+            launches.append({k: cuda_build.KERNELS[k].launches - before[k] for k in names})
+    assert launches == [{"bn_stats": 20, "bn_apply": 17}] * 2
+    net64 = resnet.make_backbone("r18", dtype=torch.float64).to(cuda).double()
+    net64.load_state_dict(net.state_dict())
+    plain_apply = lambda x, *a, inplace=False, **k: fb.bn_apply_chain(x, *a, **k)  # noqa: E731
+    with torch.inference_mode():
+        monkeypatch.setattr(resnet, "bn_sums", fb.bn_sums_chain)
+        chain_sums = net(x, mask)
+        monkeypatch.setattr(resnet, "bn_apply", plain_apply)
+        before = cuda_build.KERNELS["bn_apply"].launches
+        want = net(x, mask)
+        exact = net64(x.double(), mask)
+        assert cuda_build.KERNELS["bn_apply"].launches == before
+    torch.cuda.synchronize()
+    assert torch.equal(chain_sums, want)
+    assert rel(got, want) <= 1e-5
+    assert rel(got, exact) <= 1.1 * rel(want, exact)
+
+
+@pytest.mark.gpu
+def test_bn_apply_refuses_what_it_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(45)
+    t, scale, nm, kw, _ = _chip_smoke().f32_bn_case((28, 28, 128), "identity", 4, 3, g)
+    with pytest.raises(ValueError, match="bn_apply"):
+        fb.bn_apply(t.half(), scale, nm, **kw)  # no f16 embed
+    with pytest.raises(ValueError, match="bn_apply"):
+        fb.bn_apply(t, scale, nm, residual=kw["residual"])  # a residual without the ReLU
+    with pytest.raises(ValueError, match="bn_apply"):
+        fb.bn_apply(t, scale, nm, relu=True, pool=True, residual=kw["residual"])
+    with pytest.raises(ValueError, match="bn_apply"):
+        fb.bn_apply(t, scale, nm._replace(mean=nm.mean[:64]), relu=True)
