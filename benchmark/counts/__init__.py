@@ -10,8 +10,9 @@ K6 (the int8 convolution with the BN sums in its epilogue) counts
 the weights, the bf16 store, the scales and the per-instance sums.
 
 The model's work (for the ``mfu`` metrics) is the ResNet's convolutions on
-the valid tiles (2 operations a multiply-add), the head's T samples, and
-for a training step the backward at twice the forward.
+the valid tiles (2 operations a multiply-add), as
+``benchmark/backbones/<backbone>.json`` describes them, the head's T
+samples, and for a training step the backward at twice the forward.
 """
 
 from __future__ import annotations
@@ -19,9 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from benchmark import device as dev
-
-STAGES = {"r18": (2, 2, 2, 2), "r34": (3, 4, 6, 3)}
-WIDTHS = (64, 128, 256, 512)
+from benchmark import spec
 
 
 @dataclass(frozen=True)
@@ -41,30 +40,34 @@ class Conv:
         return 2.0 * self.cout * self.cin * self.k * self.k * self.out * self.out
 
 
-def stem(patch: int = 224) -> Conv:
-    return Conv(3, 64, 7, 2, 3, patch)
+def _conv(c: spec.ConvBN, h: int) -> Conv:
+    return Conv(c.cin, c.cout, c.kernel, c.stride, c.pad, h)
+
+
+def stem(patch: int = 224, backbone: str = "r18") -> Conv:
+    return _conv(spec.load_backbone(backbone).stem, patch)
 
 
 def block_convs(backbone: str = "r18", patch: int = 224) -> list[Conv]:
-    """The convolutions after the stem, in launch order per block: conv1,
-    conv2, then the downsample where there is one."""
-    h = (stem(patch).out + 2 - 3) // 2 + 1  # the 3x3/2 max pool
-    out, cin = [], 64
-    for s, n in enumerate(STAGES[backbone]):
-        for b in range(n):
-            stride = 2 if s > 0 and b == 0 else 1
-            cout = WIDTHS[s]
-            c1 = Conv(cin, cout, 3, stride, 1, h)
-            out += [c1, Conv(cout, cout, 3, 1, 1, c1.out)]
-            if stride != 1 or cin != cout:
-                out.append(Conv(cin, cout, 1, stride, 0, h))
-            cin, h = cout, c1.out
+    """The convolutions after the stem, in launch order per block: its
+    convs, then the downsample where there is one."""
+    net = spec.load_backbone(backbone)
+    k, stride, pad = net.pool
+    h = (stem(patch, backbone).out + 2 * pad - k) // stride + 1
+    out = []
+    for blk in net.blocks:
+        h_in = h
+        for c in blk.convs:
+            out.append(_conv(c, h))
+            h = out[-1].out
+        if blk.downsample is not None:
+            out.append(_conv(blk.downsample, h_in))
     return out
 
 
 def embed_flops(backbone: str = "r18", patch: int = 224) -> tuple[float, float]:
     """``(stem, rest)`` forward operations of one tile."""
-    return stem(patch).flops(), sum(c.flops() for c in block_convs(backbone, patch))
+    return stem(patch, backbone).flops(), sum(c.flops() for c in block_convs(backbone, patch))
 
 
 def head_flops(n_valid: int, T: int, L: int, D: int, C: int, gates: int) -> float:

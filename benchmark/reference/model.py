@@ -1,11 +1,13 @@
 """Gated-attention MIL over a ResNet, written out in plain PyTorch.
 
 The architecture the configuration names: a torchvision ResNet (He et al.
-2016) without its classifier, whose BatchNorm always normalizes with the
-statistics of the current bag (biased variance, eps 1e-5), embeds each
-224 px tile into L features (global average pool); a multi-head gated
-attention MIL head (Ilse et al. 2018) with one tanh/sigmoid gate pair, one
-attention vector and one bias-free linear classifier per class,
+2016) without its classifier, as ``benchmark/backbones/<backbone>.json``
+describes it (``spec.Block`` says what its blocks compute), whose BatchNorm
+always normalizes with the statistics of the current bag (biased variance,
+eps 1e-5), embeds each 224 px tile into L features (global average pool);
+a multi-head gated attention MIL head (Ilse et al. 2018) with one
+tanh/sigmoid gate pair, one attention vector and one bias-free linear
+classifier per class,
 
     Hd = feature_dropout(H);  G_c = tanh(Hd V_c + b) * sigmoid(Hd U_c + b)
     A_c = softmax_n(attention_dropout(G_c w_c + b_c));  Y_c = (A_c Hd) . k_c
@@ -24,38 +26,37 @@ import math
 import torch
 import torch.nn.functional as F
 
+from benchmark import spec
 from benchmark.reference import philox
 
 BN_EPS = 1e-5
-STAGES = {"r18": (2, 2, 2, 2), "r34": (3, 4, 6, 3)}
-WIDTHS = (64, 128, 256, 512)
-
-
-def blocks(backbone: str):
-    """``(prefix, cin, cout, stride)`` of every basic block, in order."""
-    out, cin = [], 64
-    for s, n in enumerate(STAGES[backbone]):
-        for b in range(n):
-            stride = 2 if s > 0 and b == 0 else 1
-            out.append((f"layer{s + 1}.{b}.", cin, WIDTHS[s], stride))
-            cin = WIDTHS[s]
-    return out
+FE = "feature_extractor."
 
 
 def schema(backbone: str, L: int, D: int, C: int) -> dict[str, tuple[int, ...]]:
-    """Every parameter's name and shape."""
-    fe = "feature_extractor."
-    s = {fe + "conv1.weight": (64, 3, 7, 7), fe + "bn1.weight": (64,), fe + "bn1.bias": (64,)}
-    for pre, cin, cout, stride in blocks(backbone):
-        s[fe + pre + "conv1.weight"] = (cout, cin, 3, 3)
-        s[fe + pre + "conv2.weight"] = (cout, cout, 3, 3)
-        for bn in ("bn1", "bn2"):
-            s[fe + pre + bn + ".weight"] = (cout,)
-            s[fe + pre + bn + ".bias"] = (cout,)
-        if stride != 1 or cin != cout:
-            s[fe + pre + "downsample.0.weight"] = (cout, cin, 1, 1)
-            s[fe + pre + "downsample.1.weight"] = (cout,)
-            s[fe + pre + "downsample.1.bias"] = (cout,)
+    """Every parameter's name and shape, in the order of the seeded draws:
+    the stem's conv and BN; per block its convs, then their BNs, then the
+    downsample's conv and BN; the head."""
+    s: dict[str, tuple[int, ...]] = {}
+
+    def conv(c: spec.ConvBN):
+        s[FE + c.conv + ".weight"] = (c.cout, c.cin, c.kernel, c.kernel)
+
+    def bn(c: spec.ConvBN):
+        s[FE + c.bn + ".weight"] = (c.cout,)
+        s[FE + c.bn + ".bias"] = (c.cout,)
+
+    net = spec.load_backbone(backbone)
+    conv(net.stem)
+    bn(net.stem)
+    for blk in net.blocks:
+        for c in blk.convs:
+            conv(c)
+        for c in blk.convs:
+            bn(c)
+        if blk.downsample is not None:
+            conv(blk.downsample)
+            bn(blk.downsample)
     for c in range(C):
         for g in ("attention_V", "attention_U"):
             s[f"{g}.{c}.0.weight"] = (D, L)
@@ -128,27 +129,37 @@ def _conv(x, w, stride, pad, chunk):
                       for i in range(0, x.shape[0], chunk)])
 
 
+def _conv_bn(p: dict, c: spec.ConvBN, x: torch.Tensor, chunk: int | None) -> torch.Tensor:
+    y = _conv(x, p[FE + c.conv + ".weight"].to(x.dtype), c.stride, c.pad, chunk)
+    return batch_norm(y, p[FE + c.bn + ".weight"], p[FE + c.bn + ".bias"], chunk)
+
+
+def stem(p: dict, net: spec.Backbone, x: torch.Tensor, chunk: int | None) -> torch.Tensor:
+    """NCHW tiles -> the stem's convolution, BN, ReLU and max pool."""
+    k, stride, pad = net.pool
+    return F.max_pool2d(F.relu(_conv_bn(p, net.stem, x, chunk)), kernel_size=k, stride=stride,
+                        padding=pad)
+
+
+def block(p: dict, blk: spec.Block, x: torch.Tensor, chunk: int | None) -> torch.Tensor:
+    """One residual block, as ``spec.Block`` defines it."""
+    y = x
+    for i, c in enumerate(blk.convs):
+        y = _conv_bn(p, c, y, chunk)
+        if i < len(blk.convs) - 1:
+            y = F.relu(y)
+    r = x if blk.downsample is None else _conv_bn(p, blk.downsample, x, chunk)
+    return F.relu(y + r)
+
+
 def embed(p: dict, patches: torch.Tensor, backbone: str = "r18",
           chunk: int | None = 256) -> torch.Tensor:
     """``(n, 224, 224, 3)`` valid tiles -> ``(n, L)`` features in the dtype
     of ``patches``.  Under autograd (training) pass ``chunk=None``."""
-    fe = "feature_extractor."
-    x = patches.permute(0, 3, 1, 2)
-    x = _conv(x, p[fe + "conv1.weight"].to(x.dtype), 2, 3, chunk)
-    x = F.relu(batch_norm(x, p[fe + "bn1.weight"], p[fe + "bn1.bias"], chunk))
-    x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
-    for pre, cin, cout, stride in blocks(backbone):
-        q = fe + pre
-        y = _conv(x, p[q + "conv1.weight"].to(x.dtype), stride, 1, chunk)
-        y = F.relu(batch_norm(y, p[q + "bn1.weight"], p[q + "bn1.bias"], chunk))
-        y = _conv(y, p[q + "conv2.weight"].to(x.dtype), 1, 1, chunk)
-        y = batch_norm(y, p[q + "bn2.weight"], p[q + "bn2.bias"], chunk)
-        if q + "downsample.0.weight" in p:
-            r = _conv(x, p[q + "downsample.0.weight"].to(x.dtype), stride, 0, chunk)
-            r = batch_norm(r, p[q + "downsample.1.weight"], p[q + "downsample.1.bias"], chunk)
-        else:
-            r = x
-        x = F.relu(y + r)
+    net = spec.load_backbone(backbone)
+    x = stem(p, net, patches.permute(0, 3, 1, 2), chunk)
+    for blk in net.blocks:
+        x = block(p, blk, x, chunk)
     return x.to(torch.float64).mean(dim=(2, 3)).to(patches.dtype)
 
 

@@ -1,4 +1,5 @@
-"""The int8 embed that ``r18-gamil-int8`` states, written out in plain PyTorch.
+"""The int8 embed that ``r18-gamil-int8`` states, written out in plain PyTorch
+for any backbone of ``benchmark/backbones/``.
 
 Post-training quantization with static scales, derived from the float
 weights alone:
@@ -10,9 +11,10 @@ weights alone:
   output channel (``s = max|w| / Q``);
 - a BN normalizes with the masked statistics of the stored tensor (sums in
   float64, the affine rounded once to float32); an activation after BN and
-  ReLU is quantized with the static bound ``beta + 6 |gamma|`` (a residual
-  sum with the sum of its parts' bounds ``|beta| + 6 |gamma|``), rounded
-  half to even and clipped to +-Q;
+  ReLU (every conv of a block but its last) is quantized with the static
+  bound ``beta + 6 |gamma|`` (a block's residual sum with the sum of its
+  parts' bounds ``|beta| + 6 |gamma|``), rounded half to even and clipped
+  to +-Q;
 - the stem's 3x3/2 max pool runs on the normalized values before rounding,
   and the last block returns the float mean over its pixels.
 
@@ -25,7 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference.model import blocks
+from benchmark import spec
+from benchmark.reference.model import FE
 
 K_SIGMA = 6.0
 EPS = 1e-5
@@ -79,52 +82,66 @@ def _quantize(y: torch.Tensor, q: int) -> torch.Tensor:
     return torch.clamp(torch.round(y), -q, q)
 
 
+def _gamma_beta(p: dict, c: spec.ConvBN):
+    return p[FE + c.bn + ".weight"], p[FE + c.bn + ".bias"]
+
+
+def _stored(p: dict, c: spec.ConvBN, codes: torch.Tensor, s_in: torch.Tensor, q: int,
+            chunk: int) -> torch.Tensor:
+    """A block's int8 convolution of ``codes`` (dequant scale ``s_in``),
+    stored in bf16 as ``f32(acc) * s``."""
+    wq, s = _quant_weight(p[FE + c.conv + ".weight"], s_in, q)
+    acc = _int_conv(codes, wq, c.stride, c.pad, chunk)
+    return (acc.to(torch.float32) * _ch(s)).to(torch.bfloat16)
+
+
 def embed(p: dict, patches: torch.Tensor, levels: int = 127, backbone: str = "r18",
           chunk: int = 128) -> torch.Tensor:
     """``(n, 224, 224, 3)`` float32 valid tiles -> ``(n, L)`` float32."""
-    fe = "feature_extractor."
     q = levels
-    # Stem: bf16 conv, BN, ReLU, 3x3/2 max pool, quantize to layer 1's input.
+    net = spec.load_backbone(backbone)
+    # Stem: bf16 conv, BN, ReLU, max pool, quantize to the first block's input.
+    st = net.stem
     x = patches.to(torch.bfloat16).permute(0, 3, 1, 2)
-    w1 = p[fe + "conv1.weight"].to(torch.bfloat16).to(torch.float32)
-    t = torch.cat([F.conv2d(x[i:i + chunk].to(torch.float32), w1, stride=2, padding=3)
-                   .to(torch.bfloat16) for i in range(0, x.shape[0], chunk)])
+    w1 = p[FE + st.conv + ".weight"].to(torch.bfloat16).to(torch.float32)
+    t = torch.cat([F.conv2d(x[i:i + chunk].to(torch.float32), w1, stride=st.stride,
+                            padding=st.pad).to(torch.bfloat16)
+                   for i in range(0, x.shape[0], chunk)])
     del x
-    se, be = _affine(t, p[fe + "bn1.weight"], p[fe + "bn1.bias"])
-    bound = _relu_bound(p[fe + "bn1.weight"], p[fe + "bn1.bias"])  # of x, as s_x = bound / q
+    g1, b1 = _gamma_beta(p, st)
+    se, be = _affine(t, g1, b1)
+    bound = _relu_bound(g1, b1)  # of x, as s_x = bound / q
     s_x = bound / q
     parts = []
     for i in range(0, t.shape[0], chunk):
         y = torch.clamp(t[i:i + chunk].to(torch.float32) * _ch(se / s_x) + _ch(be / s_x), min=0.0)
-        parts.append(_quantize(F.max_pool2d(y, 3, 2, 1), q).to(torch.int8))
+        parts.append(_quantize(F.max_pool2d(y, *net.pool), q).to(torch.int8))
     del t
     x = torch.cat(parts)
-    all_blocks = blocks(backbone)
-    for bi, (pre, cin, cout, stride) in enumerate(all_blocks):
-        k = fe + pre
-        last = bi == len(all_blocks) - 1
-        w1q, s1 = _quant_weight(p[k + "conv1.weight"], s_x, q)
-        t1 = (_int_conv(x, w1q, stride, 1, chunk).to(torch.float32) * _ch(s1)).to(torch.bfloat16)
-        g1, b1 = p[k + "bn1.weight"], p[k + "bn1.bias"]
-        se1, be1 = _affine(t1, g1, b1)
-        s_mid = _relu_bound(g1, b1) / q
-        m1 = _quantize(torch.clamp(t1.to(torch.float32) * _ch(se1 / s_mid) + _ch(be1 / s_mid),
-                                   min=0.0), q).to(torch.int8)
-        del t1
-        w2q, s2 = _quant_weight(p[k + "conv2.weight"], s_mid, q)
-        tf = (_int_conv(m1, w2q, 1, 1, chunk).to(torch.float32) * _ch(s2)).to(torch.bfloat16)
-        del m1
-        g2, b2 = p[k + "bn2.weight"], p[k + "bn2.bias"]
-        sef, bef = _affine(tf, g2, b2)
-        if k + "downsample.0.weight" in p:
-            wdq, sd = _quant_weight(p[k + "downsample.0.weight"], s_x, q)
-            d = (_int_conv(x, wdq, stride, 0, chunk).to(torch.float32) * _ch(sd)).to(torch.bfloat16)
-            gd, bd = p[k + "downsample.1.weight"], p[k + "downsample.1.bias"]
+    for bi, blk in enumerate(net.blocks):
+        last = bi == len(net.blocks) - 1
+        # Every conv but the block's last: BN, ReLU, quantized at its own bound.
+        h, s_h = x, s_x
+        for c in blk.convs[:-1]:
+            t = _stored(p, c, h, s_h, q, chunk)
+            g, b = _gamma_beta(p, c)
+            se, be = _affine(t, g, b)
+            s_h = _relu_bound(g, b) / q
+            h = _quantize(torch.clamp(t.to(torch.float32) * _ch(se / s_h) + _ch(be / s_h),
+                                      min=0.0), q).to(torch.int8)
+            del t
+        tf = _stored(p, blk.convs[-1], h, s_h, q, chunk)
+        del h
+        gf, bf = _gamma_beta(p, blk.convs[-1])
+        sef, bef = _affine(tf, gf, bf)
+        if blk.downsample is not None:
+            d = _stored(p, blk.downsample, x, s_x, q, chunk)
+            gd, bd = _gamma_beta(p, blk.downsample)
             sed, bed = _affine(d, gd, bd)
             id_bound = _signed_bound(gd, bd)
         else:
             d, sed, bed, id_bound = None, None, None, bound
-        out_bound = _signed_bound(g2, b2) + id_bound
+        out_bound = _signed_bound(gf, bf) + id_bound
         s_out = out_bound / q
         inv = 1.0 if last else 1.0 / s_out
         y = tf.to(torch.float32) * _ch(sef * inv) + _ch(bef * inv)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from benchmark import spec
 from benchmark.reference import model as ref_model
 from benchmark.reference import pipeline as ref_pipe
 
@@ -79,30 +80,13 @@ def bag(cc: np.ndarray, mlo: np.ndarray, bits: int, laterality: str, record: int
 
 
 def _embed_checkpointed(p: dict, x: torch.Tensor, backbone: str) -> torch.Tensor:
-    """``model.embed`` under autograd, recomputed stage by stage in the
+    """``model.embed`` under autograd, recomputed block by block in the
     backward (the same function; only the memory differs)."""
-    fe = "feature_extractor."
-
-    def stem(x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), p[fe + "conv1.weight"], stride=2, padding=3)
-        y = F.relu(ref_model.batch_norm(y, p[fe + "bn1.weight"], p[fe + "bn1.bias"]))
-        return F.max_pool2d(y, kernel_size=3, stride=2, padding=1)
-
-    def block(x, q, stride):
-        y = F.conv2d(x, p[q + "conv1.weight"], stride=stride, padding=1)
-        y = F.relu(ref_model.batch_norm(y, p[q + "bn1.weight"], p[q + "bn1.bias"]))
-        y = F.conv2d(y, p[q + "conv2.weight"], padding=1)
-        y = ref_model.batch_norm(y, p[q + "bn2.weight"], p[q + "bn2.bias"])
-        if q + "downsample.0.weight" in p:
-            r = F.conv2d(x, p[q + "downsample.0.weight"], stride=stride)
-            r = ref_model.batch_norm(r, p[q + "downsample.1.weight"], p[q + "downsample.1.bias"])
-        else:
-            r = x
-        return F.relu(y + r)
-
-    x = checkpoint(stem, x, use_reentrant=False)
-    for pre, _, _, stride in ref_model.blocks(backbone):
-        x = checkpoint(block, x, fe + pre, stride, use_reentrant=False)
+    net = spec.load_backbone(backbone)
+    x = checkpoint(lambda x: ref_model.stem(p, net, x.permute(0, 3, 1, 2), None), x,
+                   use_reentrant=False)
+    for blk in net.blocks:
+        x = checkpoint(ref_model.block, p, blk, x, None, use_reentrant=False)
     return x.to(torch.float64).mean(dim=(2, 3)).to(torch.float32)
 
 

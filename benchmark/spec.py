@@ -2,9 +2,10 @@
 
 A cell (``workloads`` entry) names a configuration and a traffic mix; the
 configuration's file is the one its ``configs`` entry gives, the traffic
-mix is ``benchmark/traffic/<traffic>.json`` and a per-layer metric is read
-by ``benchmark/metrics/<name>.py``.  Nothing here knows any cell, so a new
-cell needs only new files and new entries.
+mix is ``benchmark/traffic/<traffic>.json``, the network its ``backbone``
+names is described by ``benchmark/backbones/<backbone>.json`` and a
+per-layer metric is read by ``benchmark/metrics/<name>.py``.  Nothing here
+knows any cell, so a new cell needs only new files and new entries.
 """
 
 from __future__ import annotations
@@ -92,6 +93,89 @@ def metric_path(name: str) -> Path:
     return BENCH_DIR / "metrics" / f"{check_name(name, 'metric')}.py"
 
 
+def backbone_path(name: str) -> Path:
+    return BENCH_DIR / "backbones" / f"{check_name(name, 'backbone')}.json"
+
+
+@dataclass(frozen=True)
+class ConvBN:
+    """A convolution (weight ``<conv>.weight``, no bias) and the BN after it
+    (``<bn>.weight``, ``<bn>.bias``), names with the block's prefix."""
+    conv: str
+    bn: str
+    cin: int
+    cout: int
+    kernel: int
+    stride: int
+    pad: int
+
+
+@dataclass(frozen=True)
+class Block:
+    """A residual block: ``convs`` in order, each followed by its BN; a ReLU
+    after every BN but the last; the last BN's output plus the shortcut (the
+    downsample's BN output, or else the block's input), then a ReLU."""
+    prefix: str
+    convs: tuple[ConvBN, ...]
+    downsample: ConvBN | None
+
+
+@dataclass(frozen=True)
+class Backbone:
+    """A ResNet without its classifier: the stem (convolution, BN, ReLU,
+    max pool of ``pool = (kernel, stride, pad)``), the blocks, and the
+    global average pool to ``features``."""
+    features: int
+    stem: ConvBN
+    pool: tuple[int, int, int]
+    blocks: tuple[Block, ...]
+
+
+def _conv_bn(raw: dict, prefix: str = "") -> ConvBN:
+    return ConvBN(prefix + raw["conv"], prefix + raw["bn"], int(raw["cin"]), int(raw["cout"]),
+                  int(raw["kernel"]), int(raw["stride"]), int(raw["pad"]))
+
+
+def load_backbone(name: str) -> Backbone:
+    """``benchmark/backbones/<name>.json``, its channels checked to chain
+    from the stem through every block to ``features``."""
+    path = backbone_path(name)
+    raw = load_json(path)
+    stem = _conv_bn(raw["stem"])
+    pool = raw["stem"]["pool"]
+    blocks = tuple(Block(b["prefix"], tuple(_conv_bn(c, b["prefix"]) for c in b["convs"]),
+                         None if b["downsample"] is None
+                         else _conv_bn(b["downsample"], b["prefix"])) for b in raw["blocks"])
+    net = Backbone(int(raw["features"]), stem,
+                   (int(pool["kernel"]), int(pool["stride"]), int(pool["pad"])), blocks)
+    width = stem.cout
+    for b in blocks:
+        if not b.convs or [c.cin for c in b.convs] != [width] + [c.cout for c in b.convs[:-1]]:
+            raise SpecError(f"{path}: block {b.prefix} does not chain from {width} channels")
+        ds = b.downsample
+        if ds is None and width != b.convs[-1].cout:
+            raise SpecError(f"{path}: block {b.prefix} changes width without a downsample")
+        if ds is not None and (ds.cin, ds.cout) != (width, b.convs[-1].cout):
+            raise SpecError(f"{path}: block {b.prefix}'s downsample is not {width} to "
+                            f"{b.convs[-1].cout} channels")
+        width = b.convs[-1].cout
+    if width != net.features:
+        raise SpecError(f"{path}: the last block yields {width} features, not {net.features}")
+    return net
+
+
+def validate_config(cfg: dict, what: str = "configuration") -> None:
+    """The backbone a configuration names is described, yields its ``L``,
+    and is the model the port is told to build."""
+    name = cfg["backbone"]
+    features = load_backbone(name).features
+    if features != cfg["L"]:
+        raise SpecError(f"{what}: backbone {name} yields {features} features, L is {cfg['L']}")
+    model = cfg["port_config"]["model"]
+    if model != name:
+        raise SpecError(f"{what}: port_config.model is {model!r}, backbone is {name!r}")
+
+
 def load_cell(workload: str, bench_file: Path | None = None) -> Cell:
     """The cell ``workload`` of BENCHMARK.json with its configuration,
     traffic and the metrics it reports."""
@@ -104,6 +188,7 @@ def load_cell(workload: str, bench_file: Path | None = None) -> Cell:
     cfg_entry = configs[check_name(w["config"], "config")]
     cfg_file = (bench_file.parent if bench_file else ROOT) / cfg_entry["file"]
     config = load_json(cfg_file)
+    validate_config(config, str(cfg_file))
     traffic = load_json(traffic_path(w["traffic"]))
     e2e = tuple(_metric(m, False) for m in spec["end_to_end"])
     e2e = tuple(m for m in e2e if m.workloads is None or workload in m.workloads)
@@ -130,12 +215,14 @@ def load_metric_reader(name: str):
 
 
 def validate(spec: dict) -> None:
-    """Names, units and cross-references of a BENCHMARK.json document."""
+    """Names, units and cross-references of a BENCHMARK.json document, and
+    each configuration's file against its backbone's."""
     names = set()
     for c in spec["configs"]:
         check_name(c["name"], "config")
         for k in c.get("reduced", []):
             check_name(k, "reduced key")
+        validate_config(load_json(BENCH_DIR.parent / c["file"]), f"config {c['name']}")
     cfg_names = {c["name"] for c in spec["configs"]}
     cells = set()
     for w in spec["workloads"]:

@@ -28,3 +28,13 @@ def tiny_cell(workload: str, **traffic) -> spec.Cell:
 
 def args(seed: int = 7, seconds: float = 1.0, trace: int = 0, control: int = 0) -> Namespace:
     return Namespace(workload="tiny", seed=seed, seconds=seconds, trace=trace, control=control)
+
+
+def with_backbone(cell: spec.Cell, backbone: str) -> spec.Cell:
+    """``cell`` with its ResNet swapped for ``backbone``: the reference's,
+    the port's and L, as a configuration naming it states them."""
+    cfg = copy.deepcopy(cell.config)
+    cfg.update(backbone=backbone, L=spec.load_backbone(backbone).features)
+    cfg["port_config"]["model"] = backbone
+    spec.validate_config(cfg)
+    return replace(cell, config=cfg)

@@ -52,11 +52,18 @@ def test_every_seed_sends_the_same_arrivals_and_images_in_another_order():
     assert np.bincount(i1).tolist() == [25] * 16
 
 
-def test_resnet18_operations():
-    stem, rest = counts.embed_flops("r18", 224)
-    assert stem == 2 * 64 * 3 * 49 * 112 * 112
-    assert (stem + rest) / 1e9 == pytest.approx(3.63, abs=0.02)  # 1.82 GMAC
-    assert len(counts.block_convs("r18")) == 19
+@pytest.mark.parametrize("backbone, rest_flops, convs, gflops", [
+    ("r18", 3_391_094_784, 19, 3.63),  # 1.82 GMAC
+    ("r34", 7_090_470_912, 35, 7.33),  # 3.66 GMAC
+    ("r50", 7_938_244_608, 52, 8.17),  # 4.09 GMAC
+])
+def test_resnet_operations(backbone, rest_flops, convs, gflops):
+    """A tile's forward operations, walked from the backbone's file."""
+    stem, rest = counts.embed_flops(backbone, 224)
+    assert stem == 2 * 64 * 3 * 49 * 112 * 112 == 236_027_904
+    assert rest == rest_flops
+    assert (stem + rest) / 1e9 == pytest.approx(gflops, abs=0.01)
+    assert len(counts.block_convs(backbone)) == convs
 
 
 def test_k1_bound_matches_the_kernel_table():

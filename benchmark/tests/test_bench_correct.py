@@ -12,7 +12,7 @@ from benchmark import images, run
 from benchmark.check import _program_view, compare, reference_request
 from benchmark.reference import model as ref_model
 from benchmark.reference import quant as ref_quant
-from benchmark.tests._tiny import H, PATCH, W, args, tiny_cell
+from benchmark.tests._tiny import H, PATCH, W, args, tiny_cell, with_backbone
 
 # Limits at this size: a bag of 20-120 small tiles.  The int8 path's codes
 # flip more often over so few instances than over a full-size bag.
@@ -30,20 +30,25 @@ def _port_predictor(cell, weights):
                                      device="cpu")
 
 
-def test_weights_schema_is_the_ports():
+@pytest.mark.parametrize("backbone", ["r18", "r34", "r50"])
+def test_weights_schema_is_the_ports(backbone):
     from montecarlo_gated_mil_tpu_torch.core.config import config_from_dict
     from montecarlo_gated_mil_tpu_torch.experiment import build_model
 
-    cell = tiny_cell("r18-f32-serve-closed4")
+    cell = with_backbone(tiny_cell("r18-f32-serve-closed4"), backbone)
     sd = build_model(config_from_dict(cell.config["port_config"])).state_dict()
-    sch = ref_model.schema("r18", 512, 128, 2)
+    sch = ref_model.schema(backbone, cell.config["L"], 128, 2)
+    assert cell.config["L"] == {"r18": 512, "r34": 512, "r50": 2048}[backbone]
     assert {k: tuple(v.shape) for k, v in sd.items()} == sch
 
 
-@pytest.mark.parametrize("seed", [11, 12])
-def test_reference_matches_the_port_f32(seed):
-    cell = tiny_cell("r18-f32-serve-closed4")
-    w = ref_model.make_weights("r18", 512, 128, 2, seed, "cpu")
+@pytest.mark.parametrize("backbone, seed", [("r18", 11), ("r18", 12), ("r34", 11), ("r50", 11)])
+def test_reference_matches_the_port_f32(backbone, seed):
+    """The reference's f32 request, its embed walked from the backbone's
+    file, against the port's: ResNet-18 and -34 (BasicBlocks) and -50
+    (Bottlenecks, L=2048), within the same limits."""
+    cell = with_backbone(tiny_cell("r18-f32-serve-closed4"), backbone)
+    w = ref_model.make_weights(backbone, cell.config["L"], 128, 2, seed, "cpu")
     pred = _port_predictor(cell, w)
     pool = images.pool(H, W, {"pool": 2, "positive_share": 0.5, "right_share": 0.5,
                               "pixel_bits": 12}, seed, "cpu")
@@ -57,29 +62,32 @@ def test_reference_matches_the_port_f32(seed):
         assert got["stats"] < 1e-6 and got["attention"] < 1e-4, got
 
 
-def test_reference_int8_embed_matches_the_port():
+@pytest.mark.parametrize("backbone", ["r18", "r50"])
+def test_reference_int8_embed_matches_the_port(backbone):
     """The int8 scheme written out against the port's plain int8 embed on
     the same tiles: most codes agree; a BN statistic's last bit can flip
-    an odd code, which a random r18 amplifies, so features are compared
-    by their cosine; the int4 control lies far off."""
+    an odd code, which a random ResNet amplifies, so features are compared
+    by their cosine; the int4 control lies far off.  For ResNet-50 every
+    conv of a Bottleneck but its last is requantized at its own bound."""
     from montecarlo_gated_mil_tpu_torch.mcdo.sampling import make_embed_fn
     from montecarlo_gated_mil_tpu_torch.core.config import config_from_dict
     from montecarlo_gated_mil_tpu_torch.experiment import build_model
 
-    cell = tiny_cell("r18-int8-serve-closed4")
-    w = ref_model.make_weights("r18", 512, 128, 2, 3, "cpu")
+    cell = with_backbone(tiny_cell("r18-int8-serve-closed4"), backbone)
+    w = ref_model.make_weights(backbone, cell.config["L"], 128, 2, 3, "cpu")
     model = build_model(config_from_dict(cell.config["port_config"]))
     model.load_state_dict(w)
     g = torch.Generator().manual_seed(0)
     x = torch.rand(12, PATCH, PATCH, 3, generator=g) * 4 - 2
     with torch.no_grad():
         got = make_embed_fn(model, True)(x, torch.ones(12, dtype=torch.bool))
-        ref = ref_quant.embed(w, x)
-        low = ref_quant.embed(w, x, levels=7)
+        ref = ref_quant.embed(w, x, backbone=backbone)
+        low = ref_quant.embed(w, x, levels=7, backbone=backbone)
 
     def cos(a, b):
         return float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
 
+    assert got.shape == (12, cell.config["L"])
     assert cos(got, ref) > 0.999
     assert cos(low, ref) < cos(got, ref)
 

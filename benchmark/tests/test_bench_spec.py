@@ -60,44 +60,91 @@ def test_units_in_use_pass(good):
 
 
 def test_a_new_cell_needs_only_new_files_and_entries(tmp_path):
-    """Copy the benchmark, add a configuration, a traffic mix and a metric
-    as new files plus entries, and load the new cell: no file that was
-    there is edited."""
+    """Copy the benchmark, add configurations (one of them a ResNet-50), a
+    traffic mix and a metric as new files plus entries, and load the new
+    cells: no file that was there is edited."""
+    from benchmark.reference.model import make_weights, schema
+
     bench = tmp_path / "benchmark"
     shutil.copytree(spec.BENCH_DIR, bench, ignore=shutil.ignore_patterns("__pycache__", ".cache"))
     before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
     cfg = json.loads((bench / "configs" / "r18-gamil.json").read_text())
     cfg["port_config"]["tpu"]["buckets"] = [256, 512, 1024]
     (bench / "configs" / "r18-gamil-small.json").write_text(json.dumps(cfg))
+    r50 = json.loads((bench / "configs" / "r18-gamil.json").read_text())
+    r50.update(backbone="r50", L=2048)
+    r50["port_config"]["model"] = "r50"
+    (bench / "configs" / "r50-gamil.json").write_text(json.dumps(r50))
     traffic = json.loads((bench / "traffic" / "closed4.json").read_text())
     traffic["clients"] = 2
     (bench / "traffic" / "closed2.json").write_text(json.dumps(traffic))
     (bench / "metrics" / "requests_done.rps.py").write_text(
         "def read(ctx):\n    return float(len(ctx.requests))\n")
     doc = json.loads((ROOT / "BENCHMARK.json").read_text())
-    doc["configs"].append({"name": "r18-gamil-small", "source": "test",
-                           "file": "benchmark/configs/r18-gamil-small.json", "reduced": [],
-                           "why": "test"})
+    for name in ("r18-gamil-small", "r50-gamil"):
+        doc["configs"].append({"name": name, "source": "test",
+                               "file": f"benchmark/configs/{name}.json", "reduced": [],
+                               "why": "test"})
     doc["workloads"].append({"name": "new-cell", "config": "r18-gamil-small",
                              "traffic": "closed2", "chips": 1, "why": "test"})
-    doc["end_to_end"][0].setdefault("workloads", []).append("new-cell")
+    doc["workloads"].append({"name": "r50-cell", "config": "r50-gamil",
+                             "traffic": "closed4", "chips": 1, "why": "test"})
+    doc["end_to_end"][0].setdefault("workloads", []).extend(["new-cell", "r50-cell"])
     doc["per_layer"].append({"name": "requests_done.rps", "unit": "req", "better": "higher",
                              "source": "program_counter", "layer": "request",
                              "moves": doc["end_to_end"][0]["name"], "workloads": ["new-cell"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(doc))
-    spec.validate(doc)
     old = spec.BENCH_DIR
     try:
         spec.BENCH_DIR = bench
+        spec.validate(doc)
         cell = spec.load_cell("new-cell", tmp_path / "BENCHMARK.json")
         assert cell.traffic["clients"] == 2
         assert cell.config["port_config"]["tpu"]["buckets"] == [256, 512, 1024]
         assert [m.name for m in cell.per_layer] == ["requests_done.rps"]
         read = spec.load_metric_reader("requests_done.rps")
         assert read(type("Ctx", (), {"requests": [1, 2, 3]})()) == 3.0
+        cell = spec.load_cell("r50-cell", tmp_path / "BENCHMARK.json")
+        assert (cell.config["backbone"], cell.config["L"]) == ("r50", 2048)
+        w = make_weights("r50", 2048, 128, 2, 2**31 + 7, "cpu")
+        assert {k: tuple(v.shape) for k, v in w.items()} == schema("r50", 2048, 128, 2)
+        assert w["feature_extractor.layer4.2.conv3.weight"].shape == (2048, 512, 1, 1)
+        assert w["classifiers.1.weight"].shape == (1, 2048)
     finally:
         spec.BENCH_DIR = old
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+@pytest.mark.parametrize("change, says", [
+    ({"backbone": "r101"}, "missing file .*r101.json"),
+    ({"L": 2048}, "yields 512 features, L is 2048"),
+    ({"port_config": "r34"}, "port_config.model"),
+    ({"backbone": "r18-broken"}, "without a downsample"),
+])
+def test_a_configuration_must_match_its_backbone(tmp_path, change, says):
+    """``validate`` refuses a configuration whose backbone has no file,
+    whose L is not the backbone's features, whose port model is another, or
+    whose backbone file does not chain its channels (``r18-broken``: layer
+    2's first block widens 64 to 128 channels with no downsample)."""
+    bench = tmp_path / "benchmark"
+    shutil.copytree(spec.BENCH_DIR, bench, ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    raw = json.loads((bench / "backbones" / "r18.json").read_text())
+    raw["blocks"][2]["downsample"] = None
+    (bench / "backbones" / "r18-broken.json").write_text(json.dumps(raw))
+    cfg = json.loads((bench / "configs" / "r18-gamil.json").read_text())
+    change = dict(change)
+    model = change.pop("port_config", None)
+    cfg.update(change)
+    cfg["port_config"]["model"] = model or cfg["backbone"]
+    (bench / "configs" / "r18-gamil.json").write_text(json.dumps(cfg))
+    doc = json.loads((ROOT / "BENCHMARK.json").read_text())
+    old = spec.BENCH_DIR
+    try:
+        spec.BENCH_DIR = bench
+        with pytest.raises(spec.SpecError, match=says):
+            spec.validate(doc)
+    finally:
+        spec.BENCH_DIR = old
 
 
 @pytest.mark.parametrize("names, bad", [
